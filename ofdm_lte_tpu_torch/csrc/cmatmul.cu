@@ -1,0 +1,237 @@
+// Planar complex GEMM for Hopper (sm_90a), fp32 on the CUDA cores.
+//
+//   C = A @ B with A (M, K), B (K, N), C (M, N), each a pair of float32
+//   planes (re, im), row-major, unit inner stride, row strides lda/ldb/ldc.
+//
+//   4-dot form:  Cr = Ar·Br − Ai·Bi        Ci = Ar·Bi + Ai·Br
+//   Gauss form:  t1 = Ar·Br, t2 = Ai·Bi, t3 = (Ar+Ai)·(Br+Bi)
+//                Cr = t1 − t2              Ci = t3 − t1 − t2
+//
+// Replaces the TPU kernel ofdm_lte_tpu/ops/pallas_kernels.py:_cmatmul_kernel
+// (driven by cmatmul_pallas_2d), in both of its forms, at its `highest`
+// precision (true fp32 products, fp32 accumulation).
+//
+// What bounds it here: fp32 FMA issue on the CUDA cores, and shared-memory
+// bandwidth right beside it. At the modem's shapes (M = lanes·14 rows,
+// K = 999 or 2048, N = 2192, 999 or 200) every element of A and B is reused
+// hundreds of times, so the operands come from L2 and shared memory and
+// device-memory bandwidth is far from the limit. Per k step a warp of the
+// 4-dot form issues 64 FFMA against 4 LDS.128 (16 shared-memory
+// wavefronts), which balances the two; the Gauss form issues 48 FFMA but
+// loads a fifth plane (Br+Bi), so it is shared-memory bound (measured on
+// the H100: slower than the 4-dot form at the modem's large shapes).
+//
+// What the design does about it:
+//   - one 64x64 output tile per block of 256 threads, each thread a 4x4
+//     complex micro-tile, so one k step costs a thread 4 shared-memory
+//     float4 loads for 64 FMAs (4-dot) or 5 loads for 48 FMAs (Gauss):
+//     complex arithmetic doubles the reuse of each loaded value;
+//   - a loop over K inside the block replaces the Pallas grid's sequential
+//     K axis and its `pl.when(k == 0)` zeroing: the sums live in registers
+//     (two planes for 4-dot, three for Gauss) and are written once;
+//   - two shared-memory stages: the next K slab is read from global memory
+//     into registers while the current one is multiplied;
+//   - every edge is masked, K included, with zero fill (the Pallas kernel's
+//     BlockSpecs leave a ragged K edge unmasked). Loads are scalar, since
+//     N = 999 and K = 999 leave rows without 16-byte alignment, and lda may
+//     be any stride (the CP-stripped view and the slot-start row gather are
+//     read in place);
+//   - in the Gauss form Br+Bi is a constant of the caller (the DFT matrix
+//     is fixed) and arrives as `bsum`; Ar+Ai is formed from the staged
+//     tiles in registers.
+//
+// Tensor-core forms (TF32 / bf16 wgmma for the `high` and `default`
+// precisions) are later work.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BM = 64;       // rows of C per block
+constexpr int BN = 64;       // columns of C per block
+constexpr int BK = 16;       // depth of one staged slab
+constexpr int TM = 4;        // rows per thread
+constexpr int TN = 4;        // columns per thread
+constexpr int THREADS = (BM / TM) * (BN / TN);     // 256
+constexpr int A_LOADS = BM * BK / THREADS;         // 4 per plane
+constexpr int B_LOADS = BK * BN / THREADS;         // 4 per plane
+constexpr int APAD = 4;      // keeps the transposed A stores off one bank
+
+template <bool GAUSS>
+struct Smem {
+  float ar[2][BK][BM + APAD];
+  float ai[2][BK][BM + APAD];
+  float br[2][BK][BN];
+  float bi[2][BK][BN];
+  float bs[GAUSS ? 2 : 1][GAUSS ? BK : 1][GAUSS ? BN : 1];
+};
+
+template <bool GAUSS>
+__global__ void __launch_bounds__(THREADS, 2)
+cmatmul_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
+               int64_t lda,
+               const float* __restrict__ br, const float* __restrict__ bi,
+               const float* __restrict__ bsum, int64_t ldb,
+               float* __restrict__ cr, float* __restrict__ ci, int64_t ldc,
+               int M, int N, int K) {
+  __shared__ __align__(16) Smem<GAUSS> s;
+
+  const int tid = threadIdx.x;
+  const int tx = tid % (BN / TN);     // column group
+  const int ty = tid / (BN / TN);     // row group
+  const int row0 = blockIdx.y * BM;
+  const int col0 = blockIdx.x * BN;
+
+  // Global -> register staging: A is read along K (its contiguous axis),
+  // B along N.
+  const int a_k = tid % BK;
+  const int a_r = tid / BK;                 // + i * (THREADS / BK)
+  const int b_n = tid % BN;
+  const int b_k = tid / BN;                 // + i * (THREADS / BN)
+
+  float ra_r[A_LOADS], ra_i[A_LOADS];
+  float rb_r[B_LOADS], rb_i[B_LOADS], rb_s[GAUSS ? B_LOADS : 1];
+
+  auto load_global = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < A_LOADS; ++i) {
+      const int r = row0 + a_r + i * (THREADS / BK);
+      const int k = k0 + a_k;
+      const bool ok = (r < M) && (k < K);
+      const int64_t off = (int64_t)r * lda + k;
+      ra_r[i] = ok ? ar[off] : 0.f;
+      ra_i[i] = ok ? ai[off] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < B_LOADS; ++i) {
+      const int k = k0 + b_k + i * (THREADS / BN);
+      const int n = col0 + b_n;
+      const bool ok = (k < K) && (n < N);
+      const int64_t off = (int64_t)k * ldb + n;
+      rb_r[i] = ok ? br[off] : 0.f;
+      rb_i[i] = ok ? bi[off] : 0.f;
+      if constexpr (GAUSS) rb_s[i] = ok ? bsum[off] : 0.f;
+    }
+  };
+
+  auto store_shared = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < A_LOADS; ++i) {
+      s.ar[buf][a_k][a_r + i * (THREADS / BK)] = ra_r[i];
+      s.ai[buf][a_k][a_r + i * (THREADS / BK)] = ra_i[i];
+    }
+#pragma unroll
+    for (int i = 0; i < B_LOADS; ++i) {
+      s.br[buf][b_k + i * (THREADS / BN)][b_n] = rb_r[i];
+      s.bi[buf][b_k + i * (THREADS / BN)][b_n] = rb_i[i];
+      if constexpr (GAUSS) s.bs[buf][b_k + i * (THREADS / BN)][b_n] = rb_s[i];
+    }
+  };
+
+  // acc0/acc1: (Cr, Ci) for 4-dot, (t1, t2) for Gauss; acc2: t3 (Gauss).
+  float acc0[TM][TN], acc1[TM][TN], acc2[GAUSS ? TM : 1][GAUSS ? TN : 1];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      acc0[i][j] = 0.f;
+      acc1[i][j] = 0.f;
+      if constexpr (GAUSS) acc2[i][j] = 0.f;
+    }
+
+  const int n_slabs = (K + BK - 1) / BK;
+  if (n_slabs > 0) {
+    load_global(0);
+    store_shared(0);
+  }
+  __syncthreads();
+
+  for (int t = 0; t < n_slabs; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < n_slabs) load_global((t + 1) * BK);
+
+#pragma unroll
+    for (int k = 0; k < BK; ++k) {
+      const float4 a_r4 = *reinterpret_cast<const float4*>(&s.ar[buf][k][ty * TM]);
+      const float4 a_i4 = *reinterpret_cast<const float4*>(&s.ai[buf][k][ty * TM]);
+      const float4 b_r4 = *reinterpret_cast<const float4*>(&s.br[buf][k][tx * TN]);
+      const float4 b_i4 = *reinterpret_cast<const float4*>(&s.bi[buf][k][tx * TN]);
+      const float xa_r[TM] = {a_r4.x, a_r4.y, a_r4.z, a_r4.w};
+      const float xa_i[TM] = {a_i4.x, a_i4.y, a_i4.z, a_i4.w};
+      const float xb_r[TN] = {b_r4.x, b_r4.y, b_r4.z, b_r4.w};
+      const float xb_i[TN] = {b_i4.x, b_i4.y, b_i4.z, b_i4.w};
+      if constexpr (GAUSS) {
+        const float4 b_s4 = *reinterpret_cast<const float4*>(&s.bs[buf][k][tx * TN]);
+        const float xb_s[TN] = {b_s4.x, b_s4.y, b_s4.z, b_s4.w};
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float xa_s = xa_r[i] + xa_i[i];
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            acc0[i][j] = fmaf(xa_r[i], xb_r[j], acc0[i][j]);
+            acc1[i][j] = fmaf(xa_i[i], xb_i[j], acc1[i][j]);
+            acc2[i][j] = fmaf(xa_s, xb_s[j], acc2[i][j]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            acc0[i][j] = fmaf(xa_r[i], xb_r[j], acc0[i][j]);
+            acc0[i][j] = fmaf(-xa_i[i], xb_i[j], acc0[i][j]);
+            acc1[i][j] = fmaf(xa_r[i], xb_i[j], acc1[i][j]);
+            acc1[i][j] = fmaf(xa_i[i], xb_r[j], acc1[i][j]);
+          }
+      }
+    }
+
+    if (t + 1 < n_slabs) store_shared(buf ^ 1);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = row0 + ty * TM + i;
+    if (r >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int n = col0 + tx * TN + j;
+      if (n >= N) continue;
+      float vr, vi;
+      if constexpr (GAUSS) {
+        vr = acc0[i][j] - acc1[i][j];
+        vi = acc2[i][j] - acc0[i][j] - acc1[i][j];
+      } else {
+        vr = acc0[i][j];
+        vi = acc1[i][j];
+      }
+      const int64_t off = (int64_t)r * ldc + n;
+      cr[off] = vr;
+      ci[off] = vi;
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int cmatmul_f32(const float* ar, const float* ai, int lda,
+                           const float* br, const float* bi,
+                           const float* bsum, int ldb,
+                           float* cr, float* ci, int ldc,
+                           int M, int N, int K, int gauss, void* stream) {
+  if (M <= 0 || N <= 0) return 0;
+  if (gauss && bsum == nullptr) return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  const dim3 block(THREADS);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (gauss) {
+    cmatmul_kernel<true><<<grid, block, 0, st>>>(
+        ar, ai, lda, br, bi, bsum, ldb, cr, ci, ldc, M, N, K);
+  } else {
+    cmatmul_kernel<false><<<grid, block, 0, st>>>(
+        ar, ai, lda, br, bi, nullptr, ldb, cr, ci, ldc, M, N, K);
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,160 @@
+"""OFDM modulation/demodulation as complex GEMMs against DFT submatrices.
+
+Port of ofdm_lte_tpu/ops/ofdm.py. The grid scatter, IDFT·√N and cyclic
+prefix fuse into one complex GEMM plus a constant pilot waveform,
+
+    tx[s, t] = Σ_d  data[s, d] · B[d, t]  +  pilot_wave[t],
+
+with t over the CP-extended time axis and d over the data bins only; the
+receiver computes only the bins it needs,
+
+    bins[s, k] = Σ_t  y[s, cp + t] · G[t, k],   G = exp(-2πi·k·t/N)/√N.
+
+Every GEMM goes through `_cmm`, which sends a CUDA tensor to the
+hand-written kernel and a CPU tensor to its plain version
+(ops/cmatmul.py). The leading batch dimensions are always flattened into
+the GEMM's M dimension.
+
+The DFT tables are built and cached as NumPy (`_mod_consts`,
+`_demod_consts`); tensors on a device live in a module's buffers
+(sim.siso.SisoLink), which pass them in as `tables`. Without `tables`
+the functions copy the cached NumPy tables to the input's device.
+"""
+from __future__ import annotations
+
+import functools
+import os
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..cplx import C
+from ..config import LTEConfig
+from ..grid import make_grid, pilot_sequence
+from .cmatmul import cmatmul
+
+_CMATMUL_FORMS = ("fma4", "gauss")
+
+
+def _cmm(a: C, b: C, bsum: Optional[torch.Tensor] = None) -> C:
+    """Complex matmul for the modem, a (..., K) @ b (K, N).
+
+    The form follows OFDM_LTE_TPU_TORCH_CMATMUL ∈ {fma4, gauss}, default
+    `fma4`: the 4-multiply, float-faithful form. `gauss` is the 3-multiply
+    form (−25% FLOPs, one extra rounding in the imaginary part); `bsum` is
+    the constant b.re + b.im it uses."""
+    form = os.environ.get("OFDM_LTE_TPU_TORCH_CMATMUL", "fma4").lower()
+    if form not in _CMATMUL_FORMS:
+        raise ValueError(f"OFDM_LTE_TPU_TORCH_CMATMUL={form!r}; pick from {_CMATMUL_FORMS}")
+    return cmatmul(a, b, gauss=(form == "gauss"), bsum=bsum)
+
+
+@functools.lru_cache(maxsize=None)
+def grid_for_cached(N: int, Nc: int):
+    return make_grid(N, Nc)
+
+
+@functools.lru_cache(maxsize=None)
+def _mod_consts(N: int, Nc: int, cp: int, cell_id: int):
+    """(B_re, B_im) of shape (n_data, N+cp) and pilot_wave (N+cp,), float32."""
+    g = grid_for_cached(N, Nc)
+    t = np.concatenate([np.arange(N - cp, N), np.arange(N)])       # (N+cp,)
+    k_data = g.data_idx.astype(np.float64)
+    A = np.exp(2j * np.pi * np.outer(t, k_data) / N) / np.sqrt(N)  # (N+cp, n_data)
+
+    pilots = pilot_sequence(cell_id, g.num_pilot)
+    k_pil = g.pilot_idx.astype(np.float64)
+    Ap = np.exp(2j * np.pi * np.outer(t, k_pil) / N) / np.sqrt(N)
+    pilot_wave = Ap @ pilots                                        # (N+cp,)
+
+    B = A.T                                                         # (n_data, N+cp)
+    return (B.real.astype(np.float32), B.imag.astype(np.float32),
+            pilot_wave.real.astype(np.float32),
+            pilot_wave.imag.astype(np.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def _demod_consts(N: int, cp: int, bins: tuple):
+    """(G_re, G_im) of shape (N, n_bins): time -> selected frequency bins."""
+    t = np.arange(N)
+    k = np.asarray(bins, np.float64)
+    G = np.exp(-2j * np.pi * np.outer(t, k) / N) / np.sqrt(N)       # (N, n_bins)
+    return G.real.astype(np.float32), G.imag.astype(np.float32)
+
+
+class ModTables(NamedTuple):
+    """Device tables of modulate_symbols: B, its Gauss sum, the pilot wave."""
+    b: C
+    bsum: torch.Tensor
+    pilot_wave: C
+
+
+class DemodTables(NamedTuple):
+    """Device tables of demodulate_bins: G and its Gauss sum."""
+    g: C
+    gsum: torch.Tensor
+
+
+def _planes(re: np.ndarray, im: np.ndarray, device) -> C:
+    """Row-major copies of two cached NumPy planes on `device` (the GEMM
+    kernel needs unit inner stride; _mod_consts' B is a transposed view)."""
+    return C(torch.tensor(np.ascontiguousarray(re), device=device),
+             torch.tensor(np.ascontiguousarray(im), device=device))
+
+
+def mod_tables(config: LTEConfig, cell_id: int = 0, device=None) -> ModTables:
+    Bre, Bim, pw_re, pw_im = _mod_consts(config.N, config.Nc, config.cp_length, cell_id)
+    b = _planes(Bre, Bim, device)
+    return ModTables(b, b.re + b.im, _planes(pw_re, pw_im, device))
+
+
+def demod_tables(config: LTEConfig, bins, device=None) -> DemodTables:
+    Gre, Gim = _demod_consts(config.N, config.cp_length, tuple(int(b) for b in bins))
+    g = _planes(Gre, Gim, device)
+    return DemodTables(g, g.re + g.im)
+
+
+def modulate_symbols(data: C, config: LTEConfig, cell_id: int = 0,
+                     tables: Optional[ModTables] = None) -> C:
+    """Map data symbols onto the LTE grid and produce CP-prefixed time signals.
+
+    data: C (..., S, n_data) -> C (..., S, N+cp). One complex GEMM.
+    """
+    if tables is None:
+        tables = mod_tables(config, cell_id, data.re.device)
+    out = _cmm(data, tables.b, tables.bsum)
+    return C(out.re + tables.pilot_wave.re, out.im + tables.pilot_wave.im)
+
+
+def demodulate_bins(y: C, config: LTEConfig, bins,
+                    tables: Optional[DemodTables] = None) -> C:
+    """CP strip + DFT/√N restricted to `bins`.
+
+    y: C (..., S, N+cp) time-domain symbols -> C (..., S, len(bins)). The
+    CP-stripped operand is a strided view that the GEMM reads in place.
+    """
+    ysig = y[..., config.cp_length:]
+    if tables is None:
+        tables = demod_tables(config, bins, y.re.device)
+    return _cmm(ysig, tables.g, tables.gsum)
+
+
+def frame_stream(signal: C, config: LTEConfig) -> C:
+    """Chunk a flat sample stream (..., S·(N+cp)) into (..., S, N+cp) symbols
+    (trailing partial symbols are dropped)."""
+    sps = config.samples_per_ofdm_symbol
+    S = signal.shape[-1] // sps
+    lead = tuple(signal.shape[:-1])
+    return C(signal.re[..., :S * sps].reshape(lead + (S, sps)),
+             signal.im[..., :S * sps].reshape(lead + (S, sps)))
+
+
+def papr_db(signal: C, axis=None) -> torch.Tensor:
+    """Peak-to-average power ratio in dB."""
+    p = signal.abs2()
+    if axis is None:
+        peak, mean = p.max(), p.mean()
+    else:
+        peak, mean = p.amax(dim=axis), p.mean(dim=axis)
+    return 10.0 * torch.log10(peak / mean)
