@@ -3,8 +3,10 @@
 A second package beside the JAX package `ofdm_lte_tpu`, which stays the
 reference it is tested against. It imports torch and NumPy and never JAX.
 Complex values are planar (`C`, a pair of float32 tensors); the modem's
-complex GEMMs run in a hand-written Hopper kernel (ops/cmatmul.py,
-csrc/cmatmul.cu) on CUDA tensors and in plain PyTorch on CPU tensors.
+complex GEMMs run in hand-written Hopper kernels (ops/cmatmul.py,
+csrc/cmatmul_tc.cu on the tensor cores, csrc/cmatmul.cu on the CUDA cores)
+on CUDA tensors and in plain PyTorch on CPU tensors. Its objects run on
+the CUDA card unless the caller passes `device="cpu"` (device.py).
 
 Ported so far: the SISO link over AWGN with CRS estimation and ZF
 (sim/siso.py) and its facade (api.py).

@@ -1,14 +1,16 @@
 """Build the package's CUDA kernels with nvcc and load them with ctypes.
 
-The first call compiles every `csrc/*.cu` into one shared library with a
-plain C interface,
+The first call compiles every `csrc/*.cu` to an object file, one nvcc for
+each source and all started together,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/libofdm_lte_tpu_torch_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c -o build/<name>.<hash>.o csrc/<name>.cu
 
-under the repository's git-ignored `build/` directory, and loads it. The
-file name carries a hash of the sources and flags, so a library is rebuilt
-only when they change. Nothing is built at import time.
+links them into one shared library with a plain C interface,
+`build/libofdm_lte_tpu_torch_<hash>.so`, under the repository's git-ignored
+`build/` directory, and loads it. The file name carries a hash of the
+sources and flags, so a library is rebuilt only when they change. Nothing
+is built at import time.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 build_log = ""          # compiler output of the build this process ran
@@ -60,17 +62,31 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in _sources()]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{build_log}")
-    os.replace(tmp, out)
+    try:
+        procs = [(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                   text=True), src)
+                 for obj, src in zip(objs, _sources())]
+        logs = [(src, proc.communicate()[0], proc.returncode) for proc, src in procs]
+        build_log = "".join(log for _, log, _ in logs)
+        failed = [src.name for src, _, rc in logs if rc != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed} with flags "
+                               f"{' '.join(NVCC_FLAGS)}\n{build_log}")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        build_log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link {out.name}\n{build_log}")
+        os.replace(tmp, out)
+    finally:
+        build_seconds = time.perf_counter() - t0
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     return out
 
 
@@ -82,5 +98,9 @@ def library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.cmatmul_f32.argtypes = [p, p, i, p, p, p, i, p, p, i, i, i, i, i, p]
         lib.cmatmul_f32.restype = i
+        lib.cmatmul_tf32x3.argtypes = [p, p, i, p, p, i, p, p, i, i, i, i, p, i, p]
+        lib.cmatmul_tf32x3.restype = i
+        lib.cmatmul_tf32x3_splits.argtypes = [i, i, i, i]
+        lib.cmatmul_tf32x3_splits.restype = i
         _lib = lib
     return _lib

@@ -3,7 +3,9 @@
 OFDMSimulator.simulate_siso and OFDMModule.transmit take and return NumPy
 and the same dict keys as the JAX package. Randomness comes from one
 `torch.Generator` per simulator, seeded from `seed` on `device`; the
-link's tables live on `device` in a SisoLink. The other methods of the
+link's tables live on `device` in a SisoLink. With no `device` given the
+objects run on the CUDA card and raise where there is none
+(device.resolve_device); `device="cpu"` asks for the CPU. The other methods of the
 JAX package's facade wait for their slices (see ROADMAP.md).
 """
 from __future__ import annotations
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from .config import LTEConfig
+from .device import resolve_device
 from .ops import qam
 from .sim import siso as _siso
 from .utils import metrics as _metrics
@@ -29,7 +32,7 @@ class OFDMSimulator:
         self.channel_type = channel_type
         self.mode = "sc-fdm" if enable_sc_fdm else mode
         self.enable_sc_fdm = enable_sc_fdm or mode == "sc-fdm"
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve_device(device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.link = _siso.SisoLink(self.config, device=self.device)

@@ -40,8 +40,9 @@
 //     is fixed) and arrives as `bsum`; Ar+Ai is formed from the staged
 //     tiles in registers.
 //
-// Tensor-core forms (TF32 / bf16 wgmma for the `high` and `default`
-// precisions) are later work.
+// The 4-dot form also runs on the tensor cores, as accurate as this one
+// (cmatmul_tc.cu, the wrapper's default); this kernel serves the Gauss form
+// and `variant="ffma"`. The `high` and `default` precisions are later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

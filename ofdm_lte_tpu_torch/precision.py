@@ -4,12 +4,13 @@ Selected by the environment variable
 
     OFDM_LTE_TPU_TORCH_MATMUL_PRECISION = highest | high | default
 
-and read at each call. `highest` is IEEE fp32 products with fp32
-accumulation; `high` (TF32) and `default` (bf16 operands, fp32
-accumulation) name the tensor-core forms. The complex-GEMM kernel
-(ops/cmatmul.py) implements `highest` only and raises NotImplementedError
-for the other two on a CUDA tensor. On the CPU the knob is inert, as in
-the JAX package.
+and read at each call. `highest` is a product as accurate as fp32 with
+fp32 accumulation (true fp32 products on the CUDA cores, or three TF32
+products per fp32 product on the tensor cores); `high` (one TF32 product)
+and `default` (bf16 operands, fp32 accumulation) name the cheaper
+tensor-core forms. The complex-GEMM kernels (ops/cmatmul.py) implement
+`highest` only and raise NotImplementedError for the other two on a CUDA
+tensor. On the CPU the knob is inert, as in the JAX package.
 
 The port's default is `highest` until a BER study on the H100 picks
 another; the JAX package's TPU precision study does not carry over.

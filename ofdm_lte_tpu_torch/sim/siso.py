@@ -28,6 +28,7 @@ from torch import nn
 
 from ..cplx import C
 from ..config import LTEConfig
+from ..device import resolve_device
 from ..grid import grid_for, interp_table, pilot_sequence
 from ..ops import ofdm, qam
 from ..ops.ofdm import DemodTables, ModTables
@@ -202,10 +203,12 @@ class SisoLink(nn.Module):
     """The AWGN/CRS/ZF SISO link for one LTEConfig, its tables as buffers.
 
     forward(bits, snr_db, generator=None, noise=None) -> SisoResult runs one
-    Monte-Carlo step; see _receive_awgn_freq for the noise seam."""
+    Monte-Carlo step; see _receive_awgn_freq for the noise seam. The tables
+    live on `device`: the CUDA card when none is given (resolve_device)."""
 
     def __init__(self, config: LTEConfig, device=None, cell_id: int = 0):
         super().__init__()
+        device = resolve_device(device)
         self.config = config
         self.cell_id = cell_id
         for name, arr in self._buffers_from(reference_tables(config, cell_id)).items():

@@ -35,7 +35,7 @@ def test_transmit_matches_jax(bw, modulation, rng):
     np.testing.assert_allclose(t.re.numpy(), np.asarray(j.re), rtol=0, atol=1e-4)
     np.testing.assert_allclose(t.im.numpy(), np.asarray(j.im), rtol=0, atol=1e-4)
     # the module's buffers give what the functional form gives
-    t2 = tsiso.SisoLink(tc).transmit(torch.from_numpy(bits))
+    t2 = tsiso.SisoLink(tc, device="cpu").transmit(torch.from_numpy(bits))
     assert torch.equal(t2.re, t.re) and torch.equal(t2.im, t.im)
 
 
@@ -111,7 +111,7 @@ def test_ber_own_generator_within_mc_bounds(modulation, snr_db, rng):
 def test_link_is_reproducible_and_follows_bit_dtype(rng):
     cfg = LTEConfig(1.25, modulation="16-QAM")
     bits = torch.from_numpy(_bits(rng, cfg, 3, 14).astype(np.int8))
-    link = tsiso.SisoLink(cfg)
+    link = tsiso.SisoLink(cfg, device="cpu")
     runs = []
     for _ in range(2):
         gen = torch.Generator()
@@ -152,7 +152,7 @@ def test_facade_keys_and_clean_link(rng):
     cfg_j = jcfg.LTEConfig(1.25, modulation="16-QAM")
     bits = rng.integers(0, 2, 1500)
     ref = JModule(cfg_j, seed=0).transmit(bits, 60.0)
-    out = OFDMModule(LTEConfig(1.25, modulation="16-QAM"), seed=0).transmit(bits, 60.0)
+    out = OFDMModule(LTEConfig(1.25, modulation="16-QAM"), seed=0, device="cpu").transmit(bits, 60.0)
     assert set(out) == set(ref)
     assert out["ber"] == ref["ber"] == 0.0
     assert out["bit_errors"] == 0 and out["transmitted_bits"] == 1500

@@ -103,8 +103,8 @@ def _jax_tables(cfg):
 @pytest.mark.parametrize("bw", [1.25, 20.0])
 def test_load_reference_tables_round_trip(bw):
     cfg = tcfg.LTEConfig(bw, modulation="64-QAM")
-    own = tsiso.SisoLink(cfg)
-    loaded = tsiso.SisoLink(cfg)
+    own = tsiso.SisoLink(cfg, device="cpu")
+    loaded = tsiso.SisoLink(cfg, device="cpu")
     for buf in loaded.buffers():
         buf.zero_()
     loaded.load_reference_tables(_jax_tables(cfg))
@@ -118,7 +118,7 @@ def test_load_reference_tables_round_trip(bw):
 
 def test_load_reference_tables_rejects_bad_input():
     cfg = tcfg.LTEConfig(1.25)
-    link = tsiso.SisoLink(cfg)
+    link = tsiso.SisoLink(cfg, device="cpu")
     tables = _jax_tables(cfg)
     with pytest.raises(KeyError):
         link.load_reference_tables({k: v for k, v in tables.items() if k != "interp_w"})
