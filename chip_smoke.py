@@ -1,45 +1,54 @@
-"""Drive the PyTorch port's main path once on one CUDA card and check it.
+"""Drive the PyTorch port's paths once on one CUDA card and check them.
 
     python3 chip_smoke.py
 
 The main path is the 20 MHz 64-QAM SISO link over AWGN with CRS
 estimation and ZF, at 256 Monte-Carlo lanes of 14-symbol frames
 (21.5 M bits per step), as ofdm_lte_tpu_torch.sim.siso.SisoLink runs it.
-Its three complex GEMMs go through the tensor-core kernel `cmatmul_tf32x3`
-(`tc`); the CUDA-core kernel `cmatmul_f32` (`ffma`: 4-dot and Gauss forms)
-is driven beside it. Phases, each of which raises on failure:
+Beside it run the other SISO branches (SC-FDM, simple mode, Jakes/ITU
+multipath, flat fading) and the diversity links (SIMO 1×2 MRC, 2×2
+Alamouti SFBC), see PATHS. Every complex GEMM of every path goes through
+the tensor-core kernel `cmatmul_tf32x3` (`tc`); the CUDA-core kernel
+`cmatmul_f32` (`ffma`: 4-dot and Gauss forms) is driven beside it on the
+main path. Phases, each of which raises on failure:
 
 1. require a CUDA card; print its name and power limit;
 2. build the CUDA kernels from ofdm_lte_tpu_torch/csrc into build/;
 3. hold the three kernels against their plain PyTorch versions (fp32, TF32
-   off) at the path's three GEMM shapes, with the strided operands the
-   path makes, and at two small ragged shapes: `tc` against `cmatmul_plain`
-   and `cmatmul_plain_tf32x3`, `ffma` 4-dot and Gauss against
-   `cmatmul_plain` of the same form. Print each one's error against a
-   float64 product (a yardstick). Run the split-K pilot GEMM twice and
-   require identical bits;
-4. run the OFDMModule facade once;
-5. run the link at 60 dB (BER must be 0) and 15 dB (BER in
+   off) at every GEMM shape of every path, with the strided operands the
+   paths make (CP-stripped and slot-start views, a leading antenna axis),
+   and at two small ragged shapes: `tc` against `cmatmul_plain` and
+   `cmatmul_plain_tf32x3`, `ffma` 4-dot and Gauss against `cmatmul_plain`
+   of the same form. Print each one's error against a float64 product (a
+   yardstick). Run the split-K pilot GEMM twice and require identical bits;
+4. run the facade once per method: OFDMModule.transmit, simulate_simo,
+   simulate_mimo and a 3-point run_ber_sweep;
+5. run the main path at 60 dB (BER must be 0) and 15 dB (BER in
    [0.0836, 0.0880], around the JAX package's 0.08586), once per kernel,
-   counting kernel launches (3 per step); and hold the CUDA path
-   against the CPU path on a small input with the same injected noise;
-6. time the link (CUDA events, bits and seed changed every step) through
-   `tc` and through `ffma`, and each GEMM through `tc`, `ffma`, the plain
-   version and one library call (torch.matmul on complex64 operands made
-   before the timed window), beside its bound: the larger of bytes moved
-   over 3.35 TB/s and operations over the peak rate of their type
-   (TF32 tensor cores 495 TFLOP/s for `tc`, which does three TF32 products
-   per fp32 product; fp32 CUDA cores 67 TFLOP/s for `ffma`).
+   counting kernel launches (3 per step); run every other path at 60 dB
+   (BER 0 where the link is clean, under a ceiling where it is not) and at
+   its working SNR (mean BER within 4σ of the JAX package's, JAX_BER), with
+   the launches the code implies and no operand copied by the wrapper; and
+   hold the CUDA path against the CPU path on small inputs with the same
+   injected draws (main path, SC-FDM, multipath, SFBC 2×2);
+6. time each path (CUDA events, bits and seed changed every step), the main
+   one through `tc` and through `ffma`, and each GEMM shape through `tc`,
+   `ffma`, Gauss, the plain version and one library call (torch.matmul on
+   complex64 operands made before the timed window), beside its bound: the
+   larger of bytes moved over 3.35 TB/s and operations over the peak rate
+   of their type (TF32 tensor cores 495 TFLOP/s for `tc`, which does three
+   TF32 products per fp32 product; fp32 CUDA cores 67 TFLOP/s for `ffma`).
 
 The second-to-last line is a JSON object describing each kernel (its times
-are sums over the step's three GEMMs); the last is
+are sums over all timed GEMM shapes, `by_shape` has each); the last is
 {"ok": true, "device": {...}}. Needs one card and no network.
 
-    python3 chip_smoke.py --profile
+    python3 chip_smoke.py --profile [PATH[,PATH...]]
 
-also traces 10 steps with torch.profiler before those two lines and prints
-where a step's device time goes: all kernels, the GEMM kernels, the number
-of kernels a step, and the device's idle share of the traced wall time.
+also traces 10 steps of each PATH (`main`, the default, or names of PATHS)
+with torch.profiler before those two lines and prints where a step's
+device time goes: all kernels, the GEMM kernels, the number of kernels a
+step, and the device's idle share of the traced wall time.
 """
 import contextlib
 import json
@@ -55,11 +64,62 @@ LANES = 256
 SYMBOLS = 14
 STEPS = 20
 BER_15DB = (0.0836, 0.0880)
+
+# The other paths, 20 MHz 64-QAM like the main one. kind: which link runs it;
+# kw: the link's arguments; snr: the working SNR of the BER check; ber60: the
+# most the mean BER may be at 60 dB (0 where the link is clean; over multipath
+# the CRS interpolation leaves a floor in deep fades, in the JAX package too;
+# None where per-sample fading leaves nothing to detect); launches:
+# complex-GEMM launches a step that the code implies (TX, Jakes taps, RX data,
+# RX pilot, SC-FDM precode and decode).
+PATHS = {
+    "scfdm_awgn": dict(kind="siso", kw=dict(mode="sc-fdm"), snr=15.0, ber60=0.0, launches=5),
+    "simple_awgn": dict(kind="siso", kw=dict(mode="simple"), snr=15.0, ber60=0.0, launches=2),
+    "lte_rayleigh_mp": dict(kind="siso", kw=dict(channel_type="rayleigh_mp",
+                                                 itu_profile="Pedestrian_A"),
+                            snr=25.0, ber60=1e-2, launches=4),
+    "lte_fading": dict(kind="siso", kw=dict(channel_type="fading"), snr=20.0, ber60=None,
+                       launches=3),
+    "simo_1x2_rayleigh_mp": dict(kind="simo", kw=dict(num_rx=2, channel_type="rayleigh_mp",
+                                                      itu_profile="Pedestrian_A"),
+                                 snr=20.0, ber60=1e-3, launches=4),
+    "sfbc_2x2_awgn": dict(kind="sfbc", kw=dict(num_rx=2), snr=15.0, ber60=0.0, launches=4),
+    "sfbc_2x2_rayleigh_mp": dict(kind="sfbc", kw=dict(num_rx=2, channel_type="rayleigh_mp",
+                                                      itu_profile="Pedestrian_A"),
+                                 snr=15.0, ber60=1e-3, launches=5),
+}
+PATH_STEPS = 10     # timed steps of each of those paths
+
+# The JAX package's BER on each path at its working SNR: mean, standard
+# deviation of the per-lane BER, lanes and bits. Run on the CPU, 20 MHz 64-QAM,
+# 14 symbols, by `JAX_PLATFORMS=cpu python tests/test_torch_chip_bands.py`,
+# which also printed the 60 dB column (8 lanes; 64 lanes for SIMO).
+JAX_BER = {
+    "scfdm_awgn": dict(mean=0.0967074, lane_std=0.00355533, lanes=64, bits=5370624),
+    "simple_awgn": dict(mean=0.0498255, lane_std=0.00116837, lanes=64, bits=6451200),
+    "lte_rayleigh_mp": dict(mean=0.0219969, lane_std=0.0160059, lanes=64,
+                            bits=5370624),                           # at 60 dB: 0.00198
+    "lte_fading": dict(mean=0.49964, lane_std=0.00135759, lanes=64,
+                       bits=5370624),                                # at 60 dB: 0.499
+    "simo_1x2_rayleigh_mp": dict(mean=0.0125064, lane_std=0.00712447, lanes=64,
+                                 bits=5370624),                      # at 60 dB: 7.1e-05
+    "sfbc_2x2_awgn": dict(mean=0.0126015, lane_std=0.00142068, lanes=64, bits=5365248),
+    "sfbc_2x2_rayleigh_mp": dict(mean=0.039381, lane_std=0.00977599, lanes=64,
+                                 bits=5365248),                      # at 60 dB: 7.6e-05
+}
+
 # max|Δ| / max|C| against the plain version of the same form. tc and ffma
 # 4-dot: the same products in another sum order; Gauss: one extra rounding.
 TOL = {"tf32x3": 1e-5, "f32_fma4": 1e-5, "f32_gauss": 1e-4}
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"tf32": 495e12, "fp32": 67e12}
+
+
+def ber_band(ref: dict, lanes: int) -> tuple:
+    """(lo, hi): 4σ around the JAX package's mean BER for a run of `lanes`
+    lanes, σ² = lane_std²·(1/ref lanes + 1/lanes)."""
+    half = 4.0 * ref["lane_std"] * np.sqrt(1.0 / ref["lanes"] + 1.0 / lanes)
+    return max(0.0, ref["mean"] - half), ref["mean"] + half
 
 
 def card_line() -> str:
@@ -117,7 +177,7 @@ def profile_steps(step, steps: int = 10) -> None:
           f"{len(kernels) / steps:.1f} kernels, of which GEMM kernels {gemm_ms:.3f} ms/step "
           f"in {len(gemm) / steps:.1f}; device idle share {1 - dev_ms / wall_ms:.3f} "
           f"(set-up of the trace {1e3 * (t1 - t0):.0f} ms, outside)")
-    for name, ms in sorted(top.items(), key=lambda kv: -kv[1])[:8]:
+    for name, ms in sorted(top.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {ms:.4f} ms/step  {name[:110]}")
 
 
@@ -133,7 +193,22 @@ def bound_ms(kernel: str, M: int, K: int, N: int):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
+def profile_targets() -> set:
+    """The paths named after --profile (comma-separated), "main" when none
+    is, the empty set without the flag."""
+    args = sys.argv[1:]
+    if "--profile" not in args:
+        return set()
+    rest = args[args.index("--profile") + 1:]
+    names = set(rest[0].split(",")) if rest else {"main"}
+    for name in names:
+        if name != "main" and name not in PATHS:
+            raise SystemExit(f"--profile {name}: pick from main, {', '.join(PATHS)}")
+    return names
+
+
 def main() -> None:
+    to_profile = profile_targets()
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card; torch.cuda.is_available() is False")
     card = card_line()
@@ -141,13 +216,15 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from ofdm_lte_tpu_torch import LTEConfig, OFDMModule, _build
+    from ofdm_lte_tpu_torch import LTEConfig, OFDMModule, OFDMSimulator, _build, cplx
+    from ofdm_lte_tpu_torch.channel import rayleigh
     from ofdm_lte_tpu_torch.cplx import C
     from ofdm_lte_tpu_torch.ops import ofdm, qam
     from ofdm_lte_tpu_torch.ops.cmatmul import (cmatmul, cmatmul_plain,
                                                 cmatmul_plain_tf32x3, default_variant)
+    from ofdm_lte_tpu_torch.rx import alamouti
     from ofdm_lte_tpu_torch.rx.estimation import SLOT_SIZE
-    from ofdm_lte_tpu_torch.sim import siso
+    from ofdm_lte_tpu_torch.sim import diversity, siso
 
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
@@ -165,12 +242,30 @@ def main() -> None:
     gen = torch.Generator(device=dev)
     n_bits = siso.bits_per_frame(cfg, SYMBOLS)
 
-    def random_bits(lanes: int, seed: int) -> torch.Tensor:
+    def random_bits(lanes: int, seed: int, n: int = n_bits) -> torch.Tensor:
         gen.manual_seed(seed)
-        return torch.randint(0, 2, (lanes, n_bits), generator=gen, device=dev,
-                             dtype=torch.int8)
+        return torch.randint(0, 2, (lanes, n), generator=gen, device=dev, dtype=torch.int8)
 
-    # -- 3. kernel vs plain at the path's shapes ---------------------------
+    def zero_counts() -> None:
+        cmatmul.launches = cmatmul.copies = 0
+        for k in cmatmul.launches_by_kernel:
+            cmatmul.launches_by_kernel[k] = 0
+
+    def path_link(name: str):
+        spec = PATHS[name]
+        if spec["kind"] == "siso":
+            return siso.SisoLink(cfg, device=dev, **spec["kw"])
+        cls = diversity.SimoLink if spec["kind"] == "simo" else diversity.SfbcLink
+        kw = dict(spec["kw"])
+        return cls(cfg, kw.pop("num_rx"), device=dev, **kw)
+
+    def path_bits(name: str) -> int:
+        spec = PATHS[name]
+        if spec["kind"] == "sfbc":
+            return diversity.sfbc_bits_per_frame(cfg, SYMBOLS)
+        return siso.bits_per_frame(cfg, SYMBOLS, spec["kw"].get("mode", "lte"))
+
+    # -- 3. kernel vs plain at the paths' shapes ----------------------------
     bits = random_bits(LANES, 1)
     data = qam.modulate(bits, cfg.modulation).reshape(LANES, SYMBOLS, -1)
     y = ofdm.frame_stream(link.transmit(bits), cfg)                 # (L, S, N+cp)
@@ -179,6 +274,37 @@ def main() -> None:
         "tx": (data, link.mod_tables.b, link.mod_tables.bsum),
         "rx_data": (y[..., cfg.cp_length:], rx.data.g, rx.data.gsum),
         "rx_pilot": (y[..., ::SLOT_SIZE, cfg.cp_length:], rx.pilot.g, rx.pilot.gsum),
+    }
+    # the new call sites: SFBC TX, SFBC RX under a leading antenna axis (data on
+    # the CP-stripped view, pilots on the slot-start view), SC-FDM precoding,
+    # the simple mode's Nc-row IDFT and its Nc-bin DFT, and the Jakes taps
+    sfbc = diversity.SfbcLink(cfg, 2, device=dev)
+    st = sfbc.tables
+    sfbc_bits = random_bits(LANES, 2, diversity.sfbc_bits_per_frame(cfg, SYMBOLS))
+    tx0_syms, _ = alamouti.encode(qam.modulate(sfbc_bits, cfg.modulation).reshape(
+        LANES, SYMBOLS, -1))
+    y2 = ofdm.frame_stream(diversity.sfbc_transmit(sfbc_bits, cfg, st), cfg)  # (2, L, S, N+cp)
+    scfdm_link = siso.SisoLink(cfg, device=dev, mode="sc-fdm")
+    simple_link = siso.SisoLink(cfg, device=dev, mode="simple")
+    simple_syms = qam.modulate(random_bits(LANES, 3, siso.bits_per_frame(cfg, SYMBOLS, "simple")),
+                               cfg.modulation).reshape(LANES, SYMBOLS, cfg.Nc)
+    profile = rayleigh.make_profile("Pedestrian_A", cfg.fs)
+    T = SYMBOLS * cfg.samples_per_ofdm_symbol
+    gen.manual_seed(4)
+    jakes_p = cplx.expi(torch.rand((LANES * profile.num_taps, rayleigh.N_SINUSOIDS),
+                                   generator=gen, device=dev) * (2 * np.pi))
+    jakes_e = cplx.expi(torch.as_tensor(rayleigh._omega(profile.doppler_hz), device=dev)[:, None]
+                        * (torch.arange(T, dtype=torch.float32, device=dev) / cfg.fs)[None, :])
+    scfdm_w = scfdm_link._gemm("scfdm_w")
+    simple_rx = simple_link.rx_tables.data
+    new_gemms = {
+        "sfbc_tx": (tx0_syms, st.mod.b, st.mod.bsum),
+        "sfbc_rx_data": (y2[..., cfg.cp_length:], st.data.g, st.data.gsum),
+        "sfbc_rx_pilot": (y2[..., ::SLOT_SIZE, cfg.cp_length:], st.pilot.g, st.pilot.gsum),
+        "scfdm": (data, scfdm_w.g, scfdm_w.gsum),
+        "simple_tx": (simple_syms, simple_link.mod_tables.b, simple_link.mod_tables.bsum),
+        "simple_rx": (y[..., cfg.cp_length:], simple_rx.g, simple_rx.gsum),
+        "jakes": (jakes_p, jakes_e, None),
     }
     g = torch.Generator(device=dev)
     g.manual_seed(7)
@@ -201,16 +327,21 @@ def main() -> None:
             return cmatmul(a, b, gauss=True, bsum=bsum)
         return cmatmul(a, b, variant="tc" if kernel == "tf32x3" else "ffma")
 
+    def mkn(a, b):
+        return int(np.prod(a.shape[:-1])), b.shape[0], b.shape[1]
+
     max_err = dict.fromkeys(TOL, 0.0)
-    for name, (a, b, bsum) in {**gemms, **ragged}.items():
-        M, K, N = int(np.prod(a.shape[:-1])), b.shape[0], b.shape[1]
+    zero_counts()
+    for name, (a, b, bsum) in {**gemms, **new_gemms, **ragged}.items():
+        M, K, N = mkn(a, b)
         a2 = C(a.re.reshape(M, K), a.im.reshape(M, K))
         plain = {False: cmatmul_plain(a2, b), True: cmatmul_plain(a2, b, gauss=True)}
         exact = c128(a2) @ c128(b)
         scale = exact.abs().max().item()
         err64 = {"plain": (c128(plain[False]) - exact).abs().max().item() / scale}
         for kernel, tol in TOL.items():
-            out = run_kernel(kernel, a2, b, bsum)
+            # the operand goes in with the strides the path gives it
+            out = run_kernel(kernel, a, b, bsum).reshape(M, N)
             torch.cuda.synchronize()
             refs = {"plain": plain[kernel == "f32_gauss"]}
             if kernel == "tf32x3":
@@ -219,8 +350,8 @@ def main() -> None:
                 err = max_diff(out, ref)
                 rel = err / max(ref.re.abs().max().item(), ref.im.abs().max().item())
                 print(f"check {name} {kernel} vs {ref_name} (M={M}, K={K}, N={N}, "
-                      f"lda={a2.re.stride(0)}): max|d| {err:.3e}  max|d|/max|C| {rel:.3e}  "
-                      f"tol {tol:.0e}")
+                      f"a strides {tuple(a.re.stride())}): max|d| {err:.3e}  "
+                      f"max|d|/max|C| {rel:.3e}  tol {tol:.0e}")
                 if not (rel <= tol):
                     raise AssertionError(f"kernel {kernel} disagrees with {ref_name} at "
                                          f"{name}: {rel:.3e} > {tol:.0e}")
@@ -229,13 +360,16 @@ def main() -> None:
             err64[kernel] = (c128(out) - exact).abs().max().item() / scale
         print(f"accuracy {name} against float64, max|d|/max|C|: " +
               "  ".join(f"{k} {v:.3e}" for k, v in err64.items()))
+        del plain, exact, out, refs, ref
+    if cmatmul.copies:
+        raise AssertionError(f"the wrapper copied {cmatmul.copies} operand planes in phase 3")
 
     # the pilot GEMM's grid is split along K; its partial sums are added in a
     # fixed order, so two runs give the same bits
     a, b, _ = gemms["rx_pilot"]
+    M, K, N = mkn(a, b)
     splits = _build.library().cmatmul_tf32x3_splits(
-        int(np.prod(a.shape[:-1])), b.shape[1], b.shape[0],
-        torch.cuda.get_device_properties(dev).multi_processor_count)
+        M, N, K, torch.cuda.get_device_properties(dev).multi_processor_count)
     first, second = cmatmul(a, b), cmatmul(a, b)
     torch.cuda.synchronize()
     same = torch.equal(first.re, second.re) and torch.equal(first.im, second.im)
@@ -243,15 +377,35 @@ def main() -> None:
     if splits < 2 or not same:
         raise AssertionError("the split-K pilot GEMM is not split or not reproducible")
 
-    # -- 4. the facade, once -----------------------------------------------
-    cmatmul.launches = 0
-    res = OFDMModule(cfg, device=dev, seed=3).transmit(
-        np.random.default_rng(3).integers(0, 2, n_bits), 60.0)
+    # -- 4. the facade, once per method --------------------------------------
+    zero_counts()
+    host_bits = np.random.default_rng(3).integers(0, 2, n_bits)
+    res = OFDMModule(cfg, seed=3).transmit(host_bits, 60.0)
     if res["ber"] != 0 or cmatmul.launches != 3 or not np.isfinite(res["papr_db"]):
         raise AssertionError(f"facade: ber {res['ber']} launches {cmatmul.launches} "
                              f"papr {res['papr_db']}")
     print(f"facade OFDMModule.transmit at 60 dB: ber {res['ber']} papr_db "
           f"{res['papr_db']:.3f} evm% {res['evm_percent']:.4f} launches {cmatmul.launches}")
+    sim = OFDMSimulator(cfg, channel_type="rayleigh_mp", seed=4)
+    # whole 14-symbol slots of each link's frame, so that the slot-start view folds
+    sfbc_host_bits = host_bits[:diversity.sfbc_bits_per_frame(cfg, SYMBOLS)]
+    for method, per_call, tx_bits in (
+            ("simulate_simo", PATHS["simo_1x2_rayleigh_mp"]["launches"], host_bits),
+            ("simulate_mimo", PATHS["sfbc_2x2_rayleigh_mp"]["launches"], sfbc_host_bits)):
+        zero_counts()
+        res = getattr(sim, method)(tx_bits, 30.0, num_rx=2)
+        print(f"facade OFDMSimulator.{method} over rayleigh_mp at 30 dB: ber {res['ber']:.6g} "
+              f"papr_db {res['papr_db']:.3f} launches {cmatmul.launches} copies {cmatmul.copies}")
+        if not (0 <= res["ber"] < 0.1) or cmatmul.launches != per_call or cmatmul.copies:
+            raise AssertionError(f"facade {method}: {res['ber']}, launches {cmatmul.launches}")
+    zero_counts()
+    sweep = OFDMSimulator(cfg, seed=5).run_ber_sweep(host_bits, [5.0, 15.0, 60.0])
+    print(f"facade run_ber_sweep at {sweep['snr_values'].tolist()} dB: ber "
+          f"{sweep['ber_values'].tolist()} launches {cmatmul.launches}")
+    b5, b15, b60 = sweep["ber_values"]
+    if not (b5 > b15 > b60 == 0.0) or cmatmul.launches != 9 or cmatmul.copies:
+        raise AssertionError(f"facade run_ber_sweep: {sweep['ber_values']}")
+    del sim
 
     # -- 5. the main path, once per kernel ----------------------------------
     def main_path_through(kernel):
@@ -260,45 +414,110 @@ def main() -> None:
         return default_variant("ffma") if kernel == "f32_fma4" else contextlib.nullcontext()
 
     launches = {}
+    launches_by_path = {}
     for kernel in TOL:
         with main_path_through(kernel):
-            for k in cmatmul.launches_by_kernel:
-                cmatmul.launches_by_kernel[k] = 0
+            zero_counts()
             bers = {}
             for step, snr in enumerate((60.0, 15.0)):
                 bits = random_bits(LANES, 100 + step)
                 gen.manual_seed(200 + step)
-                r = siso.simulate_siso(bits, snr, cfg, generator=gen)
+                # no device named: the functional form takes the card and moves
+                # the bits there, from the host too
+                r = siso.simulate_siso(bits.cpu() if step else bits, snr, cfg, generator=gen)
                 if r.bits_rx.shape != bits.shape or r.bits_rx.dtype != bits.dtype:
                     raise AssertionError(f"bits_rx {r.bits_rx.shape} {r.bits_rx.dtype}")
-                if r.ber.shape != (LANES,) or not torch.isfinite(r.papr_db).all():
-                    raise AssertionError("ber shape or non-finite PAPR")
+                if not r.bits_rx.is_cuda or r.ber.shape != (LANES,) \
+                        or not torch.isfinite(r.papr_db).all():
+                    raise AssertionError("device, ber shape or non-finite PAPR")
                 bers[snr] = r.ber.mean().item()
             counts = dict(cmatmul.launches_by_kernel)
         launches[kernel] = counts[kernel]
+        launches_by_path[f"main/{kernel}"] = counts[kernel]
         print(f"main path {kernel}: {LANES} lanes x {SYMBOLS} symbols, BER@60dB "
-              f"{bers[60.0]:.6g}, BER@15dB {bers[15.0]:.6g}, launches {counts}")
+              f"{bers[60.0]:.6g}, BER@15dB {bers[15.0]:.6g}, launches {counts}, "
+              f"copies {cmatmul.copies}")
         if bers[60.0] != 0.0 or not (BER_15DB[0] <= bers[15.0] <= BER_15DB[1]):
             raise AssertionError(f"{kernel}: BER {bers} outside 0 / {BER_15DB}")
-        if counts[kernel] != 3 * 2 or sum(counts.values()) != 3 * 2:
+        if counts[kernel] != 3 * 2 or sum(counts.values()) != 3 * 2 or cmatmul.copies:
             raise AssertionError(f"{kernel}: launches {counts}, expected 6 of {kernel} alone")
     os.environ["OFDM_LTE_TPU_TORCH_CMATMUL"] = "fma4"
+    main_papr = r.papr_db.mean().item()
 
-    # CUDA path vs CPU path on a small input with the same injected noise
+    # every other path, through the default kernel
+    print(f"paths: {LANES} lanes x {SYMBOLS} symbols each")
+    paprs = {}
+    for name, spec in PATHS.items():
+        plink = path_link(name)
+        zero_counts()
+        bers = {}
+        for step, snr in enumerate((60.0, spec["snr"])):
+            bits = random_bits(LANES, 300 + step, path_bits(name))
+            gen.manual_seed(400 + step)
+            r = plink(bits, snr, generator=gen)
+            if r.bits_rx.shape != bits.shape or r.bits_rx.dtype != bits.dtype \
+                    or r.ber.shape != (LANES,) or not torch.isfinite(r.papr_db).all():
+                raise AssertionError(f"{name}: bits_rx {r.bits_rx.shape} {r.bits_rx.dtype}, "
+                                     f"ber {r.ber.shape} or non-finite PAPR")
+            bers[snr] = r.ber.mean().item()
+        counts = dict(cmatmul.launches_by_kernel)
+        launches["tf32x3"] += counts["tf32x3"]
+        launches_by_path[name] = counts["tf32x3"]
+        paprs[name] = r.papr_db.mean().item()
+        lo, hi = ber_band(JAX_BER[name], LANES)
+        print(f"path {name}: BER@60dB {bers[60.0]:.6g} (at most {spec['ber60']}), "
+              f"BER@{spec['snr']:g}dB {bers[spec['snr']]:.6g} (JAX {JAX_BER[name]['mean']:.6g}, "
+              f"band [{lo:.6g}, {hi:.6g}]), PAPR {paprs[name]:.3f} dB, launches {counts}, "
+              f"copies {cmatmul.copies}")
+        if spec["ber60"] is not None and not bers[60.0] <= spec["ber60"]:
+            raise AssertionError(f"{name}: BER {bers[60.0]} at 60 dB, over {spec['ber60']}")
+        if not (lo <= bers[spec["snr"]] <= hi):
+            raise AssertionError(f"{name}: BER {bers[spec['snr']]} outside [{lo}, {hi}]")
+        if counts["tf32x3"] != 2 * spec["launches"] or sum(counts.values()) != counts["tf32x3"]:
+            raise AssertionError(f"{name}: launches {counts}, expected "
+                                 f"{2 * spec['launches']} of tf32x3 alone")
+        if cmatmul.copies:
+            raise AssertionError(f"{name}: the wrapper copied {cmatmul.copies} operand planes")
+        del plink, r
+    print(f"PAPR: OFDM {main_papr:.3f} dB, SC-FDM {paprs['scfdm_awgn']:.3f} dB")
+    if not paprs["scfdm_awgn"] < main_papr:
+        raise AssertionError("SC-FDM's PAPR is not below OFDM's")
+
+    # CUDA path vs CPU path on small inputs with the same injected draws
     small = LTEConfig(5.0, modulation="64-QAM")
     rng = np.random.default_rng(11)
-    sb = rng.integers(0, 2, (4, siso.bits_per_frame(small, 28))).astype(np.int32)
-    nd = siso.grid_for(small).num_data
-    npil = siso.grid_for(small).num_pilot
-    noise = ((rng.standard_normal((4, 28, nd)), rng.standard_normal((4, 28, nd))),
-             (rng.standard_normal((4, 2, npil)), rng.standard_normal((4, 2, npil))))
-    r_gpu = siso.simulate_siso(torch.as_tensor(sb, device=dev), 20.0, small, noise=noise)
-    r_cpu = siso.simulate_siso(torch.as_tensor(sb), 20.0, small, noise=noise)
-    mism = int((r_gpu.bits_rx.cpu() != r_cpu.bits_rx).sum())
-    print(f"cuda vs cpu, same noise, 5 MHz 64-QAM 20 dB: {mism} of {sb.size} bits differ, "
-          f"ber {r_gpu.ber.mean().item():.6g} vs {r_cpu.ber.mean().item():.6g}")
-    if mism > 1e-4 * sb.size:
-        raise AssertionError("CUDA path disagrees with the CPU path")
+    sg = siso.grid_for(small)
+    lanes, S = 4, 28
+
+    def normals(*shape):
+        return rng.standard_normal(shape), rng.standard_normal(shape)
+
+    n_even = len(diversity.sfbc_data_bins(small))
+    bin_noise = (normals(lanes, S, sg.num_data), normals(lanes, 2, sg.num_pilot))
+    small_profile = rayleigh.make_profile("Pedestrian_A", small.fs)
+    cases = {
+        "main": (siso.simulate_siso, siso.bits_per_frame(small, S), dict(noise=bin_noise)),
+        "sc-fdm": (siso.simulate_siso, siso.bits_per_frame(small, S),
+                   dict(mode="sc-fdm", noise=bin_noise)),
+        "rayleigh_mp": (siso.simulate_siso, siso.bits_per_frame(small, S), dict(
+            channel_type="rayleigh_mp",
+            draws={"phases": rng.uniform(0, 2 * np.pi, (lanes * small_profile.num_taps, 16)),
+                   "noise": normals(lanes, S * small.samples_per_ofdm_symbol)})),
+        "sfbc_2x2": (diversity.simulate_sfbc, diversity.sfbc_bits_per_frame(small, S), dict(
+            num_rx=2, draws={"noise": (normals(2, lanes, S, n_even),
+                                       normals(2, lanes, 2, sg.num_pilot))})),
+    }
+    for name, (fn, n, kw) in cases.items():
+        sb = torch.as_tensor(rng.integers(0, 2, (lanes, n)).astype(np.int32))
+        zero_counts()
+        r_gpu = fn(sb, 20.0, small, **kw)
+        r_cpu = fn(sb, 20.0, small, device="cpu", **kw)
+        mism = int((r_gpu.bits_rx.cpu() != r_cpu.bits_rx).sum())
+        print(f"cuda vs cpu, same draws, {name}, 5 MHz 64-QAM 20 dB: {mism} of {sb.numel()} "
+              f"bits differ, ber {r_gpu.ber.mean().item():.6g} vs "
+              f"{r_cpu.ber.mean().item():.6g}, launches {cmatmul.launches}")
+        if not r_gpu.bits_rx.is_cuda or mism > 1e-4 * sb.numel() or cmatmul.copies:
+            raise AssertionError(f"{name}: the CUDA path disagrees with the CPU path")
 
     # -- 6. timing --------------------------------------------------------
     pool = [random_bits(LANES, 1000 + i) for i in range(STEPS)]
@@ -320,14 +539,58 @@ def main() -> None:
         print(f"[{card}] main path 20 MHz 64-QAM through {kernel}, {LANES} lanes: "
               f"{t:.4f} ms/step, {LANES / (t / 1e3):.1f} frames/s, "
               f"{LANES * n_bits / (t / 1e3) / 1e9:.3f} Gbit/s")
+    if "main" in to_profile:
+        profile_steps(step)
+    del pool
+
+    for name, spec in PATHS.items():
+        plink = path_link(name)
+        ppool = [random_bits(LANES, 2000 + i, path_bits(name)) for i in range(PATH_STEPS)]
+
+        def pstep():
+            i = step_i[0] % PATH_STEPS
+            step_i[0] += 1
+            gen.manual_seed(6000 + step_i[0])
+            return plink(ppool[i], spec["snr"], generator=gen).bit_errors
+
+        torch.cuda.reset_peak_memory_stats()
+        t = cuda_ms(pstep, PATH_STEPS)
+        print(f"[{card}] path {name} 20 MHz 64-QAM through tf32x3, {LANES} lanes: "
+              f"{t:.4f} ms/step, {LANES / (t / 1e3):.1f} frames/s, "
+              f"{LANES * path_bits(name) / (t / 1e3) / 1e9:.3f} Gbit/s, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if name in to_profile:
+            profile_steps(pstep)
+        if name == "lte_rayleigh_mp":
+            # the channel stage alone: what one fused pass (taps made on the
+            # fly, delayed multiply-adds, noise) would have to beat. Fused, it
+            # reads x and writes y once: 4 planes of LANES·T floats.
+            sig, prof = plink.transmit(ppool[0]), plink.profile
+            stages = {
+                "jakes_taps": lambda: rayleigh.jakes_taps(prof, T, (LANES,), generator=gen,
+                                                          device=dev),
+                "apply_multipath (taps + FIR)": lambda: rayleigh.apply_multipath(
+                    sig, prof, generator=gen),
+                "rayleigh_multipath (taps + FIR + noise)": lambda: rayleigh.rayleigh_multipath(
+                    sig, spec["snr"], prof, -1, gen),
+            }
+            fused = 1e3 * 4 * LANES * T * 4 / HBM_BYTES_PER_S
+            for stage, fn in stages.items():
+                print(f"[{card}] stage {stage}, {LANES} lanes x {prof.num_taps} taps x {T} "
+                      f"samples: {cuda_ms(fn, PATH_STEPS):.4f} ms of the step's {t:.4f} ms; "
+                      f"one fused pass moves {4 * LANES * T * 4 / 1e6:.1f} MB, at least "
+                      f"{fused:.4f} ms")
+            del sig
+        del plink, ppool
 
     ms = dict.fromkeys(TOL, 0.0)
     plain_ms = dict.fromkeys(TOL, 0.0)
     bounds = dict.fromkeys(TOL, 0.0)
-    bound_by = {kernel: set() for kernel in TOL}
+    bound_by = {kernel: {"bytes": 0.0, "operations": 0.0} for kernel in TOL}
+    by_shape = {kernel: [] for kernel in TOL}
     library_ms = 0.0
-    for name, (a, b, bsum) in gemms.items():
-        M, K, N = int(np.prod(a.shape[:-1])), b.shape[0], b.shape[1]
+    for name, (a, b, bsum) in {**gemms, **new_gemms}.items():
+        M, K, N = mkn(a, b)
         # the library call: one cuBLAS cgemm on interleaved complex64; the
         # planar -> interleaved conversion happens here, outside the timing
         ac = torch.complex(a.re, a.im).reshape(M, K).contiguous()
@@ -348,15 +611,16 @@ def main() -> None:
             ms[kernel] += t[kernel]
             plain_ms[kernel] += plain
             bounds[kernel] += bound
-            bound_by[kernel].add(by)
+            bound_by[kernel][by] += bound
+            by_shape[kernel].append({"gemm": name, "M": M, "K": K, "N": N, "ms": t[kernel],
+                                     "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                                     "library_ms": t["library"]})
             fl = (6 if kernel == "f32_gauss" else 8) * M * K * N
             print(f"[{card}] gemm {name} {kernel} ({M}x{K})@({K}x{N}): kernel "
                   f"{t[kernel]:.4f} ms ({fl / t[kernel] / 1e9:.1f} TFLOP/s fp32-equivalent), "
                   f"plain {plain:.4f} ms, library cgemm {t['library']:.4f} ms, bound "
                   f"{bound:.4f} ms by {by} (share reached {bound / t[kernel]:.3f})")
-
-    if "--profile" in sys.argv[1:]:
-        profile_steps(step)
+        del ac, bc
 
     sources = {"tf32x3": ("cmatmul_tf32x3", "cmatmul_tc.cu", "41"),
                "f32_fma4": ("cmatmul_f32 (fma4)", "cmatmul.cu", "41"),
@@ -371,8 +635,12 @@ def main() -> None:
         "ms": ms[kernel],
         "plain_ms": plain_ms[kernel],
         "bound_ms": bounds[kernel],
-        "bound_by": "/".join(sorted(bound_by[kernel])),
+        # of the summed bound, the kind that makes up more of it
+        "bound_by": max(bound_by[kernel], key=bound_by[kernel].get),
         "library_ms": library_ms,
+        "launches_by_path": {p: n for p, n in launches_by_path.items()
+                             if p == f"main/{kernel}" or (kernel == "tf32x3" and "/" not in p)},
+        "by_shape": by_shape[kernel],
     } for kernel in TOL]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,13 +8,18 @@ csrc/cmatmul_tc.cu on the tensor cores, csrc/cmatmul.cu on the CUDA cores)
 on CUDA tensors and in plain PyTorch on CPU tensors. Its objects run on
 the CUDA card unless the caller passes `device="cpu"` (device.py).
 
-Ported so far: the SISO link over AWGN with CRS estimation and ZF
-(sim/siso.py) and its facade (api.py).
+Ported so far: the SISO link in its OFDM, SC-FDM and simple modes over
+AWGN, flat fading and Jakes/ITU multipath, with and without CRS
+equalization (sim/siso.py, channel/rayleigh.py); the SIMO-MRC and 2×N
+Alamouti SFBC diversity links (sim/diversity.py, channel/mimo.py); the
+metrics (utils/metrics.py); and the facade over them (api.py). Spatial
+multiplexing, beamforming, the coded chain and the sweeps are not ported
+yet (ROADMAP.md).
 """
 
 from .config import LTEConfig, LTE_PROFILES, CP_VALUES_US, MODULATION_SCHEMES
 from .cplx import C
-from .api import OFDMModule, OFDMSimulator
+from .api import OFDMModule, OFDMSimulator, create_simulator
 
 __all__ = ["LTEConfig", "LTE_PROFILES", "CP_VALUES_US", "MODULATION_SCHEMES",
-           "C", "OFDMModule", "OFDMSimulator"]
+           "C", "OFDMModule", "OFDMSimulator", "create_simulator"]

@@ -1,12 +1,16 @@
-"""High-level object API: the SISO surface of ofdm_lte_tpu/api.py.
+"""High-level object API: the facade of ofdm_lte_tpu/api.py.
 
-OFDMSimulator.simulate_siso and OFDMModule.transmit take and return NumPy
-and the same dict keys as the JAX package. Randomness comes from one
-`torch.Generator` per simulator, seeded from `seed` on `device`; the
-link's tables live on `device` in a SisoLink. With no `device` given the
-objects run on the CUDA card and raise where there is none
-(device.resolve_device); `device="cpu"` asks for the CPU. The other methods of the
-JAX package's facade wait for their slices (see ROADMAP.md).
+OFDMSimulator.simulate_{siso, simo, miso, mimo}, run_ber_sweep and
+run_ber_sweep_all_modulations, OFDMModule.transmit / run_ber_sweep and the
+create_simulator presets take and return NumPy and the same dict keys as
+the JAX package. Randomness comes from one `torch.Generator` per
+simulator, seeded from `seed` on `device`. A simulator builds one link per
+(pipeline, num_rx) on first use and keeps it, tables on `device`. With no
+`device` given the objects run on the CUDA card and raise where there is
+none (device.resolve_device); `device="cpu"` asks for the CPU.
+
+The coded, beamforming and spatial-multiplexing methods wait for their
+slices and raise NotImplementedError naming their ROADMAP items.
 """
 from __future__ import annotations
 
@@ -15,9 +19,10 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .config import LTEConfig
+from .config import MODULATION_SCHEMES, LTEConfig
 from .device import resolve_device
 from .ops import qam
+from .sim import diversity as _div
 from .sim import siso as _siso
 from .utils import metrics as _metrics
 
@@ -27,16 +32,45 @@ class OFDMSimulator:
 
     def __init__(self, config: Optional[LTEConfig] = None,
                  channel_type: str = "awgn", mode: str = "lte",
-                 enable_sc_fdm: bool = False, seed: int = 0, device=None):
+                 enable_sc_fdm: bool = False, itu_profile: str = "Pedestrian_A",
+                 frequency_ghz: float = 2.0, velocity_kmh: float = 0.0,
+                 seed: int = 0, device=None):
         self.config = config or LTEConfig()
         self.channel_type = channel_type
         self.mode = "sc-fdm" if enable_sc_fdm else mode
         self.enable_sc_fdm = enable_sc_fdm or mode == "sc-fdm"
+        self.itu_profile = itu_profile
+        self.frequency_ghz = frequency_ghz
+        self.velocity_kmh = velocity_kmh if velocity_kmh else None
+        _siso.check_branch(self.mode, channel_type)
         self.device = resolve_device(device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
-        self.link = _siso.SisoLink(self.config, device=self.device)
+        self._links = {}
         self.last_results = None
+
+    # -- internals ---------------------------------------------------------
+    def _chan_kwargs(self):
+        return dict(channel_type=self.channel_type, itu_profile=self.itu_profile,
+                    velocity_kmh=self.velocity_kmh, frequency_ghz=self.frequency_ghz)
+
+    def _link(self, pipeline: str, num_rx: int = 1):
+        """The link of one (pipeline, num_rx), built on first use."""
+        key = (pipeline, num_rx)
+        if key not in self._links:
+            if pipeline == "siso":
+                link = _siso.SisoLink(self.config, self.device, mode=self.mode,
+                                      **self._chan_kwargs())
+            elif pipeline == "simo":
+                link = _div.SimoLink(self.config, num_rx, self.device, **self._chan_kwargs())
+            else:
+                link = _div.SfbcLink(self.config, num_rx, self.device, **self._chan_kwargs())
+            self._links[key] = link
+        return self._links[key]
+
+    @property
+    def link(self) -> _siso.SisoLink:
+        return self._link("siso")
 
     @staticmethod
     def _trim(bits_rx: np.ndarray, n: int) -> np.ndarray:
@@ -44,31 +78,116 @@ class OFDMSimulator:
             return np.pad(bits_rx, (0, n - len(bits_rx)))
         return bits_rx[:n]
 
-    def simulate_siso(self, bits: np.ndarray, snr_db: float = 10.0) -> Dict:
-        _siso._check_branch(self.mode, self.channel_type, True)
-        bits = np.asarray(bits).astype(np.int32)
+    def _run(self, link, bits: np.ndarray, per_symbol: int, snr_db: float):
+        """Pad to whole OFDM symbols, run one step, count errors on the host."""
         n = len(bits)
-        padded = torch.as_tensor(_siso.pad_bits(bits, self.config, self.mode),
-                                 device=self.device)
-        r = self.link(padded, float(snr_db), generator=self.generator)
+        padded = np.zeros(int(np.ceil(n / per_symbol)) * per_symbol, np.int32)
+        padded[:n] = bits
+        r = link(torch.as_tensor(padded, device=self.device), float(snr_db),
+                 generator=self.generator)
         bits_rx = self._trim(r.bits_rx.cpu().numpy(), n)
         errors = int(np.sum(bits_rx != bits))
-        papr = float(r.papr_db)
-        res = {
-            "transmitted_bits": n, "received_bits": n,
-            "bits_received_array": bits_rx,
-            "bit_errors": errors, "errors": errors, "ber": errors / n,
-            "snr_db": float(snr_db),
-            "papr_db": papr,
-            "papr_linear": float(10 ** (papr / 10)),
+        return r, {"transmitted_bits": n, "received_bits": n,
+                   "bits_received_array": bits_rx, "bit_errors": errors,
+                   "errors": errors, "ber": errors / n, "snr_db": float(snr_db),
+                   "papr_db": float(r.papr_db)}
+
+    # -- SISO --------------------------------------------------------------
+    def simulate_siso(self, bits: np.ndarray, snr_db: float = 10.0) -> Dict:
+        bits = np.asarray(bits).astype(np.int32)
+        r, res = self._run(self.link, bits,
+                           _siso.bits_per_frame(self.config, 1, self.mode), snr_db)
+        res.update({
+            "papr_linear": float(10 ** (res["papr_db"] / 10)),
             "pilot_snr_db": float(r.pilot_snr_db),
             "evm_percent": _metrics.evm_percent(
                 qam.detect(r.symbols_rx, self.config.modulation), r.symbols_rx),
             "symbols_rx": r.symbols_rx.to_numpy().reshape(-1),
             "signal_tx": r.signal_tx.to_numpy(),
-        }
+        })
         self.last_results = res
         return res
+
+    # -- SIMO / MISO / MIMO ------------------------------------------------
+    def simulate_simo(self, bits: np.ndarray, snr_db: float = 10.0,
+                      num_rx: int = 2, combining: str = "mrc") -> Dict:
+        bits = np.asarray(bits).astype(np.int32)
+        _, res = self._run(self._link("simo", num_rx), bits,
+                           _siso.bits_per_frame(self.config, 1), snr_db)
+        res.update({"num_rx": num_rx, "combining_method": combining,
+                    "diversity_level": num_rx})
+        self.last_results = res
+        return res
+
+    def _simulate_sfbc(self, bits, snr_db, num_rx) -> Dict:
+        bits = np.asarray(bits).astype(np.int32)
+        _, res = self._run(self._link("sfbc", num_rx), bits,
+                           _div.sfbc_bits_per_frame(self.config, 1), snr_db)
+        res.update({"num_tx": 2, "num_rx": num_rx,
+                    "mode": "MISO-SFBC" if num_rx == 1 else "MIMO-SFBC",
+                    "diversity_order": 2 * num_rx})
+        self.last_results = res
+        return res
+
+    def simulate_miso(self, bits: np.ndarray, snr_db: float = 10.0) -> Dict:
+        return self._simulate_sfbc(bits, snr_db, num_rx=1)
+
+    def simulate_mimo(self, bits: np.ndarray, snr_db: float = 10.0,
+                      num_rx: int = 2) -> Dict:
+        return self._simulate_sfbc(bits, snr_db, num_rx=num_rx)
+
+    # -- not ported yet ----------------------------------------------------
+    def simulate_siso_coded(self, *args, **kw) -> Dict:
+        raise NotImplementedError("simulate_siso_coded: ROADMAP items A16-A18")
+
+    def simulate_siso_coded_harq(self, *args, **kw) -> Dict:
+        raise NotImplementedError("simulate_siso_coded_harq: ROADMAP items A16-A18")
+
+    def simulate_beamforming(self, *args, **kw) -> Dict:
+        raise NotImplementedError("simulate_beamforming: ROADMAP item A15")
+
+    def simulate_spatial_multiplexing(self, *args, **kw) -> Dict:
+        raise NotImplementedError("simulate_spatial_multiplexing: ROADMAP item A14")
+
+    # -- sweeps ------------------------------------------------------------
+    def run_ber_sweep(self, bits: np.ndarray, snr_range, num_trials: int = 1,
+                      progress_callback=None, confidence: float = 0.95) -> Dict:
+        """Sequential sweep of simulate_siso with per-point t-distribution
+        confidence intervals over the trials."""
+        snr_list = list(snr_range)
+        snrs, bers, paprs, ci_lo, ci_hi = [], [], [], [], []
+        for i, snr in enumerate(snr_list):
+            trial_bers = []
+            papr = 0.0
+            for _ in range(num_trials):
+                r = self.simulate_siso(bits, snr_db=float(snr))
+                trial_bers.append(r["ber"])
+                papr = r["papr_db"]
+            m, lo, hi = _metrics.ber_confidence_interval(trial_bers, confidence)
+            snrs.append(float(snr))
+            bers.append(m)
+            ci_lo.append(lo)
+            ci_hi.append(hi)
+            paprs.append(papr)
+            if progress_callback:
+                progress_callback(i + 1, len(snr_list))
+        return {"snr_values": np.asarray(snrs), "ber_values": np.asarray(bers),
+                "ber_ci_low": np.asarray(ci_lo), "ber_ci_high": np.asarray(ci_hi),
+                "papr_values": np.asarray(paprs)}
+
+    def run_ber_sweep_all_modulations(self, bits: np.ndarray, snr_range,
+                                      num_trials: int = 1) -> Dict:
+        """Sweep every modulation scheme, with a fresh simulator per scheme."""
+        out = {}
+        for mod in MODULATION_SCHEMES:
+            sim = OFDMSimulator(self.config.copy(modulation=mod),
+                                channel_type=self.channel_type, mode=self.mode,
+                                enable_sc_fdm=self.enable_sc_fdm,
+                                itu_profile=self.itu_profile,
+                                velocity_kmh=self.velocity_kmh or 0.0,
+                                device=self.device)
+            out[mod] = sim.run_ber_sweep(bits, snr_range, num_trials)
+        return out
 
 
 class OFDMModule:
@@ -76,11 +195,11 @@ class OFDMModule:
 
     def __init__(self, config: Optional[LTEConfig] = None,
                  channel_type: str = "awgn", mode: str = "lte",
-                 enable_sc_fdm: bool = False, seed: int = 0, device=None):
+                 enable_sc_fdm: bool = False, seed: int = 0, **kw):
         self.config = config or LTEConfig()
         self.simulator = OFDMSimulator(self.config, channel_type=channel_type,
                                        mode=mode, enable_sc_fdm=enable_sc_fdm,
-                                       seed=seed, device=device)
+                                       seed=seed, **kw)
 
     @property
     def modulation(self):
@@ -92,3 +211,21 @@ class OFDMModule:
 
     def transmit(self, bits: np.ndarray, snr_db: float = 10.0) -> Dict:
         return self.simulator.simulate_siso(bits, snr_db)
+
+    def run_ber_sweep(self, bits, snr_range, num_trials: int = 1,
+                      progress_callback=None) -> Dict:
+        return self.simulator.run_ber_sweep(bits, snr_range, num_trials, progress_callback)
+
+
+def create_simulator(preset: str = "5MHz_QPSK", **kw) -> OFDMSimulator:
+    """Preset factory."""
+    presets = {
+        "5MHz_QPSK": LTEConfig(5.0, modulation="QPSK"),
+        "10MHz_16QAM": LTEConfig(10.0, modulation="16-QAM"),
+        "10MHz_64QAM": LTEConfig(10.0, modulation="64-QAM"),
+        "20MHz_16QAM": LTEConfig(20.0, modulation="16-QAM"),
+        "20MHz_64QAM": LTEConfig(20.0, modulation="64-QAM"),
+    }
+    if preset not in presets:
+        raise ValueError(f"Unknown preset {preset}. Options: {list(presets)}")
+    return OFDMSimulator(presets[preset], **kw)

@@ -6,6 +6,8 @@ package's for all six bandwidths and three modulations.
 
 - LTE profiles (BW -> (Nc, N)), CP durations (µs), derived fs, Ts,
   cp_length and bits per symbol, exactly as ofdm_lte_tpu.config.LTEConfig.
+- ITU-R M.1225 power-delay profiles, their default velocities and the
+  Doppler shift.
 """
 from __future__ import annotations
 
@@ -31,6 +33,40 @@ CP_VALUES_US = {
 MODULATION_SCHEMES = ("QPSK", "16-QAM", "64-QAM")
 
 BITS_PER_SYMBOL = {"QPSK": 2, "16-QAM": 4, "64-QAM": 6}
+
+# ITU-R M.1225 tapped delay line profiles (delays in µs, tap power in dB).
+ITU_CHANNEL_MODELS = {
+    "Pedestrian_A": {
+        "delays_us": (0.0, 0.11, 0.19, 0.41),
+        "power_db": (0.0, -9.7, -19.2, -22.8),
+    },
+    "Pedestrian_B": {
+        "delays_us": (0.0, 0.2, 0.8, 1.2, 2.3, 3.7),
+        "power_db": (0.0, -0.9, -4.9, -8.0, -7.8, -23.9),
+    },
+    "Vehicular_A": {
+        "delays_us": (0.0, 0.31, 0.71, 1.09, 1.73, 2.51),
+        "power_db": (0.0, -1.0, -9.0, -10.0, -15.0, -20.0),
+    },
+    "Vehicular_B": {
+        "delays_us": (0.0, 0.3, 0.7, 1.09, 1.73, 2.51, 3.7, 4.53),
+        "power_db": (0.0, -1.0, -9.0, -10.0, -13.0, -16.0, -21.6, -24.0),
+    },
+    "Bad_Urban": {
+        "delays_us": (0.0, 0.1, 0.3, 0.5, 0.9, 1.3, 1.9, 2.6),
+        "power_db": (0.0, -3.0, -5.0, -7.0, -9.0, -11.0, -13.0, -15.0),
+    },
+}
+
+# Default mobile velocity per ITU profile (km/h), from which the Doppler
+# frequency follows when none is given.
+ITU_DEFAULT_VELOCITY_KMH = {
+    "Pedestrian_A": 5.0,
+    "Pedestrian_B": 5.0,
+    "Vehicular_A": 30.0,
+    "Vehicular_B": 120.0,
+    "Bad_Urban": 10.0,
+}
 
 
 def _next_power_of_2(x: int) -> int:
@@ -110,3 +146,8 @@ class LTEConfig:
                 for k in ("bandwidth", "delta_f", "modulation", "cp_type")}
         keep.update(updates)
         return LTEConfig(**keep)
+
+
+def doppler_hz(velocity_kmh: float, frequency_ghz: float = 2.0) -> float:
+    """Maximum Doppler shift f_D = v·fc/c."""
+    return (velocity_kmh / 3.6) * (frequency_ghz * 1e9) / 3e8

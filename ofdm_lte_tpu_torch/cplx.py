@@ -43,6 +43,14 @@ class C(NamedTuple):
     def reshape(self, *shape) -> "C":
         return C(self.re.reshape(*shape), self.im.reshape(*shape))
 
+    def transpose(self, *axes) -> "C":
+        """Permute the axes (NumPy's transpose, torch's permute)."""
+        if len(axes) == 1 and not isinstance(axes[0], int):
+            axes = tuple(axes[0])
+        if not axes:
+            axes = tuple(reversed(range(self.ndim)))
+        return C(self.re.permute(*axes), self.im.permute(*axes))
+
     # ---- arithmetic ----
     def __add__(self, o) -> "C":
         if isinstance(o, C):
@@ -85,6 +93,21 @@ class C(NamedTuple):
     def abs2(self) -> torch.Tensor:
         return self.re * self.re + self.im * self.im
 
+    def abs(self) -> torch.Tensor:
+        return torch.sqrt(self.abs2())
+
+    def sum(self, axis=None, keepdims: bool = False) -> "C":
+        if axis is None:
+            return C(self.re.sum(), self.im.sum())
+        return C(self.re.sum(dim=axis, keepdim=keepdims),
+                 self.im.sum(dim=axis, keepdim=keepdims))
+
+    def mean(self, axis=None, keepdims: bool = False) -> "C":
+        if axis is None:
+            return C(self.re.mean(), self.im.mean())
+        return C(self.re.mean(dim=axis, keepdim=keepdims),
+                 self.im.mean(dim=axis, keepdim=keepdims))
+
     # ---- interop ----
     def to_numpy(self) -> np.ndarray:
         return self.re.detach().cpu().numpy() + 1j * self.im.detach().cpu().numpy()
@@ -95,6 +118,50 @@ def from_numpy(x, device=None) -> C:
     x = np.asarray(x)
     return C(torch.as_tensor(np.ascontiguousarray(x.real), dtype=torch.float32, device=device),
              torch.as_tensor(np.ascontiguousarray(x.imag), dtype=torch.float32, device=device))
+
+
+def const(x, device=None) -> C:
+    """Embed a NumPy complex constant as a C pair on `device`."""
+    return from_numpy(x, device)
+
+
+def czeros(shape, device=None) -> C:
+    return C(torch.zeros(shape, dtype=torch.float32, device=device),
+             torch.zeros(shape, dtype=torch.float32, device=device))
+
+
+def cones(shape, device=None) -> C:
+    return C(torch.ones(shape, dtype=torch.float32, device=device),
+             torch.zeros(shape, dtype=torch.float32, device=device))
+
+
+def expi(theta: torch.Tensor) -> C:
+    """exp(i·theta) elementwise."""
+    return C(torch.cos(theta), torch.sin(theta))
+
+
+def stack(xs, axis: int = 0) -> C:
+    return C(torch.stack([x.re for x in xs], dim=axis),
+             torch.stack([x.im for x in xs], dim=axis))
+
+
+def concatenate(xs, axis: int = 0) -> C:
+    return C(torch.cat([x.re for x in xs], dim=axis),
+             torch.cat([x.im for x in xs], dim=axis))
+
+
+def pad(x: C, pad_width) -> C:
+    """Zero-pad with NumPy's per-axis ((before, after), ...) widths."""
+    flat = [w for pair in reversed(list(pad_width)) for w in pair]
+    return C(torch.nn.functional.pad(x.re, flat), torch.nn.functional.pad(x.im, flat))
+
+
+def scatter_set(base: C, idx, values: C) -> C:
+    """A copy of `base` with base[idx] = values (jnp's .at[idx].set)."""
+    re, im = base.re.clone(), base.im.clone()
+    re[idx] = values.re
+    im[idx] = values.im
+    return C(re, im)
 
 
 def take(x: C, idx: torch.Tensor, axis: int = 0) -> C:

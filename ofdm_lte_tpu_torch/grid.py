@@ -1,8 +1,8 @@
 """LTE resource grid: static index tables and CRS pilot sequences.
 
-A NumPy-only copy of the parts of ofdm_lte_tpu/grid.py that the SISO link
-uses; tests/test_torch_tables.py holds them element-exact against the JAX
-package. Layout rules (as the JAX package):
+A NumPy-only copy of ofdm_lte_tpu/grid.py; tests/test_torch_tables.py
+holds its tables element-exact against the JAX package's. Layout rules (as
+the JAX package):
 
 - symmetric guards: left = (N-Nc)//2, right = N-Nc-left
 - DC null at k = N//2
@@ -88,8 +88,11 @@ def interp_table(N: int, Nc: int) -> tuple:
 
     Returns (left, right, w) NumPy arrays of shape (N,).
     """
-    g = make_grid(N, Nc)
-    p = g.pilot_idx.astype(np.int64)
+    return _interp_table_for(make_grid(N, Nc).pilot_idx, N)
+
+
+def _interp_table_for(pilot_idx, N: int) -> tuple:
+    p = np.asarray(pilot_idx, dtype=np.int64)
     k = np.arange(N)
 
     right = np.searchsorted(p, k, side="left")          # first pilot >= k
@@ -105,3 +108,32 @@ def interp_table(N: int, Nc: int) -> tuple:
     w = np.clip(w, 0.0, 1.0)
 
     return (left_c.astype(np.int32), right_c.astype(np.int32), w.astype(np.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def interp_table_custom(pilot_idx_tuple: tuple, N: int) -> tuple:
+    """The same table for an arbitrary static pilot index set: the MIMO
+    estimator's per-TX orthogonal pilots are subsets of the CRS grid."""
+    return _interp_table_for(pilot_idx_tuple, N)
+
+
+def pilot_step(num_tx: int, layout: str = "reference") -> int:
+    """CRS FDM step for `num_tx` antennas.
+
+    layout="reference": step = min(num_tx, 4), so that with 8 TX the
+    antennas t and t+4 share pilot bins. layout="extended": step = num_tx,
+    every TX on its own disjoint comb."""
+    if layout == "reference":
+        return num_tx if num_tx <= 4 else 4
+    if layout == "extended":
+        return num_tx
+    raise ValueError(f"unknown pilot layout {layout!r}")
+
+
+def orthogonal_pilot_indices(config: LTEConfig, num_tx: int,
+                             layout: str = "reference") -> list:
+    """FDM-orthogonal CRS allocation for MIMO: every `step`-th pilot bin
+    with a per-TX offset (see pilot_step)."""
+    g = grid_for(config)
+    step = pilot_step(num_tx, layout)
+    return [g.pilot_idx[tx % step::step] for tx in range(num_tx)]

@@ -17,7 +17,9 @@ dimensions flattened into M, in the 4-dot form or the 3-dot Gauss form:
   Gauss form and `variant="ffma"` go to the fp32 CUDA-core kernel
   csrc/cmatmul.cu (`cmatmul_f32`). Each call that launches adds one to
   `cmatmul.launches` and to its kernel's entry in
-  `cmatmul.launches_by_kernel` (a split-K call counts once).
+  `cmatmul.launches_by_kernel` (a split-K call counts once), and each
+  operand plane whose leading axes do not fold into one row stride, which
+  `reshape` then copies, adds one to `cmatmul.copies` (see `fold_rows`).
 
 `cmatmul_plain_tf32x3` repeats the tensor-core kernel's arithmetic (the
 TF32 head/tail split and the twelve products) in plain PyTorch; the tests
@@ -100,10 +102,25 @@ def cmatmul_plain_tf32x3(a: C, b: C) -> C:
     return C(dot(ar, br) - dot(ai, bi), dot(ar, bi) + dot(ai, br))
 
 
+def fold_rows(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, bool]:
+    """x (..., k) as (M, k) rows for the kernel, and whether that took a copy.
+
+    The kernel reads its operand through one row stride, so the leading
+    axes must fold into one: a view when each axis's stride is the next
+    one's stride times its length (a contiguous batch, a CP-stripped view,
+    a slot-start view y[..., ::14, :] when S is a multiple of 14), else
+    `reshape` copies the plane."""
+    x2 = x.reshape(-1, k)
+    copied = x2.numel() > 0 and (x2.untyped_storage().data_ptr()
+                                 != x.untyped_storage().data_ptr())
+    return x2, copied
+
+
 def _plane_2d(x: torch.Tensor, k: int, what: str) -> torch.Tensor:
     if x.dtype != torch.float32:
         raise TypeError(f"cmatmul: {what} must be float32, got {x.dtype}")
-    x2 = x.reshape(-1, k)            # a view whenever the strides allow it
+    x2, copied = fold_rows(x, k)
+    cmatmul.copies += int(copied)
     if k > 1 and x2.stride(1) != 1:
         raise ValueError(f"cmatmul: {what} needs unit inner stride, got {x2.stride()}")
     return x2
@@ -197,4 +214,5 @@ def cmatmul(a: C, b: C, gauss: bool = False, bsum: torch.Tensor = None,
 
 
 cmatmul.launches = 0
+cmatmul.copies = 0      # operand planes that did not fold into rows and were copied
 cmatmul.launches_by_kernel = {"tf32x3": 0, "f32_fma4": 0, "f32_gauss": 0}

@@ -10,10 +10,12 @@ receiver computes only the bins it needs,
 
     bins[s, k] = Σ_t  y[s, cp + t] · G[t, k],   G = exp(-2πi·k·t/N)/√N.
 
-Every GEMM goes through `_cmm`, which sends a CUDA tensor to the
-hand-written kernel and a CPU tensor to its plain version
-(ops/cmatmul.py). The leading batch dimensions are always flattened into
-the GEMM's M dimension.
+The SFBC and spatial TX paths use the same GEMM over a custom bin layout
+(`modulate_custom`, `modulate_custom_multi`), and `modulate_grid` runs the
+IDFT of an explicit N-bin grid. Every GEMM goes through `_cmm`, which
+sends a CUDA tensor to the hand-written kernel and a CPU tensor to its
+plain version (ops/cmatmul.py). The leading batch dimensions are always
+flattened into the GEMM's M dimension.
 
 The DFT tables are built and cached as NumPy (`_mod_consts`,
 `_demod_consts`); tensors on a device live in a module's buffers
@@ -83,6 +85,42 @@ def _demod_consts(N: int, cp: int, bins: tuple):
     return G.real.astype(np.float32), G.imag.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _mod_consts_custom(N: int, cp: int, data_bins: tuple, pilot_bins: tuple, cell_id: int):
+    """_mod_consts for an arbitrary static bin layout: each antenna of the
+    SFBC and spatial TX paths maps data to a subset of the bins and carries
+    its own orthogonal CRS pilots. No pilot bins give a zero pilot wave."""
+    t = np.concatenate([np.arange(N - cp, N), np.arange(N)])
+    k_data = np.asarray(data_bins, np.float64)
+    A = np.exp(2j * np.pi * np.outer(t, k_data) / N) / np.sqrt(N)
+    if len(pilot_bins):
+        pw_re, pw_im = _pilot_wave_const(N, cp, pilot_bins, cell_id)
+    else:
+        pw_re = pw_im = np.zeros(len(t), np.float32)
+    B = A.T
+    return B.real.astype(np.float32), B.imag.astype(np.float32), pw_re, pw_im
+
+
+@functools.lru_cache(maxsize=None)
+def _pilot_wave_const(N: int, cp: int, pilot_bins: tuple, cell_id: int):
+    """Constant time-domain CRS contribution of one antenna's pilot layout:
+    pw[t] = Σ_j p_j·exp(2πi·t·k_j/N)/√N over the CP-extended time axis."""
+    t = np.concatenate([np.arange(N - cp, N), np.arange(N)])
+    pilots = pilot_sequence(cell_id, len(pilot_bins))
+    Ap = np.exp(2j * np.pi * np.outer(t, np.asarray(pilot_bins, np.float64)) / N) / np.sqrt(N)
+    pw = Ap @ pilots
+    return pw.real.astype(np.float32), pw.imag.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _full_idft_consts(N: int, cp: int):
+    """(F_re, F_im) of shape (N, N+cp): every bin -> CP-extended time."""
+    t = np.concatenate([np.arange(N - cp, N), np.arange(N)])
+    k = np.arange(N, dtype=np.float64)
+    A = np.exp(2j * np.pi * np.outer(k, t) / N) / np.sqrt(N)
+    return A.real.astype(np.float32), A.imag.astype(np.float32)
+
+
 class ModTables(NamedTuple):
     """Device tables of modulate_symbols: B, its Gauss sum, the pilot wave."""
     b: C
@@ -110,9 +148,36 @@ def mod_tables(config: LTEConfig, cell_id: int = 0, device=None) -> ModTables:
 
 
 def demod_tables(config: LTEConfig, bins, device=None) -> DemodTables:
-    Gre, Gim = _demod_consts(config.N, config.cp_length, tuple(int(b) for b in bins))
+    Gre, Gim = _demod_consts(config.N, config.cp_length, _int_tuple(bins))
     g = _planes(Gre, Gim, device)
     return DemodTables(g, g.re + g.im)
+
+
+def _int_tuple(bins) -> tuple:
+    return tuple(int(b) for b in bins)
+
+
+def mod_tables_custom(config: LTEConfig, data_bins, pilot_bins, cell_id: int,
+                      device=None) -> ModTables:
+    Bre, Bim, pw_re, pw_im = _mod_consts_custom(
+        config.N, config.cp_length, _int_tuple(data_bins), _int_tuple(pilot_bins), cell_id)
+    b = _planes(Bre, Bim, device)
+    return ModTables(b, b.re + b.im, _planes(pw_re, pw_im, device))
+
+
+def mod_tables_multi(config: LTEConfig, data_bins, pilot_bins_per_tx, cell_ids,
+                     device=None) -> ModTables:
+    """One B for the shared data bins and a (tx, N+cp) pilot wave."""
+    b = mod_tables_custom(config, data_bins, (), 0, device)
+    pw = [_pilot_wave_const(config.N, config.cp_length, _int_tuple(p), int(c))
+          for p, c in zip(pilot_bins_per_tx, cell_ids)]
+    return ModTables(b.b, b.bsum, _planes(np.stack([w[0] for w in pw]),
+                                          np.stack([w[1] for w in pw]), device))
+
+
+def idft_tables(config: LTEConfig, device=None) -> DemodTables:
+    f = _planes(*_full_idft_consts(config.N, config.cp_length), device)
+    return DemodTables(f, f.re + f.im)
 
 
 def modulate_symbols(data: C, config: LTEConfig, cell_id: int = 0,
@@ -125,6 +190,39 @@ def modulate_symbols(data: C, config: LTEConfig, cell_id: int = 0,
         tables = mod_tables(config, cell_id, data.re.device)
     out = _cmm(data, tables.b, tables.bsum)
     return C(out.re + tables.pilot_wave.re, out.im + tables.pilot_wave.im)
+
+
+def modulate_custom(data: C, config: LTEConfig, data_bins, pilot_bins, cell_id: int,
+                    tables: Optional[ModTables] = None) -> C:
+    """Grid scatter + IDFT + CP for a custom data/pilot bin layout.
+
+    data: C (..., S, len(data_bins)) -> C (..., S, N+cp). One complex GEMM."""
+    if tables is None:
+        tables = mod_tables_custom(config, data_bins, pilot_bins, cell_id, data.re.device)
+    out = _cmm(data, tables.b, tables.bsum)
+    return C(out.re + tables.pilot_wave.re, out.im + tables.pilot_wave.im)
+
+
+def modulate_custom_multi(data: C, config: LTEConfig, data_bins, pilot_bins_per_tx,
+                          cell_ids, tables: Optional[ModTables] = None) -> C:
+    """The same for num_tx antennas that share one data-bin layout and carry
+    per-TX orthogonal CRS: the DFT submatrix depends only on the shared data
+    bins, so all antennas go through one GEMM with the antenna axis folded
+    into M, plus a per-TX constant pilot wave.
+
+    data: C (..., tx, m) with the antenna axis at -2 -> C (..., tx, N+cp)."""
+    if tables is None:
+        tables = mod_tables_multi(config, data_bins, pilot_bins_per_tx, cell_ids,
+                                  data.re.device)
+    out = _cmm(data, tables.b, tables.bsum)
+    return C(out.re + tables.pilot_wave.re, out.im + tables.pilot_wave.im)
+
+
+def modulate_grid(grid: C, config: LTEConfig, tables: Optional[DemodTables] = None) -> C:
+    """IDFT·√N + CP of an explicit full N-bin grid (..., S, N) -> (..., S, N+cp)."""
+    if tables is None:
+        tables = idft_tables(config, grid.re.device)
+    return _cmm(grid, tables.g, tables.gsum)
 
 
 def demodulate_bins(y: C, config: LTEConfig, bins,
@@ -140,6 +238,11 @@ def demodulate_bins(y: C, config: LTEConfig, bins,
     return _cmm(ysig, tables.g, tables.gsum)
 
 
+def demodulate_full(y: C, config: LTEConfig, tables: Optional[DemodTables] = None) -> C:
+    """CP strip + full-N DFT/√N: (..., S, N+cp) -> (..., S, N)."""
+    return demodulate_bins(y, config, np.arange(config.N), tables)
+
+
 def frame_stream(signal: C, config: LTEConfig) -> C:
     """Chunk a flat sample stream (..., S·(N+cp)) into (..., S, N+cp) symbols
     (trailing partial symbols are dropped)."""
@@ -148,6 +251,16 @@ def frame_stream(signal: C, config: LTEConfig) -> C:
     lead = tuple(signal.shape[:-1])
     return C(signal.re[..., :S * sps].reshape(lead + (S, sps)),
              signal.im[..., :S * sps].reshape(lead + (S, sps)))
+
+
+def papr_per_symbol_db(signal: C, config: LTEConfig, include_cp: bool = True) -> torch.Tensor:
+    """Per-OFDM-symbol PAPR, optionally without the cyclic prefix.
+
+    signal: (..., S·(N+cp)) -> (..., S)."""
+    framed = frame_stream(signal, config)
+    if not include_cp:
+        framed = framed[..., config.cp_length:]
+    return papr_db(framed, axis=-1)
 
 
 def papr_db(signal: C, axis=None) -> torch.Tensor:

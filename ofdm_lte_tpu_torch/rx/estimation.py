@@ -9,6 +9,7 @@ Port of ofdm_lte_tpu/rx/estimation.py:
 - slot-periodic estimation: one estimate per 14-symbol slot, reused within
   the slot
 - ZF equalization X̂ = Y/(Ĥ+ε), ε=1e-6 added to the real part
+- maximum-ratio combining over an antenna axis
 
 The functions take their constant tables (`known` pilots, interpolation
 `table`) from the caller's device buffers, or build them from the NumPy
@@ -24,7 +25,7 @@ import torch
 from .. import cplx
 from ..cplx import C
 from ..config import LTEConfig
-from ..grid import pilot_sequence, interp_table
+from ..grid import pilot_sequence, interp_table, interp_table_custom
 
 SLOT_SIZE = 14  # OFDM symbols per LTE slot
 
@@ -52,10 +53,14 @@ def pilot_snr_db(rx_pilot_bins: C, cell_id: int = 0, axis=None,
 
 
 def interp_tables(config: LTEConfig, out_bins: Optional[np.ndarray] = None,
-                  device=None) -> tuple:
-    """(left, right, w) of grid.interp_table restricted to `out_bins`, as
+                  device=None, pilot_idx: Optional[np.ndarray] = None) -> tuple:
+    """(left, right, w) of grid.interp_table (or, for a pilot subset
+    `pilot_idx`, of grid.interp_table_custom) restricted to `out_bins`, as
     tensors on `device` (int64, int64, float32)."""
-    left, right, w = interp_table(config.N, config.Nc)
+    if pilot_idx is None:
+        left, right, w = interp_table(config.N, config.Nc)
+    else:
+        left, right, w = interp_table_custom(tuple(int(i) for i in pilot_idx), config.N)
     if out_bins is not None:
         left, right, w = left[out_bins], right[out_bins], w[out_bins]
     return (torch.tensor(left, dtype=torch.int64, device=device),
@@ -64,14 +69,15 @@ def interp_tables(config: LTEConfig, out_bins: Optional[np.ndarray] = None,
 
 
 def interpolate(h_pilots: C, config: LTEConfig, out_bins: Optional[np.ndarray] = None,
-                table: Optional[tuple] = None) -> C:
+                table: Optional[tuple] = None, pilot_idx: Optional[np.ndarray] = None) -> C:
     """Linear interp of pilot estimates to `out_bins` (default: all N bins).
 
-    h_pilots: (..., num_pilot) -> (..., len(out_bins)). `table` is the
-    (left, right, w) of interp_tables for the same out_bins.
+    h_pilots: (..., num_pilot) -> (..., len(out_bins)). `pilot_idx` names the
+    bins of h_pilots when they are a subset of the CRS grid. `table` is the
+    (left, right, w) of interp_tables for the same out_bins and pilot_idx.
     """
     if table is None:
-        table = interp_tables(config, out_bins, h_pilots.re.device)
+        table = interp_tables(config, out_bins, h_pilots.re.device, pilot_idx)
     left, right, w = table
     wl = 1.0 - w
     hl = cplx.take(h_pilots, left, axis=-1)
@@ -96,3 +102,11 @@ def slot_start_indices(num_symbols: int, slot_size: int = SLOT_SIZE) -> np.ndarr
 def zf_equalize(y: C, h: C, regularization: float = 1e-6) -> C:
     """Zero-forcing X̂ = Y/(Ĥ+ε) with a real-added ε."""
     return y / C(h.re + regularization, h.im)
+
+
+def mrc_combine(y: C, h: C, antenna_axis: int = 0, regularization: float = 1e-10) -> C:
+    """Frequency-domain maximum-ratio combining over an antenna axis:
+        Ŝ = Σ_i conj(H_i)·Y_i / (Σ_i |H_i|² + ε)."""
+    num = (h.conj() * y).sum(axis=antenna_axis)
+    den = h.abs2().sum(dim=antenna_axis) + regularization
+    return C(num.re / den, num.im / den)

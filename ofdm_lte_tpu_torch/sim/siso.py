@@ -1,22 +1,34 @@
-"""SISO OFDM simulation: the 20 MHz AWGN link with CRS estimation and ZF.
+"""SISO OFDM / SC-FDM simulation: every branch of the link.
 
-Port of the main branch of ofdm_lte_tpu/sim/siso.py — mode "lte",
-channel_type "awgn", enable_equalization=True:
+Port of ofdm_lte_tpu/sim/siso.py:
 
-    bits -> QAM -> grid scatter + IDFT + CP (one complex GEMM) -> PAPR
-         -> DFT to the data bins and the slot-start pilot bins (two GEMMs)
-         -> CN noise at the bins -> LS + interpolation + slot hold -> ZF
-         -> hard demap -> bit errors
+    bits -> QAM [-> SC-FDM DFT precoding] -> grid scatter + IDFT + CP (one
+    complex GEMM) -> PAPR -> channel -> DFT to the bins the receiver needs
+    -> LS + interpolation + slot hold -> ZF [-> SC-FDM IDFT] -> hard demap
+    -> bit errors
 
-The noise is injected at the demodulated bins, as in the JAX package: the
+- mode: "lte" (OFDM on the LTE grid with CRS pilots), "sc-fdm" (the same
+  grid with DFT-precoded data) or "simple" (sequential mapping onto the
+  first Nc bins, no pilots, no equalization);
+- channel_type: "awgn", "fading" (per-sample flat Rayleigh) or
+  "rayleigh_mp" (Jakes taps over an ITU power-delay profile);
+- enable_equalization=False detects the raw data bins and reports the pilot
+  SNR over every symbol's pilot bins.
+
+Over AWGN with equalization ("lte" and "sc-fdm") the noise is injected at
+the demodulated bins (`_receive_awgn_freq`), as in the JAX package: the
 modem's DFT is unitary and the receiver discards the CP samples and the
 guard/DC bins, so time-domain CN(0, σ²) noise reaches the detector only as
-i.i.d. CN(0, σ²) at those bins.
+i.i.d. CN(0, σ²) at those bins. Every other combination sends the sample
+stream through `_apply_channel` and the time-domain `receive`.
 
-`SisoLink` is an nn.Module holding one configuration's constant tables as
-buffers; `simulate_siso` is the functional form. Leading axes of `bits`
-are independent Monte-Carlo lanes. The other branches of the JAX
-package's simulate_siso raise NotImplementedError.
+`SisoLink` is an nn.Module that takes mode, channel and equalization at
+construction and holds every constant table that configuration needs as
+buffers; `simulate_siso` is the functional form. Both run on the CUDA card
+unless the caller passes `device="cpu"`. Leading axes of `bits` are
+independent Monte-Carlo lanes. Randomness comes from one torch.Generator
+per call; `noise` (bin-domain AWGN) and `draws` (time-domain channels) are
+the seams through which a caller supplies the random numbers.
 """
 from __future__ import annotations
 
@@ -26,13 +38,18 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..channel.awgn import awgn, snr_linear, standard_normals
+from ..channel.rayleigh import flat_fading, make_profile, rayleigh_multipath
 from ..cplx import C
 from ..config import LTEConfig
 from ..device import resolve_device
 from ..grid import grid_for, interp_table, pilot_sequence
-from ..ops import ofdm, qam
+from ..ops import ofdm, qam, scfdm
 from ..ops.ofdm import DemodTables, ModTables
 from ..rx import estimation as est
+
+MODES = ("lte", "sc-fdm", "simple")
+CHANNEL_TYPES = ("awgn", "fading", "rayleigh_mp")
 
 
 class SisoResult(NamedTuple):
@@ -46,24 +63,19 @@ class SisoResult(NamedTuple):
 
 
 class RxTables(NamedTuple):
-    """Device tables of the equalized receiver."""
-    data: DemodTables            # DFT to the data bins
-    pilot: DemodTables           # DFT to the pilot bins
-    known: C                     # CRS pilot sequence
-    interp: tuple                # (left, right, w) at the data bins
+    """Device tables of the receiver; a mode leaves what it does not use None."""
+    data: DemodTables                        # DFT to the data bins
+    pilot: Optional[DemodTables] = None      # DFT to the pilot bins
+    known: Optional[C] = None                # CRS pilot sequence
+    interp: Optional[tuple] = None           # (left, right, w) at the data bins
+    scfdm: Optional[DemodTables] = None      # SC-FDM IDFT
 
 
-def _check_branch(mode: str, channel_type: str, enable_equalization: bool) -> None:
-    if mode != "lte":
-        raise NotImplementedError(f"simulate_siso mode={mode!r}: ROADMAP item A9")
-    if not enable_equalization:
-        raise NotImplementedError("simulate_siso enable_equalization=False: ROADMAP item A9")
-    if channel_type == "fading":
-        raise NotImplementedError("simulate_siso channel_type='fading': ROADMAP item A9")
-    if channel_type == "rayleigh_mp":
-        raise NotImplementedError("simulate_siso channel_type='rayleigh_mp': ROADMAP item A10")
-    if channel_type != "awgn":
-        raise ValueError(f"unknown channel_type {channel_type}")
+def check_branch(mode: str, channel_type: str) -> None:
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; pick from {MODES}")
+    if channel_type not in CHANNEL_TYPES:
+        raise ValueError(f"unknown channel_type {channel_type!r}; pick from {CHANNEL_TYPES}")
 
 
 def bits_per_frame(config: LTEConfig, num_ofdm_symbols: int, mode: str = "lte") -> int:
@@ -86,57 +98,81 @@ def pad_bits(bits: np.ndarray, config: LTEConfig, mode: str = "lte") -> np.ndarr
 
 
 def transmit(bits: torch.Tensor, config: LTEConfig, mode: str = "lte",
-             cell_id: int = 0, tables: Optional[ModTables] = None) -> C:
-    """bits (..., S·n_data·bps) -> CP-prefixed sample stream (..., S·(N+cp))."""
-    if mode != "lte":
-        raise NotImplementedError(f"transmit mode={mode!r}: ROADMAP item A9")
-    n_data = grid_for(config).num_data
+             cell_id: int = 0, tables: Optional[ModTables] = None,
+             scfdm_tables: Optional[DemodTables] = None) -> C:
+    """bits (..., S·n_data·bps) -> CP-prefixed sample stream (..., S·(N+cp)).
+
+    'simple' maps the symbols onto the first Nc bins and carries no pilots:
+    its GEMM runs over the (Nc, N+cp) rows of the IDFT table alone, which
+    gives what scattering into a zero N-bin grid and `ofdm.modulate_grid`
+    give, without the scatter and the zero rows."""
+    n_data = grid_for(config).num_data if mode in ("lte", "sc-fdm") else config.Nc
     lead = tuple(bits.shape[:-1])
     S = bits.shape[-1] // (n_data * config.bits_per_symbol)
     syms = qam.modulate(bits, config.modulation).reshape(lead + (S, n_data))
-    tx = ofdm.modulate_symbols(syms, config, cell_id, tables)      # (..., S, N+cp)
+    if mode == "sc-fdm":
+        syms = scfdm.precode(syms, n_data, scfdm_tables)
+    if mode in ("lte", "sc-fdm"):
+        tx = ofdm.modulate_symbols(syms, config, cell_id, tables)  # (..., S, N+cp)
+    else:
+        tx = ofdm.modulate_custom(syms, config, np.arange(config.Nc), (), cell_id, tables)
     return tx.reshape(lead + (S * config.samples_per_ofdm_symbol,))
+
+
+def _hard_bits(x_eq: C, config: LTEConfig) -> torch.Tensor:
+    lead = tuple(x_eq.shape[:-2])
+    flat = x_eq.reshape(lead + (x_eq.shape[-2] * x_eq.shape[-1],))
+    return qam.demodulate(flat, config.modulation)
+
+
+def receive(signal: C, config: LTEConfig, mode: str = "lte", cell_id: int = 0,
+            enable_equalization: bool = True, tables: Optional[RxTables] = None):
+    """Sample stream -> (bits, equalized data symbols, pilot SNR dB).
+
+    Frame, per-bin DFT, slot-periodic CRS estimation, per-symbol ZF,
+    optional SC-FDM IDFT, hard detection, bit demap."""
+    g = grid_for(config)
+    y = ofdm.frame_stream(signal, config)                          # (..., S, N+cp)
+    t = tables if tables is not None else RxTables(None)
+
+    if mode == "simple":
+        # sequential mapping: first Nc bins, no pilots, no equalization
+        y_bins = ofdm.demodulate_bins(y, config, np.arange(config.Nc), t.data)
+        zero = torch.zeros(tuple(y_bins.shape[:-2]), dtype=torch.float32,
+                           device=y_bins.re.device)
+        return _hard_bits(y_bins, config), y_bins, zero
+
+    y_data = ofdm.demodulate_bins(y, config, g.data_idx, t.data)   # (..., S, n_data)
+    if enable_equalization:
+        # slot-start symbols as a strided view: a row gather the GEMM reads in place
+        y_pil = ofdm.demodulate_bins(y[..., ::est.SLOT_SIZE, :], config, g.pilot_idx, t.pilot)
+        return _detect_from_bins(y_data, y_pil, config, mode, cell_id, tables)
+
+    psnr = est.pilot_snr_db(ofdm.demodulate_bins(y, config, g.pilot_idx, t.pilot),
+                            cell_id, axis=(-2, -1), known=t.known)
+    x_eq = y_data
+    if mode == "sc-fdm":
+        x_eq = scfdm.decode(x_eq, g.num_data, t.scfdm)
+    return _hard_bits(x_eq, config), x_eq, psnr
 
 
 def _detect_from_bins(y_data: C, y_pil: C, config: LTEConfig, mode: str = "lte",
                       cell_id: int = 0, tables: Optional[RxTables] = None):
     """Equalized back half of the receiver: CRS LS estimation from the
-    slot-start pilot bins, slot-periodic interpolation, per-symbol ZF, hard
-    demap. Returns (bits, equalized symbols, pilot SNR dB)."""
-    if mode != "lte":
-        raise NotImplementedError(f"_detect_from_bins mode={mode!r}: ROADMAP item A9")
+    slot-start pilot bins, slot-periodic interpolation, per-symbol ZF,
+    optional SC-FDM decode, hard demap. Returns (bits, equalized symbols,
+    pilot SNR dB)."""
     g = grid_for(config)
-    known = tables.known if tables is not None else None
-    interp = tables.interp if tables is not None else None
+    t = tables if tables is not None else RxTables(None)
     S = y_data.shape[-2]
-    h_pil = est.ls_at_pilots(y_pil, cell_id, known)                # (..., n_slots, n_pil)
-    psnr = est.pilot_snr_db(y_pil, cell_id, axis=(-2, -1), known=known)
-    h_data_slots = est.interpolate(h_pil, config, out_bins=g.data_idx, table=interp)
+    h_pil = est.ls_at_pilots(y_pil, cell_id, t.known)              # (..., n_slots, n_pil)
+    psnr = est.pilot_snr_db(y_pil, cell_id, axis=(-2, -1), known=t.known)
+    h_data_slots = est.interpolate(h_pil, config, out_bins=g.data_idx, table=t.interp)
     h_data = est.slot_periodic(h_data_slots, S)                    # (..., S, n_data)
     x_eq = est.zf_equalize(y_data, h_data)
-
-    lead = tuple(x_eq.shape[:-2])
-    flat = x_eq.reshape(lead + (S * g.num_data,))
-    return qam.demodulate(flat, config.modulation), x_eq, psnr
-
-
-def _snr_linear(snr_db, device):
-    """10^(snr/10) in float32: a Python float for a scalar (no host-to-device
-    copy on the hot path), else a tensor on `device`."""
-    if isinstance(snr_db, torch.Tensor):
-        return 10.0 ** (snr_db.to(device=device, dtype=torch.float32) / 10.0)
-    snr = np.asarray(snr_db, np.float32)
-    if snr.ndim == 0:
-        return float(np.float32(10.0) ** (snr / np.float32(10.0)))
-    return 10.0 ** (torch.as_tensor(snr, device=device) / 10.0)
-
-
-def _planar(x, shape, device, what: str) -> C:
-    re, im = (torch.as_tensor(v, dtype=torch.float32, device=device) for v in x)
-    if tuple(re.shape) != tuple(shape) or tuple(im.shape) != tuple(shape):
-        raise ValueError(f"{what} noise planes {tuple(re.shape)}/{tuple(im.shape)}, "
-                         f"expected {tuple(shape)}")
-    return C(re, im)
+    if mode == "sc-fdm":
+        x_eq = scfdm.decode(x_eq, g.num_data, t.scfdm)
+    return _hard_bits(x_eq, config), x_eq, psnr
 
 
 def _receive_awgn_freq(signal: C, snr_db, config: LTEConfig, mode: str, measure_axes,
@@ -150,7 +186,7 @@ def _receive_awgn_freq(signal: C, snr_db, config: LTEConfig, mode: str, measure_
     (..., n_slots, n_pil), replaces the generator's draws; the scale stays
     σ/√2 per leg."""
     device = signal.re.device
-    snr_lin = _snr_linear(snr_db, device)
+    snr_lin = snr_linear(snr_db, device)
     p = signal.abs2()
     sig_power = p.mean() if measure_axes is None else p.mean(dim=measure_axes)
     std = torch.sqrt((sig_power / snr_lin)[..., None, None] / 2.0)
@@ -164,14 +200,9 @@ def _receive_awgn_freq(signal: C, snr_db, config: LTEConfig, mode: str, measure_
     y_pil = ofdm.demodulate_bins(y_slot, config, g.pilot_idx,
                                  tables.pilot if tables is not None else None)
 
-    if noise is None:
-        def draw(shape):
-            return C(torch.randn(shape, generator=generator, device=device),
-                     torch.randn(shape, generator=generator, device=device))
-        n_data, n_pil = draw(y_data.shape), draw(y_pil.shape)
-    else:
-        n_data = _planar(noise[0], y_data.shape, device, "data")
-        n_pil = _planar(noise[1], y_pil.shape, device, "pilot")
+    noise = (None, None) if noise is None else noise
+    n_data = standard_normals(y_data.shape, generator, device, noise[0], "data noise")
+    n_pil = standard_normals(y_pil.shape, generator, device, noise[1], "pilot noise")
 
     def add_cn(x: C, n: C) -> C:
         return C(x.re + n.re * std, x.im + n.im * std)
@@ -180,67 +211,112 @@ def _receive_awgn_freq(signal: C, snr_db, config: LTEConfig, mode: str, measure_
                              config, mode, cell_id, tables)
 
 
-def reference_tables(config: LTEConfig, cell_id: int = 0) -> Dict[str, np.ndarray]:
+def _apply_channel(signal: C, snr_db, channel_type: str, profile, measure_axes,
+                   generator: Optional[torch.Generator] = None,
+                   draws: Optional[dict] = None) -> C:
+    """The time-domain channel. `draws` carries the seams by name: "noise"
+    (every channel), "phases" (rayleigh_mp), "fading" (fading)."""
+    draws = draws or {}
+    if channel_type == "awgn":
+        return awgn(signal, snr_db, measure_axes, generator, draws.get("noise"))
+    if channel_type == "rayleigh_mp":
+        return rayleigh_multipath(signal, snr_db, profile, measure_axes, generator,
+                                  draws.get("phases"), draws.get("noise"))
+    if channel_type == "fading":
+        return flat_fading(signal, snr_db, generator, draws.get("fading"),
+                           draws.get("noise"))
+    raise ValueError(f"unknown channel_type {channel_type}")
+
+
+def reference_tables(config: LTEConfig, cell_id: int = 0, mode: str = "lte"
+                     ) -> Dict[str, np.ndarray]:
     """The link's constant tables, by name, from the port's NumPy copies.
 
     The same names built from the JAX package's functions load into a
     SisoLink through load_reference_tables."""
     g = grid_for(config)
     N, cp = config.N, config.cp_length
+    if mode == "simple":
+        bins = tuple(range(config.Nc))
+        B_re, B_im, pw_re, pw_im = ofdm._mod_consts_custom(N, cp, bins, (), cell_id)
+        G_re, G_im = ofdm._demod_consts(N, cp, bins)
+        return {"mod_b_re": B_re, "mod_b_im": B_im,
+                "pilot_wave_re": pw_re, "pilot_wave_im": pw_im,
+                "demod_data_re": G_re, "demod_data_im": G_im}
     B_re, B_im, pw_re, pw_im = ofdm._mod_consts(N, config.Nc, cp, cell_id)
     Gd_re, Gd_im = ofdm._demod_consts(N, cp, tuple(int(b) for b in g.data_idx))
     Gp_re, Gp_im = ofdm._demod_consts(N, cp, tuple(int(b) for b in g.pilot_idx))
     left, right, w = interp_table(N, config.Nc)
-    return {"mod_b_re": B_re, "mod_b_im": B_im,
-            "pilot_wave_re": pw_re, "pilot_wave_im": pw_im,
-            "demod_data_re": Gd_re, "demod_data_im": Gd_im,
-            "demod_pilot_re": Gp_re, "demod_pilot_im": Gp_im,
-            "interp_left": left, "interp_right": right, "interp_w": w,
-            "pilot_seq": pilot_sequence(cell_id, g.num_pilot)}
+    tables = {"mod_b_re": B_re, "mod_b_im": B_im,
+              "pilot_wave_re": pw_re, "pilot_wave_im": pw_im,
+              "demod_data_re": Gd_re, "demod_data_im": Gd_im,
+              "demod_pilot_re": Gp_re, "demod_pilot_im": Gp_im,
+              "interp_left": left, "interp_right": right, "interp_w": w,
+              "pilot_seq": pilot_sequence(cell_id, g.num_pilot)}
+    if mode == "sc-fdm":
+        for name, inverse in (("scfdm_w", False), ("scfdm_winv", True)):
+            tables[name + "_re"], tables[name + "_im"] = scfdm._dft_consts(g.num_data, inverse)
+    return tables
+
+
+# a GEMM's B operand is stored as three row-major planes: re, im and the
+# Gauss form's re + im; table prefix -> the name of its sum buffer
+_GEMM_SUMS = {"mod_b": "mod_bsum", "demod_data": "demod_data_sum",
+              "demod_pilot": "demod_pilot_sum", "scfdm_w": "scfdm_w_sum",
+              "scfdm_winv": "scfdm_winv_sum"}
 
 
 class SisoLink(nn.Module):
-    """The AWGN/CRS/ZF SISO link for one LTEConfig, its tables as buffers.
+    """One SISO link (mode, channel, equalization) for one LTEConfig, its
+    tables as buffers.
 
-    forward(bits, snr_db, generator=None, noise=None) -> SisoResult runs one
-    Monte-Carlo step; see _receive_awgn_freq for the noise seam. The tables
-    live on `device`: the CUDA card when none is given (resolve_device)."""
+    forward(bits, snr_db, generator=None, noise=None, draws=None) ->
+    SisoResult runs one Monte-Carlo step; see _receive_awgn_freq for the
+    `noise` seam and _apply_channel for `draws`. The tables live on
+    `device`: the CUDA card when none is given (resolve_device)."""
 
-    def __init__(self, config: LTEConfig, device=None, cell_id: int = 0):
+    def __init__(self, config: LTEConfig, device=None, cell_id: int = 0,
+                 mode: str = "lte", channel_type: str = "awgn",
+                 enable_equalization: bool = True, itu_profile: str = "Pedestrian_A",
+                 velocity_kmh: Optional[float] = None, frequency_ghz: float = 2.0):
         super().__init__()
+        check_branch(mode, channel_type)
         device = resolve_device(device)
         self.config = config
         self.cell_id = cell_id
-        for name, arr in self._buffers_from(reference_tables(config, cell_id)).items():
+        self.mode = mode
+        self.channel_type = channel_type
+        self.enable_equalization = enable_equalization
+        self.profile = (make_profile(itu_profile, config.fs, velocity_kmh, frequency_ghz)
+                        if channel_type == "rayleigh_mp" else None)
+        for name, arr in self._buffers_from(reference_tables(config, cell_id, mode)).items():
             self.register_buffer(name, torch.tensor(arr, device=device))
 
     def _buffers_from(self, t: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-        data_idx = grid_for(self.config).data_idx
         f32 = np.float32
+        out = {}
+        for prefix, sum_name in _GEMM_SUMS.items():
+            if prefix + "_re" in t:
+                re, im = t[prefix + "_re"], t[prefix + "_im"]
+                out[prefix + "_re"], out[prefix + "_im"] = re.astype(f32), im.astype(f32)
+                out[sum_name] = (re + im).astype(f32)
+        out["pilot_wave_re"] = t["pilot_wave_re"].astype(f32)
+        out["pilot_wave_im"] = t["pilot_wave_im"].astype(f32)
+        if "pilot_seq" in t:
+            data_idx = grid_for(self.config).data_idx
+            out["pilot_seq_re"] = t["pilot_seq"].real.astype(f32)
+            out["pilot_seq_im"] = t["pilot_seq"].imag.astype(f32)
+            out["interp_left"] = t["interp_left"][data_idx].astype(np.int64)
+            out["interp_right"] = t["interp_right"][data_idx].astype(np.int64)
+            out["interp_w"] = t["interp_w"][data_idx].astype(f32)
         # row-major copies: the GEMM kernel needs unit inner stride, and
         # _mod_consts' B is a transposed view
-        return {k: np.ascontiguousarray(v) for k, v in {
-            "mod_b_re": t["mod_b_re"].astype(f32), "mod_b_im": t["mod_b_im"].astype(f32),
-            "mod_bsum": (t["mod_b_re"] + t["mod_b_im"]).astype(f32),
-            "pilot_wave_re": t["pilot_wave_re"].astype(f32),
-            "pilot_wave_im": t["pilot_wave_im"].astype(f32),
-            "demod_data_re": t["demod_data_re"].astype(f32),
-            "demod_data_im": t["demod_data_im"].astype(f32),
-            "demod_data_sum": (t["demod_data_re"] + t["demod_data_im"]).astype(f32),
-            "demod_pilot_re": t["demod_pilot_re"].astype(f32),
-            "demod_pilot_im": t["demod_pilot_im"].astype(f32),
-            "demod_pilot_sum": (t["demod_pilot_re"] + t["demod_pilot_im"]).astype(f32),
-            "pilot_seq_re": t["pilot_seq"].real.astype(f32),
-            "pilot_seq_im": t["pilot_seq"].imag.astype(f32),
-            "interp_left": t["interp_left"][data_idx].astype(np.int64),
-            "interp_right": t["interp_right"][data_idx].astype(np.int64),
-            "interp_w": t["interp_w"][data_idx].astype(f32),
-        }.items()}
+        return {k: np.ascontiguousarray(v) for k, v in out.items()}
 
     def load_reference_tables(self, tables: Dict[str, np.ndarray]) -> None:
         """Overwrite the buffers with tables built elsewhere (same names and
-        shapes as reference_tables gives)."""
-        want = reference_tables(self.config, self.cell_id)
+        shapes as reference_tables gives for this link's mode)."""
+        want = reference_tables(self.config, self.cell_id, self.mode)
         if set(tables) != set(want):
             raise KeyError(f"table names {sorted(tables)}, expected {sorted(want)}")
         for name, arr in want.items():
@@ -253,6 +329,12 @@ class SisoLink(nn.Module):
                 buf = getattr(self, name)
                 buf.copy_(torch.as_tensor(arr, dtype=buf.dtype))
 
+    def _gemm(self, prefix: str) -> Optional[DemodTables]:
+        if not hasattr(self, prefix + "_re"):
+            return None
+        return DemodTables(C(getattr(self, prefix + "_re"), getattr(self, prefix + "_im")),
+                           getattr(self, _GEMM_SUMS[prefix]))
+
     @property
     def mod_tables(self) -> ModTables:
         return ModTables(C(self.mod_b_re, self.mod_b_im), self.mod_bsum,
@@ -260,23 +342,37 @@ class SisoLink(nn.Module):
 
     @property
     def rx_tables(self) -> RxTables:
+        if self.mode == "simple":
+            return RxTables(self._gemm("demod_data"))
         return RxTables(
-            DemodTables(C(self.demod_data_re, self.demod_data_im), self.demod_data_sum),
-            DemodTables(C(self.demod_pilot_re, self.demod_pilot_im), self.demod_pilot_sum),
+            self._gemm("demod_data"), self._gemm("demod_pilot"),
             C(self.pilot_seq_re, self.pilot_seq_im),
-            (self.interp_left, self.interp_right, self.interp_w))
+            (self.interp_left, self.interp_right, self.interp_w),
+            self._gemm("scfdm_winv"))
 
     def transmit(self, bits: torch.Tensor) -> C:
-        return transmit(bits, self.config, "lte", self.cell_id, self.mod_tables)
+        return transmit(bits, self.config, self.mode, self.cell_id, self.mod_tables,
+                        self._gemm("scfdm_w"))
 
     def forward(self, bits: torch.Tensor, snr_db,
-                generator: Optional[torch.Generator] = None, noise=None) -> SisoResult:
+                generator: Optional[torch.Generator] = None, noise=None,
+                draws: Optional[dict] = None) -> SisoResult:
         signal_tx = self.transmit(bits)
         papr = ofdm.papr_db(signal_tx, axis=-1)
         measure_axes = -1 if bits.ndim > 1 else None
-        bits_rx, x_eq, psnr = _receive_awgn_freq(
-            signal_tx, snr_db, self.config, "lte", measure_axes, self.cell_id,
-            generator, noise, self.rx_tables)
+        if (self.channel_type == "awgn" and self.mode in ("lte", "sc-fdm")
+                and self.enable_equalization):
+            bits_rx, x_eq, psnr = _receive_awgn_freq(
+                signal_tx, snr_db, self.config, self.mode, measure_axes, self.cell_id,
+                generator, noise, self.rx_tables)
+        else:
+            if noise is not None:
+                raise ValueError("`noise` is the bin-domain AWGN seam; this link's channel "
+                                 "runs in the time domain and takes `draws`")
+            signal_rx = _apply_channel(signal_tx, snr_db, self.channel_type, self.profile,
+                                       measure_axes, generator, draws)
+            bits_rx, x_eq, psnr = receive(signal_rx, self.config, self.mode, self.cell_id,
+                                          self.enable_equalization, self.rx_tables)
         # follow the caller's bit dtype
         bits_rx = bits_rx.to(bits.dtype)
         errors = (bits_rx != bits).sum(dim=-1, dtype=torch.int32)
@@ -287,13 +383,17 @@ class SisoLink(nn.Module):
 def simulate_siso(bits: torch.Tensor, snr_db, config: LTEConfig,
                   generator: Optional[torch.Generator] = None, device=None,
                   noise=None, mode: str = "lte", channel_type: str = "awgn",
-                  enable_equalization: bool = True) -> SisoResult:
+                  itu_profile: str = "Pedestrian_A", velocity_kmh: Optional[float] = None,
+                  frequency_ghz: float = 2.0, enable_equalization: bool = True,
+                  draws: Optional[dict] = None) -> SisoResult:
     """End-to-end SISO Monte-Carlo step.
 
     bits: (..., n_bits) with n_bits a multiple of bits_per_frame (pad first
-    with pad_bits), on `device` (default: the device of `bits`). Leading
-    axes are independent lanes; snr_db broadcasts against them."""
-    _check_branch(mode, channel_type, enable_equalization)
-    device = bits.device if device is None else torch.device(device)
-    link = SisoLink(config, device=device)
-    return link(bits.to(device), snr_db, generator=generator, noise=noise)
+    with pad_bits). They are moved to `device`: the CUDA card when none is
+    given, which raises where there is no card (resolve_device); pass
+    device="cpu" for the CPU. Leading axes are independent lanes; snr_db
+    broadcasts against them."""
+    link = SisoLink(config, device, 0, mode, channel_type, enable_equalization,
+                    itu_profile, velocity_kmh, frequency_ghz)
+    bits = bits.to(link.mod_b_re.device)
+    return link(bits, snr_db, generator=generator, noise=noise, draws=draws)

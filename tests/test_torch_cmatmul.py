@@ -198,3 +198,27 @@ def test_non_cuda_device_raises():
     b = C(torch.zeros(3, 4, device="meta"), torch.zeros(3, 4, device="meta"))
     with pytest.raises(ValueError):
         cm.cmatmul(a, b)
+
+
+@pytest.mark.parametrize("S,folds", [(14, True), (28, True), (20, False)])
+@pytest.mark.parametrize("lead", [(), (2,)], ids=["lanes", "antennas_lanes"])
+def test_slot_start_view_folds_only_at_whole_slots(S, folds, lead):
+    """The kernel reads A through one row stride. The slot-start view
+    y[..., ::14, cp:] of (lead..., lanes, S, N+cp) folds into rows when S is
+    a multiple of 14 (the slot step then equals the lane step); at S = 20 it
+    does not, `reshape` copies, and the wrapper counts it."""
+    sps, cp, lanes = 40, 8, 3
+    y = torch.arange(int(np.prod(lead + (lanes, S, sps))), dtype=torch.float32
+                     ).reshape(lead + (lanes, S, sps))
+    view = y[..., ::14, cp:]
+    rows, copied = cm.fold_rows(view, sps - cp)
+    assert copied == (not folds)
+    assert rows.shape == (int(np.prod(lead + (lanes,))) * -(-S // 14), sps - cp)
+    assert torch.equal(rows, view.contiguous().reshape(-1, sps - cp))
+    if folds:
+        assert rows.stride() == (14 * sps, 1)
+    # the CP-stripped view of every symbol always folds, antennas or not
+    assert cm.fold_rows(y[..., cp:], sps - cp)[1] is False
+    before = cm.cmatmul.copies
+    cm._plane_2d(view, sps - cp, "a.re")
+    assert cm.cmatmul.copies == before + (0 if folds else 1)

@@ -124,9 +124,9 @@ def test_link_on_card_matches_cpu_with_same_noise(cuda_device):
     noise = ((rng.standard_normal((4, 28, g.num_data)), rng.standard_normal((4, 28, g.num_data))),
              (rng.standard_normal((4, 2, g.num_pilot)), rng.standard_normal((4, 2, g.num_pilot))))
     before = cm.cmatmul.launches_by_kernel["tf32x3"]
-    on_card = siso.simulate_siso(torch.from_numpy(bits).to(cuda_device), 20.0, cfg, noise=noise)
+    on_card = siso.simulate_siso(torch.from_numpy(bits), 20.0, cfg, noise=noise)
     assert cm.cmatmul.launches_by_kernel["tf32x3"] == before + 3
-    on_cpu = siso.simulate_siso(torch.from_numpy(bits), 20.0, cfg, noise=noise)
+    on_cpu = siso.simulate_siso(torch.from_numpy(bits), 20.0, cfg, noise=noise, device="cpu")
     assert int((on_card.bits_rx.cpu() != on_cpu.bits_rx).sum()) <= 1e-4 * bits.size
 
 
@@ -138,3 +138,78 @@ def test_entry_points_default_to_the_card(cuda_device):
     module = OFDMModule(cfg, seed=0)
     assert module.simulator.device.type == "cuda"
     assert module.transmit(np.random.default_rng(0).integers(0, 2, 300), 60.0)["ber"] == 0.0
+
+
+# the new call sites' depths and widths at a narrow M: SFBC (K, N = 998), SC-FDM
+# (999×999), the 'simple' mode's Nc rows, and the Jakes product (K = 16, wide N)
+NEW_SHAPES = [(56, 998, 2192), (56, 2048, 998), (42, 999, 999), (28, 1200, 2192), (96, 16, 30688)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gauss,variant", list(KERNELS), ids=["tc", "ffma", "gauss"])
+@pytest.mark.parametrize("M,K,N", NEW_SHAPES)
+def test_kernel_matches_plain_at_new_call_sites(M, K, N, gauss, variant, cuda_device):
+    a, b = _operands(M, K, N, cuda_device)
+    kernel, tol = KERNELS[gauss, variant]
+    out = cm.cmatmul(a, b, gauss=gauss, variant=variant)
+    ref = cm.cmatmul_plain(a, b, gauss)
+    torch.cuda.synchronize()
+    assert _rel_diff(out, ref) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,copies", [(14, 0), (28, 0), (20, 2)])
+def test_antenna_axis_folds_and_odd_slots_are_counted(S, copies, cuda_device):
+    """A (rx, lanes, S, N+cp) stream: the CP-stripped view folds into rows
+    under the antenna axis; the slot-start view folds only at whole slots,
+    and at S = 20 both planes are copied and counted."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(S)
+    y = C(torch.randn(2, 3, S, 160, generator=g, device=cuda_device),
+          torch.randn(2, 3, S, 160, generator=g, device=cuda_device))
+    b = C(torch.randn(128, 24, generator=g, device=cuda_device),
+          torch.randn(128, 24, generator=g, device=cuda_device))
+    before = cm.cmatmul.copies
+    out = cm.cmatmul(y[..., 32:], b)
+    assert cm.cmatmul.copies == before and out.shape == (2, 3, S, 24)
+    assert _rel_diff(out, cm.cmatmul_plain(y[..., 32:], b)) <= 1e-5
+    view = y[..., ::14, 32:]
+    out = cm.cmatmul(view, b)
+    assert cm.cmatmul.copies == before + copies
+    assert _rel_diff(out, cm.cmatmul_plain(view, b)) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["sc-fdm", "rayleigh_mp", "sfbc"])
+def test_new_paths_on_card_match_cpu_with_same_draws(path, cuda_device):
+    from ofdm_lte_tpu_torch.sim import diversity
+    cfg = LTEConfig(5.0, modulation="16-QAM")
+    rng = np.random.default_rng(5)
+    g = siso.grid_for(cfg)
+    lanes, S = 3, 28
+    T = S * cfg.samples_per_ofdm_symbol
+
+    def normals(*shape):
+        return rng.standard_normal(shape), rng.standard_normal(shape)
+
+    if path == "sfbc":
+        n_even = len(diversity.sfbc_data_bins(cfg))
+        bits = rng.integers(0, 2, (lanes, diversity.sfbc_bits_per_frame(cfg, S))).astype(np.int32)
+        kw = {"num_rx": 2, "draws": {"noise": (normals(2, lanes, S, n_even),
+                                               normals(2, lanes, 2, g.num_pilot))}}
+        run = diversity.simulate_sfbc
+    else:
+        bits = rng.integers(0, 2, (lanes, siso.bits_per_frame(cfg, S))).astype(np.int32)
+        run = siso.simulate_siso
+        if path == "sc-fdm":
+            kw = {"mode": "sc-fdm", "noise": (normals(lanes, S, g.num_data),
+                                              normals(lanes, 2, g.num_pilot))}
+        else:
+            kw = {"channel_type": "rayleigh_mp",
+                  "draws": {"phases": rng.uniform(0, 2 * np.pi, (lanes * 4, 16)),
+                            "noise": normals(lanes, T)}}
+    before = cm.cmatmul.copies
+    on_card = run(torch.from_numpy(bits), 18.0, cfg, **kw)
+    on_cpu = run(torch.from_numpy(bits), 18.0, cfg, device="cpu", **kw)
+    assert on_card.bits_rx.is_cuda and cm.cmatmul.copies == before
+    assert int((on_card.bits_rx.cpu() != on_cpu.bits_rx).sum()) <= 1e-4 * bits.size

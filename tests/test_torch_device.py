@@ -6,7 +6,7 @@ import torch
 
 from ofdm_lte_tpu_torch import LTEConfig, OFDMModule, OFDMSimulator
 from ofdm_lte_tpu_torch.device import resolve_device
-from ofdm_lte_tpu_torch.sim import siso
+from ofdm_lte_tpu_torch.sim import diversity, siso
 
 torch.set_num_threads(2)
 
@@ -61,8 +61,49 @@ def test_link_on_cpu_when_asked(no_card):
 
 
 def test_simulate_siso_follows_the_bits(no_card):
-    """The functional form names its device through the `bits` it is given."""
+    """The functional form does not follow its `bits`: CPU bits and no device
+    ask for the card, and where there is none that raises; device="cpu" runs."""
     bits = torch.from_numpy(np.random.default_rng(2).integers(
         0, 2, siso.bits_per_frame(CFG, 14)).astype(np.int32))
-    r = siso.simulate_siso(bits, 60.0, CFG)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        siso.simulate_siso(bits, 60.0, CFG)
+    r = siso.simulate_siso(bits, 60.0, CFG, device="cpu")
     assert r.bits_rx.device == torch.device("cpu") and int(r.bit_errors) == 0
+
+
+FUNCTIONAL = {"simulate_siso": siso.simulate_siso, "simulate_simo": diversity.simulate_simo,
+              "simulate_sfbc": diversity.simulate_sfbc, "simulate_miso": diversity.simulate_miso,
+              "simulate_mimo": diversity.simulate_mimo}
+
+
+@pytest.mark.parametrize("name", list(FUNCTIONAL))
+def test_functional_entry_points_resolve_the_device(name, no_card, monkeypatch):
+    """device=None goes through resolve_device (the card, or raise), and the
+    bits are moved to the device that it names."""
+    fn = FUNCTIONAL[name]
+    n = (siso.bits_per_frame(CFG, 14) if name in ("simulate_siso", "simulate_simo")
+         else diversity.sfbc_bits_per_frame(CFG, 14))
+    bits = torch.from_numpy(np.random.default_rng(3).integers(0, 2, n).astype(np.int32))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        fn(bits, 60.0, CFG)
+    r = fn(bits, 60.0, CFG, device="cpu")
+    assert r.bits_rx.device == torch.device("cpu") and int(r.bit_errors) == 0
+    # with a card present, no device means the card: stand "meta" in for it
+    asked = []
+    for mod in (siso, diversity):
+        monkeypatch.setattr(mod, "resolve_device",
+                            lambda d=None: asked.append(d) or torch.device("meta"))
+    try:
+        fn(bits, 60.0, CFG)
+    except (NotImplementedError, RuntimeError, ValueError):
+        pass                                  # a meta tensor cannot run the link to its end
+    assert asked and asked[0] is None
+
+
+@pytest.mark.parametrize("entry", [diversity.SimoLink, diversity.SfbcLink],
+                         ids=["SimoLink", "SfbcLink"])
+def test_diversity_links_take_the_card_or_raise(entry, no_card):
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        entry(CFG)
+    link = entry(CFG, device="cpu")
+    assert all(b.device == torch.device("cpu") for b in link.buffers())

@@ -76,7 +76,7 @@ def test_same_noise_matches_jax(snr_db, rng):
     bits = _bits(rng, jc, lanes, symbols)
     noise = _noise(rng, lanes, symbols, jc)
     j_bits, j_xeq, j_psnr = _jax_same_noise(bits, snr_db, jc, noise)
-    r = tsiso.simulate_siso(torch.from_numpy(bits), snr_db, tc, noise=noise)
+    r = tsiso.simulate_siso(torch.from_numpy(bits), snr_db, tc, noise=noise, device="cpu")
     mismatch = int(np.sum(r.bits_rx.numpy() != np.asarray(j_bits)))
     assert mismatch <= 1e-4 * bits.size, mismatch
     np.testing.assert_allclose(r.pilot_snr_db.numpy(), np.asarray(j_psnr), atol=1e-3)
@@ -99,7 +99,7 @@ def test_ber_own_generator_within_mc_bounds(modulation, snr_db, rng):
     j = jsiso.simulate_siso(jax.random.PRNGKey(0), jnp.asarray(bits), snr_db, jc)
     gen = torch.Generator()
     gen.manual_seed(0)
-    t = tsiso.simulate_siso(torch.from_numpy(bits), snr_db, tc, generator=gen)
+    t = tsiso.simulate_siso(torch.from_numpy(bits), snr_db, tc, generator=gen, device="cpu")
     p = float(np.mean(np.asarray(j.ber)))
     q = t.ber.mean().item()
     sigma = np.sqrt(2 * p * (1 - p) / bits.size)
@@ -123,21 +123,30 @@ def test_link_is_reproducible_and_follows_bit_dtype(rng):
     assert runs[0].ber[0] > runs[0].ber[2]       # per-lane SNR broadcasts
     gen = torch.Generator()
     gen.manual_seed(5)
-    f = tsiso.simulate_siso(bits, torch.tensor([10.0, 14.0, 18.0]), cfg, generator=gen)
+    f = tsiso.simulate_siso(bits, torch.tensor([10.0, 14.0, 18.0]), cfg, generator=gen,
+                            device="cpu")
     assert torch.equal(f.bits_rx, runs[0].bits_rx)
 
 
 def test_unported_branches_raise(rng):
+    """Every branch of the JAX simulate_siso runs; what raises is an unknown
+    value, a seam of the wrong shape or kind, and the pilot layout that
+    waits for spatial multiplexing."""
     cfg = LTEConfig(1.25)
     bits = torch.from_numpy(_bits(rng, cfg, 1, 14))
-    for kw in ({"mode": "sc-fdm"}, {"mode": "simple"}, {"enable_equalization": False},
+    for kw in ({"mode": "sc-fdm"}, {"enable_equalization": False},
                {"channel_type": "fading"}, {"channel_type": "rayleigh_mp"}):
-        with pytest.raises(NotImplementedError):
-            tsiso.simulate_siso(bits, 10.0, cfg, **kw)
-    with pytest.raises(ValueError):
-        tsiso.simulate_siso(bits, 10.0, cfg, channel_type="nope")
-    with pytest.raises(ValueError):
-        tsiso.simulate_siso(bits, 10.0, cfg, noise=((np.zeros(3), np.zeros(3)),) * 2)
+        r = tsiso.simulate_siso(bits, 10.0, cfg, device="cpu", **kw)
+        assert r.bits_rx.shape == bits.shape
+    for kw in ({"channel_type": "nope"}, {"mode": "nope"},
+               {"noise": ((np.zeros(3), np.zeros(3)),) * 2},
+               {"channel_type": "fading", "noise": ((np.zeros(3), np.zeros(3)),) * 2},
+               {"channel_type": "rayleigh_mp", "itu_profile": "nope"}):
+        with pytest.raises((ValueError, KeyError)):
+            tsiso.simulate_siso(bits, 10.0, cfg, device="cpu", **kw)
+    from ofdm_lte_tpu_torch.rx import mimo_estimation
+    with pytest.raises(NotImplementedError, match="A14"):
+        mimo_estimation.per_tx_tables(cfg, 8, np.arange(4), layout="extended")
 
 
 def test_pad_and_frame_helpers():
@@ -152,7 +161,8 @@ def test_facade_keys_and_clean_link(rng):
     cfg_j = jcfg.LTEConfig(1.25, modulation="16-QAM")
     bits = rng.integers(0, 2, 1500)
     ref = JModule(cfg_j, seed=0).transmit(bits, 60.0)
-    out = OFDMModule(LTEConfig(1.25, modulation="16-QAM"), seed=0, device="cpu").transmit(bits, 60.0)
+    out = OFDMModule(LTEConfig(1.25, modulation="16-QAM"), seed=0,
+                     device="cpu").transmit(bits, 60.0)
     assert set(out) == set(ref)
     assert out["ber"] == ref["ber"] == 0.0
     assert out["bit_errors"] == 0 and out["transmitted_bits"] == 1500

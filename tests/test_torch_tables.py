@@ -70,6 +70,28 @@ def test_grid_tables_exact(bw):
         assert a.dtype == b.dtype
 
 
+@pytest.mark.parametrize("layout", ["reference", "extended"])
+@pytest.mark.parametrize("num_tx", [1, 2, 4, 8])
+@pytest.mark.parametrize("bw", BANDWIDTHS)
+def test_orthogonal_pilots_and_custom_interp_exact(bw, num_tx, layout):
+    t, j = tcfg.LTEConfig(bw), jcfg.LTEConfig(bw)
+    assert tgrid.pilot_step(num_tx, layout) == jgrid.pilot_step(num_tx, layout)
+    ours = tgrid.orthogonal_pilot_indices(t, num_tx, layout)
+    theirs = jgrid.orthogonal_pilot_indices(j, num_tx, layout)
+    assert len(ours) == len(theirs) == num_tx
+    for a, b in zip(ours, theirs):
+        np.testing.assert_array_equal(a, b)
+        key = tuple(int(i) for i in a)
+        for x, y in zip(tgrid.interp_table_custom(key, t.N), jgrid.interp_table_custom(key, j.N)):
+            np.testing.assert_array_equal(x, y)
+            assert x.dtype == y.dtype
+
+
+def test_pilot_step_rejects_unknown_layout():
+    with pytest.raises(ValueError):
+        tgrid.pilot_step(2, "nope")
+
+
 @pytest.mark.parametrize("bw", [1.25, 20.0])
 def test_modem_consts_exact(bw):
     cfg = tcfg.LTEConfig(bw)
@@ -136,6 +158,10 @@ def test_port_imports_no_jax():
         "import ofdm_lte_tpu_torch, ofdm_lte_tpu_torch.api, ofdm_lte_tpu_torch._build\n"
         "import ofdm_lte_tpu_torch.sim.siso, ofdm_lte_tpu_torch.channel.awgn\n"
         "import ofdm_lte_tpu_torch.ops.cmatmul, ofdm_lte_tpu_torch.precision\n"
+        "import ofdm_lte_tpu_torch.sim.diversity, ofdm_lte_tpu_torch.channel.mimo\n"
+        "import ofdm_lte_tpu_torch.channel.rayleigh, ofdm_lte_tpu_torch.ops.scfdm\n"
+        "import ofdm_lte_tpu_torch.rx.alamouti, ofdm_lte_tpu_torch.rx.mimo_estimation\n"
+        "import ofdm_lte_tpu_torch.utils.metrics\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'ofdm_lte_tpu'))\n"
         "assert not bad, bad\n"
