@@ -178,8 +178,9 @@ def sfbc_transmit(bits: torch.Tensor, config: LTEConfig,
     """bits (..., S·n_even·bps) -> TX signals (2, ..., S·(N+cp)).
 
     Orthogonal CRS: TX0 on the even pilot positions (cell 0's sequence),
-    TX1 on the odd ones (cell 1's). One GEMM per antenna against the shared
-    table of the SFBC data bins."""
+    TX1 on the odd ones (cell 1's). Both antennas share the table of the
+    SFBC data bins, so they go through one GEMM with the antenna axis
+    folded into M."""
     if tables is None:
         tables = sfbc_tables(config, bits.device)
     g = grid_for(config)
@@ -189,12 +190,12 @@ def sfbc_transmit(bits: torch.Tensor, config: LTEConfig,
     S = bits.shape[-1] // (n_even * config.bits_per_symbol)
 
     syms = qam.modulate(bits, config.modulation).reshape(lead + (S, n_even))
-    sigs = []
-    for tx, tx_syms in enumerate(alamouti.encode(syms)):
-        mod = ModTables(tables.mod.b, tables.mod.bsum, tables.mod.pilot_wave[tx])
-        out = ofdm.modulate_custom(tx_syms, config, dbins, g.pilot_idx[tx::2], tx, mod)
-        sigs.append(out.reshape(lead + (S * config.samples_per_ofdm_symbol,)))
-    return cplx.stack(sigs, axis=0)
+    out = ofdm.modulate_custom_multi(
+        cplx.stack(alamouti.encode(syms), axis=-2), config, dbins,
+        (g.pilot_idx[0::2], g.pilot_idx[1::2]), (0, 1), tables.mod)  # (..., S, 2, N+cp)
+    nd = out.ndim
+    out = out.transpose(nd - 2, *range(nd - 2), nd - 1)              # (2, ..., S, N+cp)
+    return out.reshape((2,) + lead + (S * config.samples_per_ofdm_symbol,))
 
 
 def sfbc_receive(y: C, config: LTEConfig, noise_power: Optional[torch.Tensor] = None,

@@ -5,11 +5,15 @@ from: the JAX package, run on the CPU at chip_smoke's configuration (20 MHz
     JAX_PLATFORMS=cpu python tests/test_torch_chip_bands.py
 
 prints the JAX_BER table to paste into chip_smoke.py: per path the mean
-BER, the standard deviation of the per-lane BER, the lanes and the bits.
-chip_smoke.py then accepts a mean BER within 4σ, σ² = lane_std²·(1/lanes
-here + 1/lanes there). The test below holds the port's CPU path to the
-same table at 2 lanes, at full width."""
+BER, the standard deviation of the per-lane BER, the lanes and the bits
+(under a minute on two cores). Its output is kept beside this file,
+test_torch_chip_bands.txt. chip_smoke.py then accepts a mean BER within 4σ,
+σ² = lane_std²·(1/lanes here + 1/lanes there). The test below holds
+chip_smoke's constants to that kept output; the port itself is held to the
+JAX package under the same draws, at a small size, by the other
+tests/test_torch_*.py."""
 import os
+import re
 import sys
 
 import numpy as np
@@ -52,20 +56,25 @@ def jax_ber(name, snr_db, lanes=JAX_LANES, seed=0):
                       np.float64), lanes * n
 
 
+def kept_output() -> dict:
+    """The JAX_BER table as the generator printed it."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "test_torch_chip_bands.txt")) as f:
+        rows = re.findall(r'"(\w+)": dict\(mean=(\S+), lane_std=(\S+), lanes=(\d+), bits=(\d+)\)',
+                          f.read())
+    return {name: dict(mean=float(mean), lane_std=float(std), lanes=int(lanes), bits=int(bits))
+            for name, mean, std, lanes, bits in rows}
+
+
 @pytest.mark.parametrize("name", list(chip_smoke.PATHS))
-def test_port_cpu_path_within_the_band_at_full_width(name):
+def test_band_constants_are_the_generator_output(name):
     spec, ref = chip_smoke.PATHS[name], chip_smoke.JAX_BER[name]
-    cfg = LTEConfig(20.0, modulation="64-QAM")
-    lanes = 2
-    n = _n_bits(spec["kind"], cfg, spec["kw"].get("mode", "lte"))
-    bits = torch.from_numpy(np.random.default_rng(1).integers(0, 2, (lanes, n)).astype(np.int8))
-    fn = {"siso": tsiso.simulate_siso, "simo": tdiv.simulate_simo,
-          "sfbc": tdiv.simulate_sfbc}[spec["kind"]]
-    r = fn(bits, spec["snr"], cfg, generator=torch.Generator().manual_seed(1), device="cpu",
-           **spec["kw"])
-    lo, hi = chip_smoke.ber_band(ref, lanes)
-    assert lo <= r.ber.mean().item() <= hi, (r.ber.mean().item(), lo, hi)
-    assert ref["bits"] == ref["lanes"] * n and torch.isfinite(r.papr_db).all()
+    assert ref == kept_output()[name]
+    n = _n_bits(spec["kind"], LTEConfig(20.0, modulation="64-QAM"),
+                spec["kw"].get("mode", "lte"))
+    assert ref["lanes"] == JAX_LANES and ref["bits"] == JAX_LANES * n
+    lo, hi = chip_smoke.ber_band(ref, chip_smoke.LANES)
+    assert 0.0 <= lo < ref["mean"] < hi < 0.6
 
 
 if __name__ == "__main__":

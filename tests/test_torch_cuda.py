@@ -180,7 +180,7 @@ def test_antenna_axis_folds_and_odd_slots_are_counted(S, copies, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("path", ["sc-fdm", "rayleigh_mp", "sfbc"])
+@pytest.mark.parametrize("path", ["sc-fdm", "rayleigh_mp", "fading", "sfbc"])
 def test_new_paths_on_card_match_cpu_with_same_draws(path, cuda_device):
     from ofdm_lte_tpu_torch.sim import diversity
     cfg = LTEConfig(5.0, modulation="16-QAM")
@@ -204,6 +204,9 @@ def test_new_paths_on_card_match_cpu_with_same_draws(path, cuda_device):
         if path == "sc-fdm":
             kw = {"mode": "sc-fdm", "noise": (normals(lanes, S, g.num_data),
                                               normals(lanes, 2, g.num_pilot))}
+        elif path == "fading":
+            kw = {"channel_type": "fading",
+                  "draws": {"fading": normals(lanes, T), "noise": normals(lanes, T)}}
         else:
             kw = {"channel_type": "rayleigh_mp",
                   "draws": {"phases": rng.uniform(0, 2 * np.pi, (lanes * 4, 16)),

@@ -174,6 +174,29 @@ def test_flat_fading_and_cn01_statistics(rng):
     np.testing.assert_allclose(y.re.numpy(), fading[0] / np.sqrt(2), atol=1e-6)
 
 
+@pytest.mark.parametrize("snr_db", [3.0, 20.0])
+def test_flat_fading_same_draws_match_jax(snr_db, rng):
+    """The port's seams get what flat_fading(key, ...) draws in the JAX
+    package (key -> fading, noise; each -> re, im), so the two outputs differ
+    by fp32 rounding alone. The noise power is the whole batch's: the lanes
+    below differ in power by 16x."""
+    key = jax.random.PRNGKey(6)
+    shape = (3, 700)
+    x = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)) / np.sqrt(2)
+    x *= np.array([0.5, 1.0, 2.0])[:, None]
+    kh, kn = jax.random.split(key)
+    fading, noise = (tuple(np.array(jax.random.normal(k, shape, jnp.float32))
+                           for k in jax.random.split(kk)) for kk in (kh, kn))
+    j = jray.flat_fading(key, jcplx.from_numpy(x), snr_db)
+    t = tray.flat_fading(tcplx.from_numpy(x), snr_db, fading=fading, noise=noise)
+    _close(t, j, 1e-5)
+    # and the formula itself: y = h·x + σ·n with one σ for the batch
+    h = (fading[0] + 1j * fading[1]) / np.sqrt(2)
+    sigma = np.sqrt(np.mean(np.abs(h * x) ** 2) / 10 ** (snr_db / 10) / 2)
+    y = h * x + sigma * (noise[0] + 1j * noise[1])
+    np.testing.assert_allclose(t.to_numpy(), y, rtol=0, atol=1e-5)
+
+
 def test_path_loss_matches_jax_under_same_shadowing():
     key = jax.random.PRNGKey(4)
     d = np.array([100.0, 300.0, 1000.0], np.float32)

@@ -122,6 +122,26 @@ def test_fading_ber_within_mc_bounds(channel_type, snr_db, rng):
     assert 0.0 < tb.mean() < 0.6
 
 
+def test_fading_link_same_draws_matches_jax(rng):
+    """The whole link over flat fading with the JAX package's own draws fed
+    to the port's seams: the BER is 0.5 in both (per-sample fading leaves
+    nothing to equalize), so only equal decisions say that the channel and
+    the receiver behind it are the same. At most 1e-4 of the bits differ."""
+    jc, tc = _cfgs(5.0, "16-QAM")
+    lanes, symbols = 3, 28
+    bits = _bits(rng, jc, lanes, symbols)
+    key = jax.random.PRNGKey(8)
+    shape = (lanes, symbols * jc.samples_per_ofdm_symbol)
+    fading, noise = (tuple(np.array(jax.random.normal(k, shape, jnp.float32))
+                           for k in jax.random.split(kk)) for kk in jax.random.split(key))
+    j = jsiso.simulate_siso(key, jnp.asarray(bits), 20.0, jc, channel_type="fading")
+    t = tsiso.simulate_siso(torch.from_numpy(bits), 20.0, tc, device="cpu",
+                            channel_type="fading", draws={"fading": fading, "noise": noise})
+    mismatch = int(np.sum(t.bits_rx.numpy() != np.asarray(j.bits_rx)))
+    assert mismatch <= 1e-4 * bits.size, mismatch
+    assert 0.4 < t.ber.mean().item() < 0.6
+
+
 @pytest.mark.parametrize("mode,channel_type,equalize", [
     ("sc-fdm", "awgn", True), ("sc-fdm", "awgn", False), ("simple", "awgn", True),
     ("lte", "awgn", False), ("lte", "rayleigh_mp", True), ("sc-fdm", "rayleigh_mp", True)])
