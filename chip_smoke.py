@@ -8,19 +8,23 @@ estimation and ZF, at 256 Monte-Carlo lanes of 14-symbol frames
 Beside it run the other SISO branches (SC-FDM, simple mode, Jakes/ITU
 multipath, flat fading) and the diversity links (SIMO 1×2 MRC, 2×2
 Alamouti SFBC), see PATHS. Every complex GEMM of every path goes through
-the tensor-core kernel `cmatmul_tf32x3` (`tc`); the CUDA-core kernel
-`cmatmul_f32` (`ffma`: 4-dot and Gauss forms) is driven beside it on the
+the tensor-core kernel `cmatmul_tf32x3` (`tc`, 4-dot form); the
+tensor-core Gauss kernel `cmatmul_tf32x3_gauss` and the CUDA-core kernel
+`cmatmul_f32` (`ffma`: 4-dot and Gauss forms) are driven beside it on the
 main path. Phases, each of which raises on failure:
 
 1. require a CUDA card; print its name and power limit;
 2. build the CUDA kernels from ofdm_lte_tpu_torch/csrc into build/;
-3. hold the three kernels against their plain PyTorch versions (fp32, TF32
+3. hold the four kernels against their plain PyTorch versions (fp32, TF32
    off) at every GEMM shape of every path, with the strided operands the
    paths make (CP-stripped and slot-start views, a leading antenna axis),
    and at two small ragged shapes: `tc` against `cmatmul_plain` and
-   `cmatmul_plain_tf32x3`, `ffma` 4-dot and Gauss against `cmatmul_plain`
-   of the same form. Print each one's error against a float64 product (a
-   yardstick). Run the split-K pilot GEMM twice and require identical bits;
+   `cmatmul_plain_tf32x3`, the tensor-core Gauss kernel against
+   `cmatmul_plain(gauss=True)` and `cmatmul_plain_gauss_tf32x3`, `ffma`
+   4-dot and Gauss against `cmatmul_plain` of the same form. Print each
+   one's error against a float64 product (a yardstick). Run the split-K
+   pilot GEMM twice through each tensor-core kernel and require identical
+   bits;
 4. run the facade once per method: OFDMModule.transmit, simulate_simo,
    simulate_mimo and a 3-point run_ber_sweep;
 5. run the main path at 60 dB (BER must be 0) and 15 dB (BER in
@@ -33,12 +37,14 @@ main path. Phases, each of which raises on failure:
    injected draws (main path, SC-FDM, multipath, flat fading, SIMO 1×2
    over multipath, SFBC 2×2 over AWGN and over multipath);
 6. time each path (CUDA events, bits and seed changed every step), the main
-   one through `tc` and through `ffma`, and each GEMM shape through `tc`,
-   `ffma`, Gauss, the plain version and one library call (torch.matmul on
-   complex64 operands made before the timed window), beside its bound: the
-   larger of bytes moved over 3.35 TB/s and operations over the peak rate
-   of their type (TF32 tensor cores 495 TFLOP/s for `tc`, which does three
-   TF32 products per fp32 product; fp32 CUDA cores 67 TFLOP/s for `ffma`).
+   one through each of the four kernels in turns, and each GEMM shape
+   through the four kernels, the plain versions and one library call
+   (torch.matmul on complex64 operands made before the timed window),
+   beside its bound: the larger of bytes moved over 3.35 TB/s and
+   operations over the peak rate of their type (TF32 tensor cores 495
+   TFLOP/s for the two tensor-core kernels, which do three TF32 products
+   per fp32 product: 3 x 8·M·K·N for `tc`, 3 x 6·M·K·N for Gauss; fp32
+   CUDA cores 67 TFLOP/s for `ffma`).
 
 The second-to-last line is a JSON object describing each kernel (its times
 are sums over all timed GEMM shapes, `by_shape` has each); the last is
@@ -114,8 +120,11 @@ JAX_BER = {
 }
 
 # max|Δ| / max|C| against the plain version of the same form. tc and ffma
-# 4-dot: the same products in another sum order; Gauss: one extra rounding.
-TOL = {"tf32x3": 1e-5, "f32_fma4": 1e-5, "f32_gauss": 1e-4}
+# 4-dot: the same products in another sum order; Gauss (either kernel): one
+# extra rounding and a fold, t3 − t1 − t2, that cancels.
+TOL = {"tf32x3": 1e-5, "tf32x3_gauss": 1e-4, "f32_fma4": 1e-5, "f32_gauss": 1e-4}
+GAUSS = {"tf32x3": False, "tf32x3_gauss": True, "f32_fma4": False, "f32_gauss": True}
+TENSOR_CORE = {"tf32x3": True, "tf32x3_gauss": True, "f32_fma4": False, "f32_gauss": False}
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"tf32": 495e12, "fp32": 67e12}
 
@@ -188,13 +197,12 @@ def profile_steps(step, steps: int = 10) -> None:
 
 def bound_ms(kernel: str, M: int, K: int, N: int):
     """(ms, which) — the least time the card could take: every plane of A and
-    B read once and C written once, against the operations at their peak."""
+    B read once (and the CUDA-core Gauss kernel's `bsum` plane) and C written
+    once, against the operations at their peak."""
     planes = 2 * M * K + 2 * K * N + 2 * M * N + (K * N if kernel == "f32_gauss" else 0)
     t_bytes = 4 * planes / HBM_BYTES_PER_S
-    if kernel == "tf32x3":
-        t_ops = 3 * 8 * M * K * N / PEAK_FLOPS["tf32"]
-    else:
-        t_ops = (6 if kernel == "f32_gauss" else 8) * M * K * N / PEAK_FLOPS["fp32"]
+    flops = (6 if GAUSS[kernel] else 8) * M * K * N
+    t_ops = 3 * flops / PEAK_FLOPS["tf32"] if TENSOR_CORE[kernel] else flops / PEAK_FLOPS["fp32"]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
@@ -226,6 +234,7 @@ def main() -> None:
     from ofdm_lte_tpu_torch.cplx import C
     from ofdm_lte_tpu_torch.ops import ofdm, qam
     from ofdm_lte_tpu_torch.ops.cmatmul import (cmatmul, cmatmul_plain,
+                                                cmatmul_plain_gauss_tf32x3,
                                                 cmatmul_plain_tf32x3, default_variant)
     from ofdm_lte_tpu_torch.rx import alamouti
     from ofdm_lte_tpu_torch.rx.estimation import SLOT_SIZE
@@ -338,9 +347,9 @@ def main() -> None:
         return max((x.re - y.re).abs().max().item(), (x.im - y.im).abs().max().item())
 
     def run_kernel(kernel, a, b, bsum):
-        if kernel == "f32_gauss":
-            return cmatmul(a, b, gauss=True, bsum=bsum)
-        return cmatmul(a, b, variant="tc" if kernel == "tf32x3" else "ffma")
+        # only the CUDA-core Gauss kernel reads the tables' bsum plane
+        return cmatmul(a, b, gauss=GAUSS[kernel], bsum=bsum if kernel == "f32_gauss" else None,
+                       variant="tc" if TENSOR_CORE[kernel] else "ffma")
 
     def mkn(a, b):
         return int(np.prod(a.shape[:-1])), b.shape[0], b.shape[1]
@@ -358,9 +367,11 @@ def main() -> None:
             # the operand goes in with the strides the path gives it
             out = run_kernel(kernel, a, b, bsum).reshape(M, N)
             torch.cuda.synchronize()
-            refs = {"plain": plain[kernel == "f32_gauss"]}
+            refs = {"plain": plain[GAUSS[kernel]]}
             if kernel == "tf32x3":
                 refs["plain_tf32x3"] = cmatmul_plain_tf32x3(a2, b)
+            elif kernel == "tf32x3_gauss":
+                refs["plain_gauss_tf32x3"] = cmatmul_plain_gauss_tf32x3(a2, b)
             for ref_name, ref in refs.items():
                 err = max_diff(out, ref)
                 rel = err / max(ref.re.abs().max().item(), ref.im.abs().max().item())
@@ -383,14 +394,17 @@ def main() -> None:
     # fixed order, so two runs give the same bits
     a, b, _ = gemms["rx_pilot"]
     M, K, N = mkn(a, b)
-    splits = _build.library().cmatmul_tf32x3_splits(
-        M, N, K, torch.cuda.get_device_properties(dev).multi_processor_count)
-    first, second = cmatmul(a, b), cmatmul(a, b)
-    torch.cuda.synchronize()
-    same = torch.equal(first.re, second.re) and torch.equal(first.im, second.im)
-    print(f"determinism rx_pilot tf32x3: K split {splits} ways, two runs identical: {same}")
-    if splits < 2 or not same:
-        raise AssertionError("the split-K pilot GEMM is not split or not reproducible")
+    for kernel in ("tf32x3", "tf32x3_gauss"):
+        splits = getattr(_build.library(), f"cmatmul_{kernel}_splits")(
+            M, N, K, torch.cuda.get_device_properties(dev).multi_processor_count)
+        first, second = run_kernel(kernel, a, b, None), run_kernel(kernel, a, b, None)
+        torch.cuda.synchronize()
+        same = torch.equal(first.re, second.re) and torch.equal(first.im, second.im)
+        print(f"determinism rx_pilot {kernel}: K split {splits} ways, two runs identical: "
+              f"{same}")
+        if splits < 2 or not same:
+            raise AssertionError(f"the split-K pilot GEMM through {kernel} is not split or "
+                                 f"not reproducible")
 
     # -- 4. the facade, once per method --------------------------------------
     zero_counts()
@@ -425,8 +439,8 @@ def main() -> None:
     # -- 5. the main path, once per kernel ----------------------------------
     def main_path_through(kernel):
         """Context in which the link's GEMMs go to `kernel`."""
-        os.environ["OFDM_LTE_TPU_TORCH_CMATMUL"] = "gauss" if kernel == "f32_gauss" else "fma4"
-        return default_variant("ffma") if kernel == "f32_fma4" else contextlib.nullcontext()
+        os.environ["OFDM_LTE_TPU_TORCH_CMATMUL"] = "gauss" if GAUSS[kernel] else "fma4"
+        return contextlib.nullcontext() if TENSOR_CORE[kernel] else default_variant("ffma")
 
     launches = {}
     launches_by_path = {}
@@ -560,14 +574,20 @@ def main() -> None:
         return link(pool[i], 15.0, generator=gen).bit_errors
 
     torch.cuda.synchronize()
-    # tc, ffma, ffma, tc: the step before and after the tensor-core kernel
-    ms_step = {"tf32x3": cuda_ms(step, STEPS)}
-    with default_variant("ffma"):
-        ms_step["f32_fma4"] = (cuda_ms(step, STEPS) + cuda_ms(step, STEPS)) / 2
-    ms_step["tf32x3"] = (ms_step["tf32x3"] + cuda_ms(step, STEPS)) / 2
+    # the step through each kernel in turns, there and back, after one untimed
+    # pass that brings the card from the CPU comparisons back to its clocks;
+    # each time is the mean of its two passes
+    cuda_ms(step, STEPS)
+    passes = {kernel: [] for kernel in TOL}
+    for kernel in list(TOL) + list(reversed(TOL)):
+        with main_path_through(kernel):
+            passes[kernel].append(cuda_ms(step, STEPS))
+    os.environ["OFDM_LTE_TPU_TORCH_CMATMUL"] = "fma4"
+    ms_step = {kernel: sum(ts) / len(ts) for kernel, ts in passes.items()}
     for kernel, t in ms_step.items():
         print(f"[{card}] main path 20 MHz 64-QAM through {kernel}, {LANES} lanes: "
-              f"{t:.4f} ms/step, {LANES / (t / 1e3):.1f} frames/s, "
+              f"{t:.4f} ms/step (passes {passes[kernel][0]:.4f}, {passes[kernel][1]:.4f}), "
+              f"{LANES / (t / 1e3):.1f} frames/s, "
               f"{LANES * n_bits / (t / 1e3) / 1e9:.3f} Gbit/s")
     if "main" in to_profile:
         profile_steps(step)
@@ -636,7 +656,7 @@ def main() -> None:
             t[which] += cuda_ms(runs[which], 10, run_ahead=True) / 2
         library_ms += t["library"]
         for kernel in TOL:
-            plain = t["plain_gauss" if kernel == "f32_gauss" else "plain"]
+            plain = t["plain_gauss" if GAUSS[kernel] else "plain"]
             bound, by = bound_ms(kernel, M, K, N)
             ms[kernel] += t[kernel]
             plain_ms[kernel] += plain
@@ -645,7 +665,7 @@ def main() -> None:
             by_shape[kernel].append({"gemm": name, "M": M, "K": K, "N": N, "ms": t[kernel],
                                      "plain_ms": plain, "bound_ms": bound, "bound_by": by,
                                      "library_ms": t["library"]})
-            fl = (6 if kernel == "f32_gauss" else 8) * M * K * N
+            fl = (6 if GAUSS[kernel] else 8) * M * K * N
             print(f"[{card}] gemm {name} {kernel} ({M}x{K})@({K}x{N}): kernel "
                   f"{t[kernel]:.4f} ms ({fl / t[kernel] / 1e9:.1f} TFLOP/s fp32-equivalent), "
                   f"plain {plain:.4f} ms, library cgemm {t['library']:.4f} ms, bound "
@@ -653,6 +673,7 @@ def main() -> None:
         del ac, bc
 
     sources = {"tf32x3": ("cmatmul_tf32x3", "cmatmul_tc.cu", "41"),
+               "tf32x3_gauss": ("cmatmul_tf32x3_gauss", "cmatmul_tc_gauss.cu", "56"),
                "f32_fma4": ("cmatmul_f32 (fma4)", "cmatmul.cu", "41"),
                "f32_gauss": ("cmatmul_f32 (gauss)", "cmatmul.cu", "56")}
     kernels = [{

@@ -1,7 +1,8 @@
 """Build the package's CUDA kernels with nvcc and load them with ctypes.
 
-The first call compiles every `csrc/*.cu` to an object file, one nvcc for
-each source and all started together,
+The first call compiles every `csrc/*.cu` (which may include the `*.cuh`
+beside it) to an object file, one nvcc for each source and all started
+together,
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
          -Xcompiler -fPIC -Xptxas -v -c -o build/<name>.<hash>.o csrc/<name>.cu
@@ -49,7 +50,7 @@ def _sources() -> list:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):     # headers enter the hash too
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libofdm_lte_tpu_torch_{h.hexdigest()[:16]}.so"
@@ -98,9 +99,11 @@ def library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.cmatmul_f32.argtypes = [p, p, i, p, p, p, i, p, p, i, i, i, i, i, p]
         lib.cmatmul_f32.restype = i
-        lib.cmatmul_tf32x3.argtypes = [p, p, i, p, p, i, p, p, i, i, i, i, p, i, p]
-        lib.cmatmul_tf32x3.restype = i
-        lib.cmatmul_tf32x3_splits.argtypes = [i, i, i, i]
-        lib.cmatmul_tf32x3_splits.restype = i
+        for fn in (lib.cmatmul_tf32x3, lib.cmatmul_tf32x3_gauss):
+            fn.argtypes = [p, p, i, p, p, i, p, p, i, i, i, i, p, i, p]
+            fn.restype = i
+        for fn in (lib.cmatmul_tf32x3_splits, lib.cmatmul_tf32x3_gauss_splits):
+            fn.argtypes = [i, i, i, i]
+            fn.restype = i
         _lib = lib
     return _lib

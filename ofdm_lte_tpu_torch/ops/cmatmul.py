@@ -11,19 +11,21 @@ dimensions flattened into M, in the 4-dot form or the 3-dot Gauss form:
 - on a CUDA tensor it launches a hand-written kernel, built on first use
   (see _build.py), or raises. It never falls back to a plain version or to
   another kernel. Which kernel serves a call is the rule in `_kernel_for`:
-  the 4-dot form goes to the tensor-core kernel csrc/cmatmul_tc.cu
-  (`cmatmul_tf32x3`: mma.sync, three TF32 products per real product, as
-  accurate as fp32) unless the caller asks for `variant="ffma"`; the
-  Gauss form and `variant="ffma"` go to the fp32 CUDA-core kernel
-  csrc/cmatmul.cu (`cmatmul_f32`). Each call that launches adds one to
+  `variant="tc"`, the default, goes to the tensor cores (mma.sync, three
+  TF32 products per real product, as accurate as fp32): the 4-dot form to
+  csrc/cmatmul_tc.cu (`cmatmul_tf32x3`), the Gauss form to
+  csrc/cmatmul_tc_gauss.cu (`cmatmul_tf32x3_gauss`); `variant="ffma"` goes
+  to the fp32 CUDA-core kernel csrc/cmatmul.cu (`cmatmul_f32`, either
+  form). Each call that launches adds one to
   `cmatmul.launches` and to its kernel's entry in
   `cmatmul.launches_by_kernel` (a split-K call counts once), and each
   operand plane whose leading axes do not fold into one row stride, which
   `reshape` then copies, adds one to `cmatmul.copies` (see `fold_rows`).
 
-`cmatmul_plain_tf32x3` repeats the tensor-core kernel's arithmetic (the
-TF32 head/tail split and the twelve products) in plain PyTorch; the tests
-and chip_smoke.py hold the kernel against it.
+`cmatmul_plain_tf32x3` and `cmatmul_plain_gauss_tf32x3` repeat the two
+tensor-core kernels' arithmetic (the TF32 head/tail split and the twelve or
+nine products) in plain PyTorch; the tests and chip_smoke.py hold the
+kernels against them.
 """
 from __future__ import annotations
 
@@ -56,9 +58,9 @@ def default_variant(variant: str):
 
 def _kernel_for(gauss: bool, variant: str) -> str:
     """The one rule that says which kernel serves a CUDA call."""
-    if gauss:
-        return "f32_gauss"
-    return "tf32x3" if variant == "tc" else "f32_fma4"
+    if variant == "tc":
+        return "tf32x3_gauss" if gauss else "tf32x3"
+    return "f32_gauss" if gauss else "f32_fma4"
 
 
 def cmatmul_plain(a: C, b: C, gauss: bool = False) -> C:
@@ -102,6 +104,24 @@ def cmatmul_plain_tf32x3(a: C, b: C) -> C:
     return C(dot(ar, br) - dot(ai, bi), dot(ar, bi) + dot(ai, br))
 
 
+def cmatmul_plain_gauss_tf32x3(a: C, b: C) -> C:
+    """The Gauss tensor-core kernel's arithmetic in plain PyTorch: Ar+Ai and
+    Br+Bi formed in fp32 and split like the other planes, each of the three
+    real products as hi·lo + lo·hi + hi·hi (nine fp32 matmuls), then the
+    fold Cr = t1 − t2, Ci = t3 − t1 − t2.
+
+    Differs from the kernel only in the order of the sums."""
+    if a.re.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def dot(x, y):
+        (xh, xl), (yh, yl) = tf32_split(x), tf32_split(y)
+        return (xh @ yl + xl @ yh) + xh @ yh
+
+    t1, t2, t3 = dot(a.re, b.re), dot(a.im, b.im), dot(a.re + a.im, b.re + b.im)
+    return C(t1 - t2, t3 - t1 - t2)
+
+
 def fold_rows(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, bool]:
     """x (..., k) as (M, k) rows for the kernel, and whether that took a copy.
 
@@ -134,10 +154,11 @@ def cmatmul(a: C, b: C, gauss: bool = False, bsum: torch.Tensor = None,
             variant: Optional[str] = None) -> C:
     """Complex matmul a (..., M0, K) @ b (K, N) -> (..., M0, N).
 
-    gauss=True selects the 3-dot Gauss form; `bsum` is b.re + b.im,
-    precomputed by a caller whose B is a constant (formed here if None).
-    `variant` picks the 4-dot form's CUDA kernel: "tc" (tensor cores,
-    3xTF32; the default) or "ffma" (CUDA cores). A CPU tensor ignores it."""
+    gauss=True selects the 3-dot Gauss form. `variant` picks the CUDA
+    kernel: "tc" (tensor cores, 3xTF32; the default) or "ffma" (CUDA cores).
+    `bsum` is b.re + b.im, precomputed by a caller whose B is a constant: only
+    the CUDA-core Gauss kernel reads it (formed here if None); the
+    tensor-core one adds the planes in registers. A CPU tensor ignores both."""
     variant = _default_variant if variant is None else variant
     if variant not in VARIANTS:
         raise ValueError(f"cmatmul: variant {variant!r}; pick from {VARIANTS}")
@@ -165,7 +186,8 @@ def cmatmul(a: C, b: C, gauss: bool = False, bsum: torch.Tensor = None,
     br, bi = _plane_2d(b.re, N, "b.re"), _plane_2d(b.im, N, "b.im")
     if _ld(ar) != _ld(ai) or _ld(br) != _ld(bi):
         raise ValueError("cmatmul: the re and im planes need the same strides")
-    if gauss:
+    kernel = _kernel_for(gauss, variant)
+    if kernel == "f32_gauss":
         bsum = (b.re + b.im) if bsum is None else bsum
         if bsum.shape != b.re.shape or bsum.device != dev:
             raise ValueError(f"cmatmul: bsum {tuple(bsum.shape)} on {bsum.device}")
@@ -184,21 +206,19 @@ def cmatmul(a: C, b: C, gauss: bool = False, bsum: torch.Tensor = None,
         return C(cr.reshape(lead + (N,)), ci.reshape(lead + (N,)))
     from .._build import library
     lib = library()
-    kernel = _kernel_for(gauss, variant)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if kernel == "tf32x3":
+        if variant == "tc":
             # a tile grid smaller than the card is split along K into partial
             # sums, which the kernel's second pass adds in a fixed order
+            run = getattr(lib, "cmatmul_" + kernel)
             sms = torch.cuda.get_device_properties(dev).multi_processor_count
-            splits = lib.cmatmul_tf32x3_splits(M, N, K, sms)
+            splits = getattr(lib, f"cmatmul_{kernel}_splits")(M, N, K, sms)
             scratch = (torch.empty((2 * splits, M, N), dtype=torch.float32, device=dev)
                        if splits > 1 else None)
-            rc = lib.cmatmul_tf32x3(ar.data_ptr(), ai.data_ptr(), lda,
-                                    br.data_ptr(), bi.data_ptr(), ldb,
-                                    cr.data_ptr(), ci.data_ptr(), N, M, N, K,
-                                    scratch.data_ptr() if splits > 1 else None,
-                                    splits, stream)
+            rc = run(ar.data_ptr(), ai.data_ptr(), lda, br.data_ptr(), bi.data_ptr(), ldb,
+                     cr.data_ptr(), ci.data_ptr(), N, M, N, K,
+                     scratch.data_ptr() if splits > 1 else None, splits, stream)
         else:
             rc = lib.cmatmul_f32(ar.data_ptr(), ai.data_ptr(), lda,
                                  br.data_ptr(), bi.data_ptr(),
@@ -215,4 +235,4 @@ def cmatmul(a: C, b: C, gauss: bool = False, bsum: torch.Tensor = None,
 
 cmatmul.launches = 0
 cmatmul.copies = 0      # operand planes that did not fold into rows and were copied
-cmatmul.launches_by_kernel = {"tf32x3": 0, "f32_fma4": 0, "f32_gauss": 0}
+cmatmul.launches_by_kernel = {"tf32x3": 0, "tf32x3_gauss": 0, "f32_fma4": 0, "f32_gauss": 0}

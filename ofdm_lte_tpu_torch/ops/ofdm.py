@@ -45,7 +45,8 @@ def _cmm(a: C, b: C, bsum: Optional[torch.Tensor] = None) -> C:
     The form follows OFDM_LTE_TPU_TORCH_CMATMUL ∈ {fma4, gauss}, default
     `fma4`: the 4-multiply, float-faithful form. `gauss` is the 3-multiply
     form (−25% FLOPs, one extra rounding in the imaginary part); `bsum` is
-    the constant b.re + b.im it uses."""
+    the constant b.re + b.im, which only the CUDA-core Gauss kernel reads
+    (the tensor-core one adds the planes in registers)."""
     form = os.environ.get("OFDM_LTE_TPU_TORCH_CMATMUL", "fma4").lower()
     if form not in _CMATMUL_FORMS:
         raise ValueError(f"OFDM_LTE_TPU_TORCH_CMATMUL={form!r}; pick from {_CMATMUL_FORMS}")

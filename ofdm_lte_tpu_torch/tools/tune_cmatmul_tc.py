@@ -1,17 +1,25 @@
-"""Time design variants of the tensor-core complex GEMM against each other,
-and measure the card's mma.sync TF32 rate, on one CUDA card.
+"""Time design variants of the two tensor-core complex GEMMs (4-dot and
+Gauss) against each other, and measure the card's mma.sync TF32 rate, on
+one CUDA card.
 
     python3 -m ofdm_lte_tpu_torch.tools.tune_cmatmul_tc [VARIANT ...]
 
 A VARIANT is a comma-separated list of the compile-time choices that
-csrc/cmatmul_tc.cu documents (TC_WARPS_M, TC_CHAIN, TC_SPLIT_CVT, TC_STAGES, TC_NO_COPIES), e.g.
-`TC_WARPS_M=4,TC_CHAIN=1`; `default` is the source as the package builds it.
-With no arguments it runs the set behind the design notes in PERF.md. Each
-variant is compiled by its own nvcc, all started together, into
-build/tune/, and run through its C interface at the main path's three GEMM
-shapes (20 MHz, 256 lanes; random operands with the path's strides) in one
-interleaved sequence, there and back. For each it prints registers and
-spills (-Xptxas -v), the time, and the error against a float64 product.
+csrc/cmatmul_tc.cu and csrc/cmatmul_tc.cuh document (TC_WARPS_M, TC_CHAIN,
+TC_SPLIT_CVT, TC_SPLIT_TRUNC, TC_STAGES, TC_NO_COPIES), e.g.
+`TC_WARPS_M=4,TC_CHAIN=1`; `default` is the 4-dot source as the package
+builds it. A VARIANT that starts with `gauss` is the Gauss kernel,
+csrc/cmatmul_tc_gauss.cu: `gauss` alone as the package builds it, or
+`gauss:` and its choices (TCG_WARPS_M, TCG_WARPS_N, TCG_MF, TCG_NF,
+TCG_COLS, TCG_CHAIN, TCG_ACC3 and the shared TC_ ones), e.g.
+`gauss:TCG_COLS=2,TCG_CHAIN=2`. With no arguments it runs the
+sets behind the design notes in PERF.md. Each variant is compiled by its own
+nvcc, all started together, into build/tune/, and run through its C
+interface at the main path's three GEMM shapes (20 MHz, 256 lanes; random
+operands with the path's strides) in one interleaved sequence, there and
+back, beside the plain versions, the CUDA-core kernels and the library
+call (torch.matmul on complex64). For each it prints registers and spills
+(-Xptxas -v), the time, and the error against a float64 product.
 
 The probe is a loop of independent mma.sync.m16n8k8 TF32 instructions on
 every SM: the rate the instruction reaches with nothing else in its way.
@@ -29,7 +37,13 @@ from ..cplx import C
 from ..ops.cmatmul import cmatmul, cmatmul_plain
 
 DEFAULT_VARIANTS = ("default", "TC_WARPS_M=4", "TC_CHAIN=1", "TC_CHAIN=2", "TC_CHAIN=0",
-                    "TC_SPLIT_CVT=1", "TC_STAGES=3", "TC_STAGES=4", "TC_NO_COPIES=1")
+                    "TC_SPLIT_CVT=1", "TC_STAGES=3", "TC_STAGES=4", "TC_NO_COPIES=1",
+                    "TC_SPLIT_TRUNC=1",
+                    "gauss", "gauss:TCG_CHAIN=2", "gauss:TCG_CHAIN=1", "gauss:TCG_CHAIN=1,TCG_ACC3=1",
+                    "gauss:TCG_COLS=1,TCG_CHAIN=1,TCG_ACC3=1", "gauss:TCG_COLS=2,TCG_CHAIN=2",
+                    "gauss:TCG_COLS=2", "gauss:TCG_WARPS_M=4",
+                    "gauss:TCG_MF=1,TCG_WARPS_M=4,TCG_COLS=1,TCG_CHAIN=1,TCG_ACC3=1",
+                    "gauss:TC_SPLIT_TRUNC=1", "gauss:TC_NO_COPIES=1")
 
 PROBE_CU = r"""
 #include <cuda_runtime.h>
@@ -111,10 +125,12 @@ def main(argv) -> None:
                                str(out_dir / "probe"), str(probe_src)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)]
     for i, v in enumerate(variants):
-        defs = [] if v == "default" else [f"-D{d}" for d in v.split(",")]
+        gauss = v.startswith("gauss")
+        choices = v.partition(":")[2] if gauss else ("" if v == "default" else v)
+        defs = [f"-D{d}" for d in choices.split(",") if d]
         procs.append(subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS, "-shared", *defs, "-o", str(out_dir / f"v{i}.so"),
-             str(_build.CSRC / "cmatmul_tc.cu")],
+             str(_build.CSRC / ("cmatmul_tc_gauss.cu" if gauss else "cmatmul_tc.cu"))],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs = [p.communicate()[0] for p in procs]
     if any(p.returncode for p in procs):
@@ -130,23 +146,26 @@ def main(argv) -> None:
         print(f"build {v}: " + " | ".join(used[:8]))
         lib = ctypes.CDLL(str(out_dir / f"v{i}.so"))
         p, n = ctypes.c_void_p, ctypes.c_int
-        lib.cmatmul_tf32x3.argtypes = [p, p, n, p, p, n, p, p, n, n, n, n, p, n, p]
-        lib.cmatmul_tf32x3_splits.argtypes = [n, n, n, n]
-        libs[v] = lib
+        name = "cmatmul_tf32x3_gauss" if v.startswith("gauss") else "cmatmul_tf32x3"
+        gemm, splits_fn = getattr(lib, name), getattr(lib, name + "_splits")
+        gemm.argtypes = [p, p, n, p, p, n, p, p, n, n, n, n, p, n, p]
+        splits_fn.argtypes = [n, n, n, n]
+        libs[v] = (gemm, splits_fn)
 
-    def run(lib, a: C, b: C) -> C:
+    def run(fns, a: C, b: C) -> C:
+        gemm, splits_fn = fns
         (M, K), N = a.re.shape, b.re.shape[1]
         cr = torch.empty((M, N), device=dev)
         ci = torch.empty((M, N), device=dev)
-        splits = lib.cmatmul_tf32x3_splits(M, N, K, sms)
+        splits = splits_fn(M, N, K, sms)
         scratch = torch.empty((2 * splits, M, N), device=dev) if splits > 1 else None
-        rc = lib.cmatmul_tf32x3(a.re.data_ptr(), a.im.data_ptr(), a.re.stride(0),
-                                b.re.data_ptr(), b.im.data_ptr(), b.re.stride(0),
-                                cr.data_ptr(), ci.data_ptr(), N, M, N, K,
-                                scratch.data_ptr() if splits > 1 else None, splits,
-                                torch.cuda.current_stream().cuda_stream)
+        rc = gemm(a.re.data_ptr(), a.im.data_ptr(), a.re.stride(0),
+                  b.re.data_ptr(), b.im.data_ptr(), b.re.stride(0),
+                  cr.data_ptr(), ci.data_ptr(), N, M, N, K,
+                  scratch.data_ptr() if splits > 1 else None, splits,
+                  torch.cuda.current_stream().cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"cmatmul_tf32x3 failed: CUDA error {rc}")
+            raise RuntimeError(f"{gemm.__name__} failed: CUDA error {rc}")
         return C(cr, ci)
 
     g = torch.Generator(device=dev)
@@ -164,9 +183,20 @@ def main(argv) -> None:
         exact = torch.complex(a.re.double(), a.im.double()) @ torch.complex(b.re.double(),
                                                                           b.im.double())
         scale = exact.abs().max().item()
+        ac = torch.complex(a.re, a.im).contiguous()
+        bc = torch.complex(b.re, b.im)
+        bsum = b.re + b.im
+
+        def library():
+            out = torch.matmul(ac, bc)
+            return C(out.real, out.imag)
+
         runs = {"plain": lambda: cmatmul_plain(a, b),
-                "ffma": lambda: cmatmul(a, b, variant="ffma")}
-        runs.update({v: (lambda lib=lib: run(lib, a, b)) for v, lib in libs.items()})
+                "plain_gauss": lambda: cmatmul_plain(a, b, gauss=True),
+                "library": library,
+                "ffma": lambda: cmatmul(a, b, variant="ffma"),
+                "ffma_gauss": lambda: cmatmul(a, b, gauss=True, bsum=bsum, variant="ffma")}
+        runs.update({v: (lambda fns=fns: run(fns, a, b)) for v, fns in libs.items()})
         t = dict.fromkeys(runs, 0.0)
         for which in list(runs) + list(reversed(runs)):
             t[which] += _cuda_ms(runs[which]) / 2

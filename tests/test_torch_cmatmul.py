@@ -135,8 +135,10 @@ def test_cpu_tensor_ignores_variant_and_rejects_unknown(rng):
 def test_kernel_rule():
     assert cm._kernel_for(False, "tc") == "tf32x3"
     assert cm._kernel_for(False, "ffma") == "f32_fma4"
-    assert cm._kernel_for(True, "tc") == cm._kernel_for(True, "ffma") == "f32_gauss"
-    assert set(cm.cmatmul.launches_by_kernel) == {"tf32x3", "f32_fma4", "f32_gauss"}
+    assert cm._kernel_for(True, "tc") == "tf32x3_gauss"
+    assert cm._kernel_for(True, "ffma") == "f32_gauss"
+    assert set(cm.cmatmul.launches_by_kernel) == {"tf32x3", "tf32x3_gauss", "f32_fma4",
+                                                  "f32_gauss"}
 
 
 def test_cpu_dispatch_flattens_batch_and_launches_nothing(rng):

@@ -25,7 +25,10 @@ def cuda_device():
 SHAPES = [(28, 999, 300), (5, 7, 3), (300, 512, 260), (130, 999, 70), (64, 7, 64)]
 # (gauss, variant) -> the kernel that must serve the call, and max|Δ|/max|C|
 KERNELS = {(False, "tc"): ("tf32x3", 1e-5), (False, "ffma"): ("f32_fma4", 1e-5),
-           (True, "tc"): ("f32_gauss", 1e-4)}
+           (True, "tc"): ("tf32x3_gauss", 1e-4), (True, "ffma"): ("f32_gauss", 1e-4)}
+KERNEL_IDS = ["tc", "ffma", "gauss", "gauss_ffma"]
+# the plain version that repeats a tensor-core kernel's own arithmetic
+PLAIN_TF32X3 = {"tf32x3": cm.cmatmul_plain_tf32x3, "tf32x3_gauss": cm.cmatmul_plain_gauss_tf32x3}
 
 
 def _operands(M, K, N, device):
@@ -42,7 +45,7 @@ def _rel_diff(out, ref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("gauss,variant", list(KERNELS), ids=["tc", "ffma", "gauss"])
+@pytest.mark.parametrize("gauss,variant", list(KERNELS), ids=KERNEL_IDS)
 @pytest.mark.parametrize("M,K,N", SHAPES)
 def test_kernel_matches_plain(M, K, N, gauss, variant, cuda_device):
     a, b = _operands(M, K, N, cuda_device)
@@ -55,39 +58,45 @@ def test_kernel_matches_plain(M, K, N, gauss, variant, cuda_device):
     ref = cm.cmatmul_plain(a, b, gauss)
     torch.cuda.synchronize()
     assert _rel_diff(out, ref) <= tol
-    if kernel == "tf32x3":
-        assert _rel_diff(out, cm.cmatmul_plain_tf32x3(a, b)) <= tol
+    if kernel in PLAIN_TF32X3:
+        assert _rel_diff(out, PLAIN_TF32X3[kernel](a, b)) <= tol
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("gauss", [False, True], ids=["fma4", "gauss"])
 @pytest.mark.parametrize("variant", cm.VARIANTS)
-def test_kernel_reads_strided_view(variant, cuda_device):
+def test_kernel_reads_strided_view(variant, gauss, cuda_device):
     y = C(torch.randn(64, 2192, device=cuda_device), torch.randn(64, 2192, device=cuda_device))
     b = C(torch.randn(2048, 200, device=cuda_device), torch.randn(2048, 200, device=cuda_device))
     view = y[::14, 144:]
-    out = cm.cmatmul(view, b, variant=variant)
-    ref = cm.cmatmul_plain(C(view.re.contiguous(), view.im.contiguous()), b)
+    before = cm.cmatmul.copies
+    out = cm.cmatmul(view, b, gauss=gauss, variant=variant)
+    assert cm.cmatmul.copies == before
+    ref = cm.cmatmul_plain(C(view.re.contiguous(), view.im.contiguous()), b, gauss)
     torch.cuda.synchronize()
     torch.testing.assert_close(out.re, ref.re, rtol=1e-4, atol=1e-3)
     torch.testing.assert_close(out.im, ref.im, rtol=1e-4, atol=1e-3)
 
 
 @pytest.mark.cuda
-def test_split_k_pilot_gemm_is_bit_identical_from_run_to_run(cuda_device):
-    """(256, 2048) @ (2048, 200) is 4x4 tiles: the kernel splits K across the
-    card and adds the partial sums in a fixed order."""
+@pytest.mark.parametrize("gauss", [False, True], ids=["tc", "gauss"])
+def test_split_k_pilot_gemm_is_bit_identical_from_run_to_run(gauss, cuda_device):
+    """(256, 2048) @ (2048, 200) is 4x4 tiles: each tensor-core kernel splits
+    K across the card and adds the partial sums in a fixed order."""
     from ofdm_lte_tpu_torch._build import library
+    kernel, tol = KERNELS[gauss, "tc"]
+    splits = getattr(library(), f"cmatmul_{kernel}_splits")
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    assert library().cmatmul_tf32x3_splits(256, 200, 2048, sms) > 1
-    assert library().cmatmul_tf32x3_splits(3584, 2192, 999, sms) == 1
+    assert splits(256, 200, 2048, sms) > 1
+    assert splits(3584, 2192, 999, sms) == 1
     a, b = _operands(256, 2048, 200, cuda_device)
     before = cm.cmatmul.launches
-    runs = [cm.cmatmul(a, b) for _ in range(3)]
+    runs = [cm.cmatmul(a, b, gauss=gauss) for _ in range(3)]
     assert cm.cmatmul.launches == before + 3          # a split-K call counts once
     torch.cuda.synchronize()
     for out in runs[1:]:
         assert torch.equal(out.re, runs[0].re) and torch.equal(out.im, runs[0].im)
-    assert _rel_diff(runs[0], cm.cmatmul_plain(a, b)) <= 1e-5
+    assert _rel_diff(runs[0], cm.cmatmul_plain(a, b, gauss)) <= tol
 
 
 @pytest.mark.cuda
@@ -96,10 +105,11 @@ def test_default_variant_context_reaches_ffma(cuda_device):
     before = dict(cm.cmatmul.launches_by_kernel)
     with cm.default_variant("ffma"):
         cm.cmatmul(a, b)
+        cm.cmatmul(a, b, gauss=True)
     cm.cmatmul(a, b)
+    cm.cmatmul(a, b, gauss=True)
     after = cm.cmatmul.launches_by_kernel
-    assert after["f32_fma4"] == before["f32_fma4"] + 1
-    assert after["tf32x3"] == before["tf32x3"] + 1
+    assert all(after[kernel] == before[kernel] + 1 for kernel in after)
 
 
 @pytest.mark.cuda
@@ -109,23 +119,26 @@ def test_kernel_rejects_other_precisions(cuda_device, monkeypatch):
     for precision in ("high", "default"):
         monkeypatch.setenv("OFDM_LTE_TPU_TORCH_MATMUL_PRECISION", precision)
         for variant in cm.VARIANTS:
-            with pytest.raises(NotImplementedError):
-                cm.cmatmul(a, b, variant=variant)
+            for gauss in (False, True):
+                with pytest.raises(NotImplementedError):
+                    cm.cmatmul(a, b, gauss=gauss, variant=variant)
 
 
 @pytest.mark.cuda
-def test_link_on_card_matches_cpu_with_same_noise(cuda_device):
-    """The CUDA path (three launches of the tensor-core kernel) against the CPU
-    path, same noise."""
+@pytest.mark.parametrize("form,kernel", [("fma4", "tf32x3"), ("gauss", "tf32x3_gauss")])
+def test_link_on_card_matches_cpu_with_same_noise(form, kernel, cuda_device, monkeypatch):
+    """The CUDA path (three launches of the form's tensor-core kernel) against
+    the CPU path, same noise."""
+    monkeypatch.setenv("OFDM_LTE_TPU_TORCH_CMATMUL", form)
     cfg = LTEConfig(5.0, modulation="64-QAM")
     rng = np.random.default_rng(3)
     bits = rng.integers(0, 2, (4, siso.bits_per_frame(cfg, 28))).astype(np.int32)
     g = siso.grid_for(cfg)
     noise = ((rng.standard_normal((4, 28, g.num_data)), rng.standard_normal((4, 28, g.num_data))),
              (rng.standard_normal((4, 2, g.num_pilot)), rng.standard_normal((4, 2, g.num_pilot))))
-    before = cm.cmatmul.launches_by_kernel["tf32x3"]
+    before = cm.cmatmul.launches_by_kernel[kernel]
     on_card = siso.simulate_siso(torch.from_numpy(bits), 20.0, cfg, noise=noise)
-    assert cm.cmatmul.launches_by_kernel["tf32x3"] == before + 3
+    assert cm.cmatmul.launches_by_kernel[kernel] == before + 3
     on_cpu = siso.simulate_siso(torch.from_numpy(bits), 20.0, cfg, noise=noise, device="cpu")
     assert int((on_card.bits_rx.cpu() != on_cpu.bits_rx).sum()) <= 1e-4 * bits.size
 
@@ -146,7 +159,7 @@ NEW_SHAPES = [(56, 998, 2192), (56, 2048, 998), (42, 999, 999), (28, 1200, 2192)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("gauss,variant", list(KERNELS), ids=["tc", "ffma", "gauss"])
+@pytest.mark.parametrize("gauss,variant", list(KERNELS), ids=KERNEL_IDS)
 @pytest.mark.parametrize("M,K,N", NEW_SHAPES)
 def test_kernel_matches_plain_at_new_call_sites(M, K, N, gauss, variant, cuda_device):
     a, b = _operands(M, K, N, cuda_device)
