@@ -6,8 +6,10 @@ The main path is the 20 MHz 64-QAM SISO link over AWGN with CRS
 estimation and ZF, at 256 Monte-Carlo lanes of 14-symbol frames
 (21.5 M bits per step), as ofdm_lte_tpu_torch.sim.siso.SisoLink runs it.
 Beside it run the other SISO branches (SC-FDM, simple mode, Jakes/ITU
-multipath, flat fading) and the diversity links (SIMO 1×2 MRC, 2×2
-Alamouti SFBC), see PATHS. Every complex GEMM of every path goes through
+multipath, flat fading), the diversity links (SIMO 1×2 MRC, 2×2 Alamouti
+SFBC) and TM4 spatial multiplexing (4×2 rank 2 MMSE over the flat channel
+at the bins and in the time domain, 4×4 rank 4 SIC and 8×4 rank 2 with the
+extended CRS layout over multipath), see PATHS. Every complex GEMM of every path goes through
 the tensor-core kernel `cmatmul_tf32x3` (`tc`, 4-dot form); the
 tensor-core Gauss kernel `cmatmul_tf32x3_gauss` and the CUDA-core kernel
 `cmatmul_f32` (`ffma`: 4-dot and Gauss forms) are driven beside it on the
@@ -26,7 +28,8 @@ main path. Phases, each of which raises on failure:
    pilot GEMM twice through each tensor-core kernel and require identical
    bits;
 4. run the facade once per method: OFDMModule.transmit, simulate_simo,
-   simulate_mimo and a 3-point run_ber_sweep;
+   simulate_mimo, simulate_spatial_multiplexing and a 3-point run_ber_sweep,
+   and a 3-point `ber_sweep` of the spatial and the SFBC pipelines;
 5. run the main path at 60 dB (BER must be 0) and 15 dB (BER in
    [0.0836, 0.0880], around the JAX package's 0.08586), once per kernel,
    counting kernel launches (3 per step); run every other path at 60 dB
@@ -35,7 +38,10 @@ main path. Phases, each of which raises on failure:
    the launches the code implies and no operand copied by the wrapper; and
    hold the CUDA path against the CPU path on small inputs with the same
    injected draws (main path, SC-FDM, multipath, flat fading, SIMO 1×2
-   over multipath, SFBC 2×2 over AWGN and over multipath);
+   over multipath, SFBC 2×2 over AWGN and over multipath, spatial 4×2 MMSE
+   and 4×4 SIC over multipath), the spatial link at the bins against its
+   time path on the card under the same draws, and the time-varying flat
+   MIMO channel's one product through the kernel;
 6. time each path (CUDA events, bits and seed changed every step), the main
    one through each of the four kernels in turns, and each GEMM shape
    through the four kernels, the plain versions and one library call
@@ -55,7 +61,9 @@ are sums over all timed GEMM shapes, `by_shape` has each); the last is
 also traces 10 steps of each PATH (`main`, the default, or names of PATHS)
 with torch.profiler before those two lines and prints where a step's
 device time goes: all kernels, the GEMM kernels, the number of kernels a
-step, and the device's idle share of the traced wall time.
+step, and the device's idle share of the traced wall time. It fails if a
+device kernel whose name holds `gemm` or `cutlass` ran: every product of a
+driven path belongs to the four hand-written kernels.
 """
 import contextlib
 import json
@@ -94,6 +102,23 @@ PATHS = {
     "sfbc_2x2_rayleigh_mp": dict(kind="sfbc", kw=dict(num_rx=2, channel_type="rayleigh_mp",
                                                       itu_profile="Pedestrian_A"),
                                  snr=15.0, ber60=1e-3, launches=4),
+    # TM4 spatial multiplexing (kind "spatial": sim.spatial.SpatialLink). The
+    # flat channel at the bins launches the TX GEMM alone; the time path adds
+    # RX data and the per-symbol RX pilot GEMM; multipath adds the Jakes
+    # product; the extended CRS layout one tap-basis GEMM per TX antenna.
+    "spatial_4x2_r2_mmse": dict(kind="spatial", kw=dict(
+        num_tx=4, num_rx=2, rank_used=2, detector_type="MMSE"),
+        snr=25.0, ber60=0.0, launches=1),
+    "spatial_4x2_r2_mmse_time": dict(kind="spatial", kw=dict(
+        num_tx=4, num_rx=2, rank_used=2, detector_type="MMSE", channel_impl="time"),
+        snr=25.0, ber60=0.0, launches=3),
+    "spatial_4x4_r4_sic_rayleigh_mp": dict(kind="spatial", kw=dict(
+        num_tx=4, num_rx=4, rank_used=4, detector_type="SIC", channel_type="rayleigh_mp",
+        itu_profile="Pedestrian_A"), snr=20.0, ber60=8e-2, launches=4),
+    "spatial_8x4_r2_mmse_ext_rayleigh_mp": dict(kind="spatial", kw=dict(
+        num_tx=8, num_rx=4, rank_used=2, detector_type="MMSE", channel_type="rayleigh_mp",
+        itu_profile="Pedestrian_A", pilot_layout="extended"),
+        snr=25.0, ber60=1e-3, launches=12),
 }
 PATH_STEPS = 10     # timed steps of each of those paths
 
@@ -117,6 +142,16 @@ JAX_BER = {
     "sfbc_2x2_awgn": dict(mean=0.0126015, lane_std=0.00142068, lanes=64, bits=5365248),
     "sfbc_2x2_rayleigh_mp": dict(mean=0.039381, lane_std=0.00977599, lanes=64,
                                  bits=5365248),
+    # one H a lane over the flat MIMO channel: the per-lane BER has a heavy tail
+    "spatial_4x2_r2_mmse": dict(mean=0.0289572, lane_std=0.0597472, lanes=64, bits=5370624),
+    "spatial_4x2_r2_mmse_time": dict(mean=0.0289572, lane_std=0.0597473, lanes=64,
+                                     bits=5370624),
+    # 20 dB: three times the CRS interpolation's floor (0.034 at 60 dB), so that
+    # the band holds the noise power and not the floor alone
+    "spatial_4x4_r4_sic_rayleigh_mp": dict(mean=0.121784, lane_std=0.0310226, lanes=64,
+                                           bits=5370624),
+    "spatial_8x4_r2_mmse_ext_rayleigh_mp": dict(mean=0.00704108, lane_std=0.00203682,
+                                                lanes=64, bits=5370624),
 }
 
 # max|Δ| / max|C| against the plain version of the same form. tc and ffma
@@ -180,6 +215,10 @@ def profile_steps(step, steps: int = 10) -> None:
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         raise RuntimeError("torch.profiler recorded no device activity")
+    library = sorted({e.name for e in kernels
+                      if "gemm" in e.name.lower() or "cutlass" in e.name.lower()})
+    if library:
+        raise AssertionError(f"a library GEMM ran on a driven path: {library}")
     dev_ms = sum(e.device_time for e in kernels) / 1e3 / steps
     gemm = [e for e in kernels if "cmatmul" in e.name or "splitk" in e.name]
     gemm_ms = sum(e.device_time for e in gemm) / 1e3 / steps
@@ -193,6 +232,17 @@ def profile_steps(step, steps: int = 10) -> None:
           f"(set-up of the trace {1e3 * (t1 - t0):.0f} ms, outside)")
     for name, ms in sorted(top.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {ms:.4f} ms/step  {name[:110]}")
+
+
+def count_kernels(fn) -> int:
+    """Device kernels that one call of fn() launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
 def bound_ms(kernel: str, M: int, K: int, N: int):
@@ -231,6 +281,8 @@ def main() -> None:
 
     from ofdm_lte_tpu_torch import LTEConfig, OFDMModule, OFDMSimulator, _build, cplx
     from ofdm_lte_tpu_torch.channel import mimo, rayleigh
+    from ofdm_lte_tpu_torch.mimo import detector
+    from ofdm_lte_tpu_torch.parallel.sweep import ber_sweep
     from ofdm_lte_tpu_torch.cplx import C
     from ofdm_lte_tpu_torch.ops import ofdm, qam
     from ofdm_lte_tpu_torch.ops.cmatmul import (cmatmul, cmatmul_plain,
@@ -238,7 +290,8 @@ def main() -> None:
                                                 cmatmul_plain_tf32x3, default_variant)
     from ofdm_lte_tpu_torch.rx import alamouti
     from ofdm_lte_tpu_torch.rx.estimation import SLOT_SIZE
-    from ofdm_lte_tpu_torch.sim import diversity, siso
+    from ofdm_lte_tpu_torch.sim import diversity, siso, spatial
+    from ofdm_lte_tpu_torch.sim.links import clear_link_cache
 
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
@@ -269,6 +322,8 @@ def main() -> None:
         spec = PATHS[name]
         if spec["kind"] == "siso":
             return siso.SisoLink(cfg, device=dev, **spec["kw"])
+        if spec["kind"] == "spatial":
+            return spatial.SpatialLink(cfg, device=dev, **spec["kw"])
         cls = diversity.SimoLink if spec["kind"] == "simo" else diversity.SfbcLink
         kw = dict(spec["kw"])
         return cls(cfg, kw.pop("num_rx"), device=dev, **kw)
@@ -277,6 +332,8 @@ def main() -> None:
         spec = PATHS[name]
         if spec["kind"] == "sfbc":
             return diversity.sfbc_bits_per_frame(cfg, SYMBOLS)
+        if spec["kind"] == "spatial":
+            return spatial.bits_per_frame(cfg, SYMBOLS)
         return siso.bits_per_frame(cfg, SYMBOLS, spec["kw"].get("mode", "lte"))
 
     # -- 3. kernel vs plain at the paths' shapes ----------------------------
@@ -298,7 +355,7 @@ def main() -> None:
     st = sfbc.tables
     sfbc_bits = random_bits(LANES, 2, diversity.sfbc_bits_per_frame(cfg, SYMBOLS))
     sfbc_syms = cplx.stack(alamouti.encode(qam.modulate(sfbc_bits, cfg.modulation).reshape(
-        LANES, SYMBOLS, -1)), axis=-2)                              # (L, S, 2, n_even)
+        LANES, SYMBOLS, -1)), axis=0)                               # (2, L, S, n_even)
     y2 = ofdm.frame_stream(diversity.sfbc_transmit(sfbc_bits, cfg, st), cfg)  # (2, L, S, N+cp)
     scfdm_link = siso.SisoLink(cfg, device=dev, mode="sc-fdm")
     simple_link = siso.SisoLink(cfg, device=dev, mode="simple")
@@ -312,10 +369,10 @@ def main() -> None:
 
     def jakes_rows(links: int) -> C:
         return cplx.expi(torch.rand((links * LANES * profile.num_taps, rayleigh.N_SINUSOIDS),
-                                    generator=gen, device=dev) * (2 * np.pi))
+                                    generator=gen, device=dev) * (2 * np.pi)) \
+            * float(np.sqrt(2.0 / rayleigh.N_SINUSOIDS))
 
-    jakes_e = cplx.expi(torch.as_tensor(rayleigh._omega(profile.doppler_hz), device=dev)[:, None]
-                        * (torch.arange(T, dtype=torch.float32, device=dev) / cfg.fs)[None, :])
+    jakes_e = rayleigh.jakes_table(profile.doppler_hz, cfg.fs, T, device=dev)
     scfdm_w = scfdm_link._gemm("scfdm_w")
     simple_rx = simple_link.rx_tables.data
     new_gemms = {
@@ -330,6 +387,43 @@ def main() -> None:
         "simo_jakes": (jakes_rows(2), jakes_e, None),
         "sfbc_mp_jakes": (jakes_rows(4), jakes_e, None),
     }
+    # the spatial paths' call sites, each with the operands one step of that
+    # path makes: the TX GEMM over num_tx antennas and m = 500 (rank 2) or 250
+    # (rank 4) layer bins; on the time path the RX data GEMM and the
+    # per-symbol pilot GEMM (the CP-stripped view over all symbols, under the
+    # RX axis) after the path's own channel; over multipath the Jakes product
+    # of num_rx·num_tx links; and the K = 25 tap-basis product of the extended
+    # CRS layout. The bins path launches the TX GEMM alone, with the time
+    # path's operands.
+    sp_gemms = {}
+    for short, name in (("spatial_4x2", "spatial_4x2_r2_mmse_time"),
+                        ("spatial_4x4_mp", "spatial_4x4_r4_sic_rayleigh_mp"),
+                        ("spatial_8x4_ext_mp", "spatial_8x4_r2_mmse_ext_rayleigh_mp")):
+        sl = path_link(name)
+        x_tx = sl.precode(bits)                                     # (tx, L, S, m)
+        sp_gemms[f"{short}_tx"] = (x_tx, sl.mod_tables.b, sl.mod_tables.bsum)
+        sig = ofdm.modulate_custom_multi(x_tx, cfg, None, None, None, sl.mod_tables)
+        gen.manual_seed(5)
+        y_sp, _, _ = mimo.spatial_mix_noiseless(
+            sig.reshape(sl.num_tx, LANES, -1), PATHS[name]["snr"], sl.num_rx, sl.channel_type,
+            sl.profile, generator=gen)
+        y_sp = ofdm.frame_stream(y_sp, cfg)[..., cfg.cp_length:]    # (rx, L, S, N)
+        sp_gemms[f"{short}_rx_data"] = (y_sp, *sl._gemm("demod_data"))
+        sp_gemms[f"{short}_rx_pilot"] = (y_sp, *sl._gemm("demod_pilot"))
+        if sl.profile is not None:
+            sp_gemms[f"{short}_jakes"] = (jakes_rows(sl.num_rx * sl.num_tx), jakes_e, None)
+        if sl.pilot_layout == "extended":
+            n_comb = sl.pilot_seq0_re.shape[0]
+            gen.manual_seed(6)
+            h_comb = C(torch.randn((sl.num_rx, LANES, SYMBOLS, n_comb), generator=gen,
+                                   device=dev),
+                       torch.randn((sl.num_rx, LANES, SYMBOLS, n_comb), generator=gen,
+                                   device=dev))
+            sp_gemms[f"{short}_tap_basis"] = (h_comb, *sl._gemm("tap_basis0"))
+        del sl, sig
+        torch.cuda.empty_cache()      # the multipath tap planes run to gigabytes
+    new_gemms.update(sp_gemms)
+
     g = torch.Generator(device=dev)
     g.manual_seed(7)
 
@@ -354,39 +448,56 @@ def main() -> None:
     def mkn(a, b):
         return int(np.prod(a.shape[:-1])), b.shape[0], b.shape[1]
 
+    def plane_max(x: C) -> float:
+        return max(x.re.abs().max().item(), x.im.abs().max().item())
+
     max_err = dict.fromkeys(TOL, 0.0)
     zero_counts()
     for name, (a, b, bsum) in {**gemms, **new_gemms, **ragged}.items():
         M, K, N = mkn(a, b)
         a2 = C(a.re.reshape(M, K), a.im.reshape(M, K))
-        plain = {False: cmatmul_plain(a2, b), True: cmatmul_plain(a2, b, gauss=True)}
-        exact = c128(a2) @ c128(b)
-        scale = exact.abs().max().item()
-        err64 = {"plain": (c128(plain[False]) - exact).abs().max().item() / scale}
-        for kernel, tol in TOL.items():
-            # the operand goes in with the strides the path gives it
-            out = run_kernel(kernel, a, b, bsum).reshape(M, N)
-            torch.cuda.synchronize()
-            refs = {"plain": plain[GAUSS[kernel]]}
-            if kernel == "tf32x3":
-                refs["plain_tf32x3"] = cmatmul_plain_tf32x3(a2, b)
-            elif kernel == "tf32x3_gauss":
-                refs["plain_gauss_tf32x3"] = cmatmul_plain_gauss_tf32x3(a2, b)
-            for ref_name, ref in refs.items():
-                err = max_diff(out, ref)
-                rel = err / max(ref.re.abs().max().item(), ref.im.abs().max().item())
-                print(f"check {name} {kernel} vs {ref_name} (M={M}, K={K}, N={N}, "
-                      f"a strides {tuple(a.re.stride())}): max|d| {err:.3e}  "
-                      f"max|d|/max|C| {rel:.3e}  tol {tol:.0e}")
-                if not (rel <= tol):
-                    raise AssertionError(f"kernel {kernel} disagrees with {ref_name} at "
-                                         f"{name}: {rel:.3e} > {tol:.0e}")
-                if ref_name == "plain":
-                    max_err[kernel] = max(max_err[kernel], err)
-            err64[kernel] = (c128(out) - exact).abs().max().item() / scale
+        # each kernel once at the whole shape, the operand with the strides the
+        # path gives it; the plain versions and the float64 product follow in
+        # blocks of rows, so that the largest outputs (8 GB) fit beside them
+        outs = {kernel: run_kernel(kernel, a, b, bsum).reshape(M, N) for kernel in TOL}
+        torch.cuda.synchronize()
+        rows = max(1, min(M, (1 << 27) // N))
+        errs, ref_max, err64, scale = {}, {}, {}, 0.0
+        for r0 in range(0, M, rows):
+            ab = C(a2.re[r0:r0 + rows], a2.im[r0:r0 + rows])
+            plain = {False: cmatmul_plain(ab, b), True: cmatmul_plain(ab, b, gauss=True)}
+            exact = c128(ab) @ c128(b)
+            scale = max(scale, exact.abs().max().item())
+            err64["plain"] = max(err64.get("plain", 0.0),
+                                 (c128(plain[False]) - exact).abs().max().item())
+            for kernel in TOL:
+                out = C(outs[kernel].re[r0:r0 + rows], outs[kernel].im[r0:r0 + rows])
+                refs = {"plain": plain[GAUSS[kernel]]}
+                if kernel == "tf32x3":
+                    refs["plain_tf32x3"] = cmatmul_plain_tf32x3(ab, b)
+                elif kernel == "tf32x3_gauss":
+                    refs["plain_gauss_tf32x3"] = cmatmul_plain_gauss_tf32x3(ab, b)
+                for ref_name, ref in refs.items():
+                    key = (kernel, ref_name)
+                    errs[key] = max(errs.get(key, 0.0), max_diff(out, ref))
+                    ref_max[key] = max(ref_max.get(key, 0.0), plane_max(ref))
+                err64[kernel] = max(err64.get(kernel, 0.0),
+                                    (c128(out) - exact).abs().max().item())
+            del plain, exact, out, refs, ref
+        for (kernel, ref_name), err in errs.items():
+            rel, tol = err / ref_max[(kernel, ref_name)], TOL[kernel]
+            print(f"check {name} {kernel} vs {ref_name} (M={M}, K={K}, N={N}, "
+                  f"a strides {tuple(a.re.stride())}): max|d| {err:.3e}  "
+                  f"max|d|/max|C| {rel:.3e}  tol {tol:.0e}")
+            if not (rel <= tol):
+                raise AssertionError(f"kernel {kernel} disagrees with {ref_name} at "
+                                     f"{name}: {rel:.3e} > {tol:.0e}")
+            if ref_name == "plain":
+                max_err[kernel] = max(max_err[kernel], err)
         print(f"accuracy {name} against float64, max|d|/max|C|: " +
-              "  ".join(f"{k} {v:.3e}" for k, v in err64.items()))
-        del plain, exact, out, refs, ref
+              "  ".join(f"{k} {v / scale:.3e}" for k, v in err64.items()))
+        del outs
+        torch.cuda.empty_cache()
     if cmatmul.copies:
         raise AssertionError(f"the wrapper copied {cmatmul.copies} operand planes in phase 3")
 
@@ -427,6 +538,31 @@ def main() -> None:
               f"papr_db {res['papr_db']:.3f} launches {cmatmul.launches} copies {cmatmul.copies}")
         if not (0 <= res["ber"] < 0.1) or cmatmul.launches != per_call or cmatmul.copies:
             raise AssertionError(f"facade {method}: {res['ber']}, launches {cmatmul.launches}")
+    zero_counts()
+    res = sim.simulate_spatial_multiplexing(host_bits, 30.0, num_tx=4, num_rx=4, rank=2,
+                                            detector_type="SIC")
+    print(f"facade OFDMSimulator.simulate_spatial_multiplexing 4x4 rank 2 SIC over rayleigh_mp "
+          f"at 30 dB: ber {res['ber']:.6g} papr_db {res['papr_db']:.3f} launches "
+          f"{cmatmul.launches} copies {cmatmul.copies}")
+    if not (0 <= res["ber"] < 0.1) or cmatmul.launches != 4 or cmatmul.copies \
+            or res["mode"] != "Spatial Multiplexing TM4":
+        raise AssertionError(f"facade simulate_spatial_multiplexing: {res['ber']}, launches "
+                             f"{cmatmul.launches}")
+    # one-device sweeps: 3 SNR points x 16 frames as the 48 lanes of one step
+    for pipeline, per_step, kw in (("spatial", 1, dict(num_tx=4, num_rx=2, rank=2)),
+                                   ("sfbc", 3, dict(num_rx=2))):
+        zero_counts()
+        gen.manual_seed(8)
+        sw = ber_sweep(cfg, [10.0, 20.0, 60.0], frames=16, num_ofdm_symbols=SYMBOLS,
+                       pipeline=pipeline, generator=gen, **kw)
+        print(f"ber_sweep {pipeline} at {sw.snr_db.tolist()} dB, {sw.frames} frames a point: "
+              f"ber {sw.ber.tolist()} papr_db {sw.papr_db.tolist()} launches "
+              f"{cmatmul.launches} copies {cmatmul.copies}")
+        if not (sw.ber[0] > sw.ber[1] > sw.ber[2] >= 0.0) or sw.ber[2] > 1e-3 \
+                or cmatmul.launches != per_step or cmatmul.copies \
+                or sw.bit_errors.dtype != np.int64 or not np.isfinite(sw.papr_db).all():
+            raise AssertionError(f"ber_sweep {pipeline}: {sw}")
+    clear_link_cache()
     zero_counts()
     sweep = OFDMSimulator(cfg, seed=5).run_ber_sweep(host_bits, [5.0, 15.0, 60.0])
     print(f"facade run_ber_sweep at {sweep['snr_values'].tolist()} dB: ber "
@@ -508,6 +644,7 @@ def main() -> None:
         if cmatmul.copies:
             raise AssertionError(f"{name}: the wrapper copied {cmatmul.copies} operand planes")
         del plink, r
+        torch.cuda.empty_cache()      # the multipath tap planes run to gigabytes
     print(f"PAPR: OFDM {main_papr:.3f} dB, SC-FDM {paprs['scfdm_awgn']:.3f} dB")
     if not paprs["scfdm_awgn"] < main_papr:
         raise AssertionError("SC-FDM's PAPR is not below OFDM's")
@@ -551,6 +688,16 @@ def main() -> None:
                                          (4 * lanes * small_profile.num_taps, 16)),
                    "noise": sfbc_noise})),
     }
+    m2, m4 = -(-sg.num_data // 2), -(-sg.num_data // 4)
+    sp_n = spatial.bits_per_frame(small, S)
+    sp_flat = {"fading": normals(lanes, 2, 4),
+               "noise": (normals(2, lanes, S, m2), normals(2, lanes, S, sg.num_pilot))}
+    cases["spatial_4x2_r2_mmse"] = (spatial.simulate_spatial_multiplexing, sp_n, dict(
+        num_tx=4, num_rx=2, rank=2, detector_type="MMSE", draws=sp_flat))
+    cases["spatial_4x4_r4_sic_rayleigh_mp"] = (spatial.simulate_spatial_multiplexing, sp_n, dict(
+        num_tx=4, num_rx=4, rank=4, detector_type="SIC", channel_type="rayleigh_mp",
+        draws={"phases": rng.uniform(0, 2 * np.pi, (16 * lanes * small_profile.num_taps, 16)),
+               "noise": (normals(4, lanes, S, m4), normals(4, lanes, S, sg.num_pilot))}))
     for name, (fn, n, kw) in cases.items():
         sb = torch.as_tensor(rng.integers(0, 2, (lanes, n)).astype(np.int32))
         zero_counts()
@@ -562,6 +709,37 @@ def main() -> None:
               f"{r_cpu.ber.mean().item():.6g}, launches {cmatmul.launches}")
         if not r_gpu.bits_rx.is_cuda or mism > 1e-4 * sb.numel() or cmatmul.copies:
             raise AssertionError(f"{name}: the CUDA path disagrees with the CPU path")
+
+    # the flat spatial channel at the bins against its time path, on the card,
+    # under the same H and noise: an algebraic identity
+    sb = torch.as_tensor(rng.integers(0, 2, (lanes, sp_n)).astype(np.int32), device=dev)
+    for det in ("MMSE", "SIC"):
+        zero_counts()
+        by_impl = {impl: spatial.SpatialLink(small, 4, 2, 2, det, device=dev, channel_impl=impl)(
+            sb, 20.0, draws=sp_flat) for impl in ("bins", "time")}
+        mism = int((by_impl["bins"].bits_rx != by_impl["time"].bits_rx).sum())
+        d_papr = (by_impl["bins"].papr_db - by_impl["time"].papr_db).abs().max().item()
+        print(f"spatial 4x2 rank 2 {det} on the card, bins vs time, same draws, 5 MHz 64-QAM "
+              f"20 dB: {mism} of {sb.numel()} bits differ, PAPR differs by {d_papr:.2e} dB, "
+              f"launches {cmatmul.launches}")
+        if mism > 1e-4 * sb.numel() or d_papr > 1e-3 or cmatmul.launches != 4 or cmatmul.copies:
+            raise AssertionError(f"spatial {det}: the bins path disagrees with the time path")
+
+    # the time-varying flat MIMO channel: one product, through the kernel
+    phi = rng.uniform(0, 2 * np.pi, (16, 8 * 4 * 2))
+    zero_counts()
+    h_gpu = rayleigh.flat_mimo_time_varying(4, 2, 28, 70.0, batch_shape=(8,), device=dev,
+                                            phases=phi)
+    h_cpu = rayleigh.flat_mimo_time_varying(4, 2, 28, 70.0, batch_shape=(8,), device="cpu",
+                                            phases=phi)
+    err = max((h_gpu.re.cpu() - h_cpu.re).abs().max().item(),
+              (h_gpu.im.cpu() - h_cpu.im).abs().max().item())
+    print(f"flat_mimo_time_varying (28, 16) @ (16, 64) on the card vs the CPU, same phases: "
+          f"max|d| {err:.2e}, launches {cmatmul.launches}")
+    if err > 1e-5 or cmatmul.launches != 1:
+        raise AssertionError("flat_mimo_time_varying: not one kernel launch, or wrong")
+    clear_link_cache()
+    torch.cuda.empty_cache()
 
     # -- 6. timing --------------------------------------------------------
     pool = [random_bits(LANES, 1000 + i) for i in range(STEPS)]
@@ -615,10 +793,11 @@ def main() -> None:
             # the channel stage alone: what one fused pass (taps made on the
             # fly, delayed multiply-adds, noise) would have to beat. Fused, it
             # reads x and writes y once: 4 planes of LANES·T floats.
+            # the sinusoid table is kept: a step multiplies by it, as here
             sig, prof = plink.transmit(ppool[0]), plink.profile
             stages = {
-                "jakes_taps": lambda: rayleigh.jakes_taps(prof, T, (LANES,), generator=gen,
-                                                          device=dev),
+                "jakes_taps": lambda: rayleigh.jakes_taps(
+                    prof, T, (LANES,), generator=gen, device=dev),
                 "apply_multipath (taps + FIR)": lambda: rayleigh.apply_multipath(
                     sig, prof, generator=gen),
                 "rayleigh_multipath (taps + FIR + noise)": lambda: rayleigh.rayleigh_multipath(
@@ -631,7 +810,31 @@ def main() -> None:
                       f"one fused pass moves {4 * LANES * T * 4 / 1e6:.1f} MB, at least "
                       f"{fused:.4f} ms")
             del sig
+        if name in ("spatial_4x2_r2_mmse", "spatial_4x4_r4_sic_rayleigh_mp"):
+            # the detector chain alone, elementwise PyTorch on planes: what a
+            # fused pass would have to beat
+            n_rx, L = spec["kw"]["num_rx"], spec["kw"]["rank_used"]
+            gen.manual_seed(9)
+
+            def plane():
+                return C(torch.randn((LANES, SYMBOLS, plink.m), generator=gen, device=dev),
+                         torch.randn((LANES, SYMBOLS, plink.m), generator=gen, device=dev))
+
+            y_pl = [plane() for _ in range(n_rx)]
+            h_pl = [[plane() for _ in range(L)] for _ in range(n_rx)]
+            chains = {f"mmse{L}_planes": lambda: detector.mmse_planes(y_pl, h_pl, 1e-2),
+                      "sic_planes": lambda: detector.sic_planes(y_pl, h_pl, 1e-2,
+                                                                cfg.modulation)}
+            moved = 1e3 * 4 * 2 * LANES * SYMBOLS * plink.m * (n_rx + n_rx * L + L) \
+                / HBM_BYTES_PER_S
+            for chain, fn in chains.items():
+                print(f"[{card}] stage {chain}, {n_rx} rx x {L} layers x ({LANES}, {SYMBOLS}, "
+                      f"{plink.m}) planes: {cuda_ms(fn, PATH_STEPS):.4f} ms in "
+                      f"{count_kernels(fn)} kernels of the step's {t:.4f} ms; one fused pass "
+                      f"reads y and H and writes the layers once, at least {moved:.4f} ms")
+            del y_pl, h_pl
         del plink, ppool
+        torch.cuda.empty_cache()
 
     ms = dict.fromkeys(TOL, 0.0)
     plain_ms = dict.fromkeys(TOL, 0.0)
@@ -671,6 +874,7 @@ def main() -> None:
                   f"plain {plain:.4f} ms, library cgemm {t['library']:.4f} ms, bound "
                   f"{bound:.4f} ms by {by} (share reached {bound / t[kernel]:.3f})")
         del ac, bc
+        torch.cuda.empty_cache()
 
     sources = {"tf32x3": ("cmatmul_tf32x3", "cmatmul_tc.cu", "41"),
                "tf32x3_gauss": ("cmatmul_tf32x3_gauss", "cmatmul_tc_gauss.cu", "56"),

@@ -5,12 +5,13 @@ run_ber_sweep_all_modulations, OFDMModule.transmit / run_ber_sweep and the
 create_simulator presets take and return NumPy and the same dict keys as
 the JAX package. Randomness comes from one `torch.Generator` per
 simulator, seeded from `seed` on `device`. A simulator builds one link per
-(pipeline, num_rx) on first use and keeps it, tables on `device`. With no
-`device` given the objects run on the CUDA card and raise where there is
-none (device.resolve_device); `device="cpu"` asks for the CPU.
+(pipeline, antennas, rank, detector) on first use and keeps it, tables on
+`device`. With no `device` given the objects run on the CUDA card and raise
+where there is none (device.resolve_device); `device="cpu"` asks for the
+CPU.
 
-The coded, beamforming and spatial-multiplexing methods wait for their
-slices and raise NotImplementedError naming their ROADMAP items.
+The coded and beamforming methods wait for their slices and raise
+NotImplementedError naming their ROADMAP items.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from .device import resolve_device
 from .ops import qam
 from .sim import diversity as _div
 from .sim import siso as _siso
+from .sim import spatial as _spatial
 from .utils import metrics as _metrics
 
 
@@ -78,13 +80,13 @@ class OFDMSimulator:
             return np.pad(bits_rx, (0, n - len(bits_rx)))
         return bits_rx[:n]
 
-    def _run(self, link, bits: np.ndarray, per_symbol: int, snr_db: float):
+    def _run(self, link, bits: np.ndarray, per_symbol: int, snr_db: float, **link_kw):
         """Pad to whole OFDM symbols, run one step, count errors on the host."""
         n = len(bits)
         padded = np.zeros(int(np.ceil(n / per_symbol)) * per_symbol, np.int32)
         padded[:n] = bits
         r = link(torch.as_tensor(padded, device=self.device), float(snr_db),
-                 generator=self.generator)
+                 generator=self.generator, **link_kw)
         bits_rx = self._trim(r.bits_rx.cpu().numpy(), n)
         errors = int(np.sum(bits_rx != bits))
         return r, {"transmitted_bits": n, "received_bits": n,
@@ -136,6 +138,29 @@ class OFDMSimulator:
                       num_rx: int = 2) -> Dict:
         return self._simulate_sfbc(bits, snr_db, num_rx=num_rx)
 
+    # -- TM4 spatial multiplexing -------------------------------------------
+    def simulate_spatial_multiplexing(self, bits: np.ndarray, snr_db: float = 15.0,
+                                      num_tx: int = 4, num_rx: int = 2, rank="adaptive",
+                                      detector_type: str = "MMSE") -> Dict:
+        """One TM4 step: flat iid fading per link unless the simulator's
+        channel is "rayleigh_mp"; rank="adaptive" decides rank and PMI from
+        snr_db (sim.spatial.decide_rank_pmi)."""
+        bits = np.asarray(bits).astype(np.int32)
+        channel = self.channel_type if self.channel_type == "rayleigh_mp" else "awgn"
+        rank_used, _pmi, W = _spatial.decide_rank_pmi(num_tx, num_rx, float(snr_db), rank)
+        key = ("spatial", num_tx, num_rx, rank_used, detector_type)
+        if key not in self._links:
+            self._links[key] = _spatial.SpatialLink(
+                self.config, num_tx, num_rx, rank_used, detector_type, self.device,
+                channel_type=channel, itu_profile=self.itu_profile,
+                velocity_kmh=self.velocity_kmh or 3.0, frequency_ghz=self.frequency_ghz)
+        _, res = self._run(self._links[key], bits, _spatial.bits_per_frame(self.config, 1),
+                           snr_db, W=W)
+        res.update({"num_tx": num_tx, "num_rx": num_rx, "detector_type": detector_type,
+                    "mode": "Spatial Multiplexing TM4"})
+        self.last_results = res
+        return res
+
     # -- not ported yet ----------------------------------------------------
     def simulate_siso_coded(self, *args, **kw) -> Dict:
         raise NotImplementedError("simulate_siso_coded: ROADMAP items A16-A18")
@@ -145,9 +170,6 @@ class OFDMSimulator:
 
     def simulate_beamforming(self, *args, **kw) -> Dict:
         raise NotImplementedError("simulate_beamforming: ROADMAP item A15")
-
-    def simulate_spatial_multiplexing(self, *args, **kw) -> Dict:
-        raise NotImplementedError("simulate_spatial_multiplexing: ROADMAP item A14")
 
     # -- sweeps ------------------------------------------------------------
     def run_ber_sweep(self, bits: np.ndarray, snr_range, num_trials: int = 1,

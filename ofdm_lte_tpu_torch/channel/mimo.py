@@ -1,6 +1,6 @@
 """MIMO channel legs: per-(tx, rx)-link fading + one noise injection per RX.
 
-Port of ofdm_lte_tpu/channel/mimo.py for the diversity links:
+Port of ofdm_lte_tpu/channel/mimo.py:
 
 - transmit_simo: one TX signal through num_rx independent channels.
 - mimo_mix_noiseless / transmit_mimo:
@@ -9,11 +9,14 @@ Port of ofdm_lte_tpu/channel/mimo.py for the diversity links:
   * 'rayleigh_mp' mode: independent multipath fading per link (no noise),
     summed at each RX;
   * one AWGN injection per RX with power (P_rx/num_tx)/snr.
+- spatial_mix_noiseless / transmit_spatial_multiplexing (TM4):
+  * flat mode: one iid CN(0,1) scalar per link and lane;
+  * 'rayleigh_mp' mode: independent multipath fading per link;
+  * noise power P_rx/snr per RX, not divided by num_tx.
 
 Antennas are a leading array axis: where the JAX package maps a function
 over per-leg keys, the port makes one draw with a leading antenna axis
 from one generator, and all links go through the Jakes GEMM in one call.
-The spatial-multiplexing channel comes with its slice.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import torch
 from .. import cplx
 from ..cplx import C
 from .awgn import snr_linear, standard_normals
-from .rayleigh import MultipathProfile, apply_multipath
+from .rayleigh import MultipathProfile, apply_multipath, flat_mimo_matrix
 
 
 def _mix_links(H: C, signals_tx: C, num_rx: int) -> C:
@@ -99,9 +102,18 @@ def _mix(signals_tx: C, num_rx: int, channel_type: str,
     if channel_type != "rayleigh_mp":
         raise ValueError(f"unknown channel_type {channel_type}")
     # independent multipath fading per (rx, tx) link, summed over tx
+    return _multipath_links(signals_tx, num_rx, profile, generator, phases), \
+        cplx.cones((num_rx, num_tx), dev)
+
+
+def _multipath_links(signals_tx: C, num_rx: int, profile: MultipathProfile, generator,
+                     phases) -> C:
+    """Independent multipath fading per (rx, tx) link, summed over tx:
+    signals_tx (tx, ..., T) -> (rx, ..., T). `phases` is
+    (num_rx·num_tx·lanes·taps, 16), the links in (rx, tx, lane, tap) order."""
     faded = apply_multipath(signals_tx, profile, generator=generator, phases=phases,
                             links=(num_rx,))                   # (rx, tx, ..., T)
-    return faded.sum(axis=1), cplx.cones((num_rx, num_tx), dev)
+    return faded.sum(axis=1)
 
 
 def mimo_mix_noiseless(signals_tx: C, snr_db, num_rx: int, channel_type: str,
@@ -127,3 +139,46 @@ def transmit_mimo(signals_tx: C, snr_db, num_rx: int, channel_type: str,
     num_tx = signals_tx.shape[0]
     y, H = _mix(signals_tx, num_rx, channel_type, profile, generator, phases)
     return _per_rx_noise(y, snr_db, 1.0 / num_tx, generator, noise), H
+
+
+def spatial_mix_noiseless(signals_tx: C, snr_db, num_rx: int, channel_type: str,
+                          profile: Optional[MultipathProfile] = None,
+                          generator: Optional[torch.Generator] = None, phases=None,
+                          fading=None):
+    """The spatial-multiplexing channel's fading/mixing without the noise:
+    returns (y (num_rx, ..., T), H, noise_power (num_rx, ...)).
+
+    Flat mode (any channel_type but 'rayleigh_mp'): H (lanes..., rx, tx) iid
+    CN(0,1), one matrix a lane, applied as scalars; `fading` is the (re, im)
+    seam of its standard normals. Multipath: per-link Jakes fading, `phases`
+    (num_rx·num_tx·lanes·taps, 16), H returned as ones (CRS estimation
+    supplies the CSI). noise_power is P_rx/snr measured per RX and lane on
+    the faded signal, not divided by num_tx (unlike mimo_mix_noiseless);
+    the caller injects CN noise of that variance where it observes the
+    signal."""
+    num_tx = signals_tx.shape[0]
+    lanes = tuple(signals_tx.shape[1:-1])
+    dev = signals_tx.re.device
+    if channel_type == "rayleigh_mp":
+        y = _multipath_links(signals_tx, num_rx, profile, generator, phases)
+        H = cplx.cones(lanes + (num_rx, num_tx), dev)
+    else:
+        H = flat_mimo_matrix(num_rx, num_tx, lanes, generator, dev, fading)
+        y = _mix_links(H, signals_tx, num_rx)
+    p = y.abs2().mean(dim=-1)                                  # (rx, ...)
+    return y, H, p / snr_linear(snr_db, p.device)
+
+
+def transmit_spatial_multiplexing(signals_tx: C, snr_db, num_rx: int, channel_type: str,
+                                  profile: Optional[MultipathProfile] = None,
+                                  generator: Optional[torch.Generator] = None,
+                                  phases=None, fading=None, noise=None) -> Tuple[C, C]:
+    """TM4 spatial-multiplexing channel with the noise injected in the time
+    domain: signals_tx (num_tx, ..., T) -> (y (num_rx, ..., T), H). The
+    spatial link itself uses spatial_mix_noiseless and noise at the bins.
+    `noise` is the (re, im) seam of standard normals shaped like y."""
+    y, H, noise_power = spatial_mix_noiseless(signals_tx, snr_db, num_rx, channel_type,
+                                              profile, generator, phases, fading)
+    std = torch.sqrt(noise_power[..., None] / 2.0)
+    n = standard_normals(y.shape, generator, y.re.device, noise)
+    return C(y.re + n.re * std, y.im + n.im * std), H

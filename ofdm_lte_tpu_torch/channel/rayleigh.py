@@ -24,6 +24,7 @@ feeds the same NumPy numbers to this package and to the JAX package.
 from __future__ import annotations
 
 import functools
+from collections import OrderedDict
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -100,25 +101,49 @@ def _phases(shape, generator, device, given) -> torch.Tensor:
     return phi
 
 
+MAX_TABLES = 8
+_tables: "OrderedDict[tuple, C]" = OrderedDict()
+
+
+def jakes_table(doppler_hz: float, fs: float, num_samples: int, sample_stride: int = 1,
+                device=None) -> C:
+    """The constant sinusoid table E = exp(j·ω_n·t), (Ns, T), on `device`:
+    t runs over T samples of the fs clock, `sample_stride` apart. It is made
+    once per (Doppler, fs, T, stride, device) and kept in a plain dict of at
+    most `MAX_TABLES` tables, the least recently used dropped first (a link
+    sees one or two frame lengths), so a multipath step multiplies by E and
+    does not rebuild it. It is evaluated in fp32 on the CPU, so every device
+    multiplies by the same numbers."""
+    device = torch.empty(0, device=device).device      # "cuda" and "cuda:0" are one key
+    key = (float(doppler_hz), float(fs), int(num_samples), int(sample_stride), device)
+    table = _tables.get(key)
+    if table is None:
+        t = torch.arange(num_samples, dtype=torch.float32) * (sample_stride / fs)
+        E = cplx.expi(torch.as_tensor(_omega(doppler_hz))[:, None] * t[None, :])
+        table = _tables[key] = C(E.re.to(device), E.im.to(device))
+        while len(_tables) > MAX_TABLES:
+            _tables.popitem(last=False)
+    else:
+        _tables.move_to_end(key)
+    return table
+
+
 def jakes_taps(profile: MultipathProfile, num_samples: int, batch_shape: tuple = (),
                sample_stride: int = 1, generator: Optional[torch.Generator] = None,
                device=None, phases=None) -> C:
     """Time-varying complex tap gains h_i(t), shape (*batch, num_taps, T).
 
-    One complex GEMM P (batch·taps, Ns) @ E (Ns, T). sample_stride evaluates
-    the sinusoids every `stride` samples of the fs clock (the tap-hold path
-    of apply_multipath). `phases` (batch·taps, Ns), in radians, replaces the
-    generator's draws. The scale √(2/Ns) is applied to P, not to the
-    product: one pass over L·Ns values instead of L·T.
+    One complex GEMM P (batch·taps, Ns) @ E (Ns, T), E the kept `jakes_table`.
+    sample_stride evaluates the sinusoids every `stride` samples of the fs
+    clock (the tap-hold path of apply_multipath). `phases` (batch·taps, Ns),
+    in radians, replaces the generator's draws. The scale √(2/Ns) is applied
+    to P, not to the product: one pass over L·Ns values instead of L·T.
     """
     T, ns = num_samples, N_SINUSOIDS
-    t = torch.arange(T, dtype=torch.float32, device=device) * (sample_stride / profile.fs)
-    omega = torch.as_tensor(_omega(profile.doppler_hz), device=device)
-    E = cplx.expi(omega[:, None] * t[None, :])                 # (Ns, T)
-
+    table = jakes_table(profile.doppler_hz, profile.fs, T, sample_stride, device)
     L = int(np.prod(batch_shape, dtype=int)) * profile.num_taps
     P = cplx.expi(_phases((L, ns), generator, device, phases)) * float(np.sqrt(2.0 / ns))
-    H = _cmm(P, E)                                             # (L, T)
+    H = _cmm(P, table)                                         # (L, T)
     return H.reshape(tuple(batch_shape) + (profile.num_taps, T))
 
 
@@ -140,7 +165,7 @@ def apply_multipath(x: C, profile: MultipathProfile, hold: int = 1,
         hold = next(h for h in range(min(hold, T), 0, -1) if T % h == 0)
     Tg = T // hold
     taps = jakes_taps(profile, Tg, batch, sample_stride=hold, generator=generator,
-                      device=x.re.device, phases=phases)      # (..., taps, Tg)
+                      device=x.re.device, phases=phases)       # (..., taps, Tg)
 
     y = cplx.czeros(batch + (T,), x.re.device)
     for i, (d, g) in enumerate(zip(profile.delays_samples, profile.gains_linear)):
@@ -199,8 +224,8 @@ def flat_mimo_time_varying(num_rx: int, num_tx: int, num_symbols: int, doppler_h
     symbol, each (rx, tx) element fading independently with unit power
     (E|h|² = 1, unlike the multipath taps' 2). `phases` is (Ns, batch·rx·tx).
 
-    One small complex product E (S, Ns) @ P (Ns, L), left to torch.matmul:
-    S and L are a few dozen."""
+    One small complex product E (S, Ns) @ P (Ns, L) through `_cmm`, like
+    every other product: K = 16 as in jakes_taps, S and L a few dozen."""
     S, ns = num_symbols, N_SINUSOIDS
     batch_shape = tuple(batch_shape)
     t = torch.arange(S, dtype=torch.float32, device=device) * symbol_duration_s
@@ -210,7 +235,7 @@ def flat_mimo_time_varying(num_rx: int, num_tx: int, num_symbols: int, doppler_h
     L = int(np.prod(batch_shape, dtype=int)) * num_rx * num_tx
     P = cplx.expi(_phases((ns, L), generator, device, phases))
 
-    H = cplx.matmul(E, P) * float(np.sqrt(1.0 / ns))
+    H = _cmm(E, P) * float(np.sqrt(1.0 / ns))
     H = H.reshape((S,) + batch_shape + (num_rx, num_tx))       # (S, ..., r, t)
     nb = len(batch_shape)
     return H.transpose(*range(1, 1 + nb), 0, 1 + nb, 2 + nb)   # (..., S, r, t)

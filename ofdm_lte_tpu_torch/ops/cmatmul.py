@@ -63,14 +63,29 @@ def _kernel_for(gauss: bool, variant: str) -> str:
     return "f32_gauss" if gauss else "f32_fma4"
 
 
+@contextlib.contextmanager
+def true_fp32_products(on_cuda: bool = True):
+    """Within the block torch.matmul on a CUDA tensor multiplies in true fp32
+    (`allow_tf32` off); the flag is what it was when the block ends. A CPU
+    product reads no flag, so `on_cuda=False` touches nothing."""
+    if not on_cuda:
+        yield
+        return
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
 def cmatmul_plain(a: C, b: C, gauss: bool = False) -> C:
     """Plain PyTorch complex matmul, 4-multiply or Gauss form, in fp32.
 
-    On a CUDA tensor it turns TF32 off, so that it is the fp32 reference
-    the kernel is held against."""
-    if a.re.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
-    return cplx.matmul_gauss(a, b) if gauss else cplx.matmul(a, b)
+    On a CUDA tensor it multiplies with TF32 off, so that it is the fp32
+    reference the kernel is held against, and leaves the flag as it was."""
+    with true_fp32_products(a.re.is_cuda):
+        return cplx.matmul_gauss(a, b) if gauss else cplx.matmul(a, b)
 
 
 def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -93,15 +108,13 @@ def cmatmul_plain_tf32x3(a: C, b: C) -> C:
 
     A product of two TF32 values is exact in fp32, so this differs from the
     kernel only in the order of the sums."""
-    if a.re.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
-
     def dot(x, y):
         (xh, xl), (yh, yl) = x, y
         return (xh @ yl + xl @ yh) + xh @ yh
 
     ar, ai, br, bi = (tf32_split(p) for p in (a.re, a.im, b.re, b.im))
-    return C(dot(ar, br) - dot(ai, bi), dot(ar, bi) + dot(ai, br))
+    with true_fp32_products(a.re.is_cuda):
+        return C(dot(ar, br) - dot(ai, bi), dot(ar, bi) + dot(ai, br))
 
 
 def cmatmul_plain_gauss_tf32x3(a: C, b: C) -> C:
@@ -111,14 +124,12 @@ def cmatmul_plain_gauss_tf32x3(a: C, b: C) -> C:
     fold Cr = t1 − t2, Ci = t3 − t1 − t2.
 
     Differs from the kernel only in the order of the sums."""
-    if a.re.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
-
     def dot(x, y):
         (xh, xl), (yh, yl) = tf32_split(x), tf32_split(y)
         return (xh @ yl + xl @ yh) + xh @ yh
 
-    t1, t2, t3 = dot(a.re, b.re), dot(a.im, b.im), dot(a.re + a.im, b.re + b.im)
+    with true_fp32_products(a.re.is_cuda):
+        t1, t2, t3 = dot(a.re, b.re), dot(a.im, b.im), dot(a.re + a.im, b.re + b.im)
     return C(t1 - t2, t3 - t1 - t2)
 
 

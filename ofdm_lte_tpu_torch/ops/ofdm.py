@@ -211,12 +211,15 @@ def modulate_custom_multi(data: C, config: LTEConfig, data_bins, pilot_bins_per_
     bins, so all antennas go through one GEMM with the antenna axis folded
     into M, plus a per-TX constant pilot wave.
 
-    data: C (..., tx, m) with the antenna axis at -2 -> C (..., tx, N+cp)."""
+    data: C (tx, ..., S, m) with the antenna axis leading -> C (tx, ..., S,
+    N+cp): each antenna's symbols lie end to end, so its sample stream is a
+    view of the result."""
     if tables is None:
         tables = mod_tables_multi(config, data_bins, pilot_bins_per_tx, cell_ids,
                                   data.re.device)
     out = _cmm(data, tables.b, tables.bsum)
-    return C(out.re + tables.pilot_wave.re, out.im + tables.pilot_wave.im)
+    pw = tables.pilot_wave.reshape((data.shape[0],) + (1,) * (out.ndim - 2) + (-1,))
+    return C(out.re + pw.re, out.im + pw.im)
 
 
 def modulate_grid(grid: C, config: LTEConfig, tables: Optional[DemodTables] = None) -> C:

@@ -13,8 +13,9 @@ Port of ofdm_lte_tpu/sim/diversity.py:
 
 The antennas are a leading array axis that the modem's GEMMs fold into M.
 `SimoLink` and `SfbcLink` are nn.Modules that hold their tables as
-buffers; the functional forms build one per call. All run on the CUDA card
-unless the caller passes `device="cpu"`.
+buffers; the functional forms build the link of their arguments once and
+keep it (sim.links). All run on the CUDA card unless the caller passes
+`device="cpu"`.
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ from ..rx import alamouti
 from ..rx import estimation as est
 from ..rx.mimo_estimation import TxEstTables, estimate_per_tx, per_tx_tables
 from . import siso as siso_mod
+from .links import cached_link
 
 CHANNEL_TYPES = ("awgn", "rayleigh_mp")
 
@@ -121,7 +123,7 @@ class SimoLink(nn.Module):
         papr = ofdm.papr_db(signal_tx, axis=-1)
         y = transmit_simo(signal_tx, snr_db, self.num_rx, self.channel_type,
                           self.siso.profile, generator, draws.get("phases"),
-                          draws.get("noise"))                  # (num_rx, ..., T)
+                          draws.get("noise"))                   # (num_rx, ..., T)
         combined = simo_receive(y, self.config, self.siso.rx_tables)
         return _result(combined, bits, papr, self.config)
 
@@ -134,8 +136,8 @@ def simulate_simo(bits: torch.Tensor, snr_db, config: LTEConfig, num_rx: int = 2
     """1×N receive diversity: independent channel per RX antenna, per-antenna
     CRS estimation, frequency-domain MRC combining, hard demap. Runs on
     `device`: the CUDA card when none is given."""
-    link = SimoLink(config, num_rx, device, channel_type, itu_profile, velocity_kmh,
-                    frequency_ghz)
+    link = cached_link(SimoLink, config, num_rx, resolve_device(device), channel_type,
+                       itu_profile, velocity_kmh, frequency_ghz)
     bits = bits.to(link.siso.mod_b_re.device)
     return link(bits, snr_db, generator=generator, draws=draws)
 
@@ -191,10 +193,8 @@ def sfbc_transmit(bits: torch.Tensor, config: LTEConfig,
 
     syms = qam.modulate(bits, config.modulation).reshape(lead + (S, n_even))
     out = ofdm.modulate_custom_multi(
-        cplx.stack(alamouti.encode(syms), axis=-2), config, dbins,
-        (g.pilot_idx[0::2], g.pilot_idx[1::2]), (0, 1), tables.mod)  # (..., S, 2, N+cp)
-    nd = out.ndim
-    out = out.transpose(nd - 2, *range(nd - 2), nd - 1)              # (2, ..., S, N+cp)
+        cplx.stack(alamouti.encode(syms), axis=0), config, dbins,
+        (g.pilot_idx[0::2], g.pilot_idx[1::2]), (0, 1), tables.mod)  # (2, ..., S, N+cp)
     return out.reshape((2,) + lead + (S * config.samples_per_ofdm_symbol,))
 
 
@@ -302,8 +302,8 @@ def simulate_sfbc(bits: torch.Tensor, snr_db, config: LTEConfig, num_rx: int = 1
     """2×num_rx Alamouti SFBC: num_rx=1 is simulate_miso, num_rx>1 is
     simulate_mimo (per-RX decode, then the mean across RX). Runs on
     `device`: the CUDA card when none is given."""
-    link = SfbcLink(config, num_rx, device, channel_type, itu_profile, velocity_kmh,
-                    frequency_ghz)
+    link = cached_link(SfbcLink, config, num_rx, resolve_device(device), channel_type,
+                       itu_profile, velocity_kmh, frequency_ghz)
     bits = bits.to(link.mod_b_re.device)
     return link(bits, snr_db, generator=generator, draws=draws)
 

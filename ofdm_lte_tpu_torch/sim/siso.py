@@ -47,6 +47,7 @@ from ..grid import grid_for, interp_table, pilot_sequence
 from ..ops import ofdm, qam, scfdm
 from ..ops.ofdm import DemodTables, ModTables
 from ..rx import estimation as est
+from .links import cached_link
 
 MODES = ("lte", "sc-fdm", "simple")
 CHANNEL_TYPES = ("awgn", "fading", "rayleigh_mp")
@@ -392,8 +393,9 @@ def simulate_siso(bits: torch.Tensor, snr_db, config: LTEConfig,
     with pad_bits). They are moved to `device`: the CUDA card when none is
     given, which raises where there is no card (resolve_device); pass
     device="cpu" for the CPU. Leading axes are independent lanes; snr_db
-    broadcasts against them."""
-    link = SisoLink(config, device, 0, mode, channel_type, enable_equalization,
-                    itu_profile, velocity_kmh, frequency_ghz)
+    broadcasts against them. The link of these arguments is built on the
+    first call and kept (sim.links)."""
+    link = cached_link(SisoLink, config, resolve_device(device), 0, mode, channel_type,
+                       enable_equalization, itu_profile, velocity_kmh, frequency_ghz)
     bits = bits.to(link.mod_b_re.device)
     return link(bits, snr_db, generator=generator, noise=noise, draws=draws)

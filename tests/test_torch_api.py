@@ -107,12 +107,35 @@ def test_create_simulator_presets_equal(preset):
 
 @pytest.mark.parametrize("method,item", [("simulate_siso_coded", "A16"),
                                          ("simulate_siso_coded_harq", "A16"),
-                                         ("simulate_beamforming", "A15"),
-                                         ("simulate_spatial_multiplexing", "A14")])
+                                         ("simulate_beamforming", "A15")])
 def test_unported_methods_name_their_roadmap_item(method, item):
     _, t = _sims()
     with pytest.raises(NotImplementedError, match=item):
         getattr(t, method)(BITS, 10.0)
+
+
+@pytest.mark.parametrize("kw", [dict(num_tx=2, num_rx=2, rank=2),
+                                dict(num_tx=4, num_rx=2, rank="adaptive"),
+                                dict(num_tx=4, num_rx=4, rank=2, detector_type="SIC")],
+                         ids=["2x2_r2", "4x2_adaptive", "4x4_r2_sic"])
+def test_simulate_spatial_multiplexing_keys_and_clean_link(kw):
+    """The facade's TM4 method: the JAX facade's keys, BER 0 at 60 dB, one
+    link kept per (antennas, rank, detector)."""
+    j, t = _sims()
+    ref = j.simulate_spatial_multiplexing(BITS, 60.0, **kw)
+    out = t.simulate_spatial_multiplexing(BITS, 60.0, **kw)
+    assert set(out) == set(ref)
+    for key in ("transmitted_bits", "received_bits", "num_tx", "num_rx", "detector_type",
+                "mode", "snr_db"):
+        assert out[key] == ref[key], key
+    assert out["ber"] == ref["ber"] == 0.0 and out["bit_errors"] == 0
+    np.testing.assert_array_equal(out["bits_received_array"], BITS)
+    assert abs(out["papr_db"] - ref["papr_db"]) < 1e-3
+    links = dict(t._links)
+    assert 0.0 < t.simulate_spatial_multiplexing(BITS, 5.0, **kw)["ber"] < 0.5
+    if kw["rank"] != "adaptive":
+        assert t._links == links              # the same link served both calls
+    assert t.last_results["snr_db"] == 5.0
 
 
 def test_unknown_mode_or_channel_raises():

@@ -6,7 +6,9 @@ from: the JAX package, run on the CPU at chip_smoke's configuration (20 MHz
 
 prints the JAX_BER table to paste into chip_smoke.py: per path the mean
 BER, the standard deviation of the per-lane BER, the lanes and the bits
-(under a minute on two cores). Its output is kept beside this file,
+(under a minute on two cores for the SISO and diversity paths, about three
+more for the four spatial ones; path names on the command line restrict the
+run). Its output is kept beside this file,
 test_torch_chip_bands.txt. chip_smoke.py then accepts a mean BER within 4σ,
 σ² = lane_std²·(1/lanes here + 1/lanes there). The test below holds
 chip_smoke's constants to that kept output; the port itself is held to the
@@ -26,6 +28,7 @@ import chip_smoke
 from ofdm_lte_tpu_torch import LTEConfig
 from ofdm_lte_tpu_torch.sim import diversity as tdiv
 from ofdm_lte_tpu_torch.sim import siso as tsiso
+from ofdm_lte_tpu_torch.sim import spatial as tspatial
 
 torch.set_num_threads(2)
 
@@ -35,6 +38,8 @@ JAX_LANES = 64
 def _n_bits(kind, cfg, mode="lte"):
     if kind == "sfbc":
         return tdiv.sfbc_bits_per_frame(cfg, chip_smoke.SYMBOLS)
+    if kind == "spatial":
+        return tspatial.bits_per_frame(cfg, chip_smoke.SYMBOLS)
     return tsiso.bits_per_frame(cfg, chip_smoke.SYMBOLS, mode)
 
 
@@ -49,11 +54,40 @@ def jax_ber(name, snr_db, lanes=JAX_LANES, seed=0):
     spec = chip_smoke.PATHS[name]
     cfg = jcfg.LTEConfig(20.0, modulation="64-QAM")
     n = _n_bits(spec["kind"], LTEConfig(20.0, modulation="64-QAM"), spec["kw"].get("mode", "lte"))
-    bits = jnp.asarray(np.random.default_rng(seed).integers(0, 2, (lanes, n)).astype(np.int8))
+    bits = np.random.default_rng(seed).integers(0, 2, (lanes, n)).astype(np.int8)
+    if spec["kind"] == "spatial":
+        return _jax_spatial_ber(spec["kw"], bits, snr_db, cfg, seed), lanes * n
     fn = {"siso": jsiso.simulate_siso, "simo": jdiv.simulate_simo,
           "sfbc": jdiv.simulate_sfbc}[spec["kind"]]
-    return np.asarray(fn(jax.random.PRNGKey(seed), bits, snr_db, cfg, **spec["kw"]).ber,
-                      np.float64), lanes * n
+    return np.asarray(fn(jax.random.PRNGKey(seed), jnp.asarray(bits), snr_db, cfg,
+                         **spec["kw"]).ber, np.float64), lanes * n
+
+
+def _jax_spatial_ber(link_kw, bits, snr_db, cfg, seed, chunk=16):
+    """The spatial link's arguments as the JAX function takes them
+    (`rank_used` is its `rank`, `channel_impl` its environment variable), run
+    `chunk` lanes at a time under keys folded from the seed: the multipath
+    tap planes of all lanes at once would take gigabytes here."""
+    import jax
+    import jax.numpy as jnp
+    from ofdm_lte_tpu.sim import spatial as jspatial
+    kw = dict(link_kw)
+    kw["rank"] = kw.pop("rank_used")
+    impl = kw.pop("channel_impl", None)
+    saved = os.environ.get("OFDM_LTE_TPU_SPATIAL_CHANNEL")
+    if impl is not None:
+        os.environ["OFDM_LTE_TPU_SPATIAL_CHANNEL"] = impl
+    try:
+        bers = [np.asarray(jspatial.simulate_spatial_multiplexing(
+            jax.random.fold_in(jax.random.PRNGKey(seed), i), jnp.asarray(bits[i:i + chunk]),
+            snr_db, cfg, **kw).ber, np.float64) for i in range(0, len(bits), chunk)]
+    finally:
+        if impl is not None:
+            if saved is None:
+                del os.environ["OFDM_LTE_TPU_SPATIAL_CHANNEL"]
+            else:
+                os.environ["OFDM_LTE_TPU_SPATIAL_CHANNEL"] = saved
+    return np.concatenate(bers)
 
 
 def kept_output() -> dict:
@@ -78,8 +112,12 @@ def test_band_constants_are_the_generator_output(name):
 
 
 if __name__ == "__main__":
+    # the paths named on the command line, or all of them
+    wanted = sys.argv[1:] or list(chip_smoke.PATHS)
     print("JAX_BER = {")
     for path, spec_ in chip_smoke.PATHS.items():
+        if path not in wanted:
+            continue
         ber, n_bits = jax_ber(path, spec_["snr"])
         clean, _ = jax_ber(path, 60.0, lanes=8)
         print(f'    "{path}": dict(mean={ber.mean():.6g}, lane_std={ber.std(ddof=1):.6g}, '

@@ -229,3 +229,144 @@ def test_new_paths_on_card_match_cpu_with_same_draws(path, cuda_device):
     on_cpu = run(torch.from_numpy(bits), 18.0, cfg, device="cpu", **kw)
     assert on_card.bits_rx.is_cuda and cm.cmatmul.copies == before
     assert int((on_card.bits_rx.cpu() != on_cpu.bits_rx).sum()) <= 1e-4 * bits.size
+
+
+# the spatial link's call sites at a narrow M: TX over layer bins (K = 500 and
+# 250), the time path's RX GEMMs (N = 500, 250), the tap-basis product (K = 25)
+SPATIAL_SHAPES = [(56, 500, 2192), (56, 250, 2192), (56, 2048, 500), (56, 2048, 250),
+                  (448, 25, 500)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gauss,variant", list(KERNELS), ids=KERNEL_IDS)
+@pytest.mark.parametrize("M,K,N", SPATIAL_SHAPES)
+def test_kernel_matches_plain_at_spatial_call_sites(M, K, N, gauss, variant, cuda_device):
+    a, b = _operands(M, K, N, cuda_device)
+    kernel, tol = KERNELS[gauss, variant]
+    out = cm.cmatmul(a, b, gauss=gauss, variant=variant)
+    ref = cm.cmatmul_plain(a, b, gauss)
+    torch.cuda.synchronize()
+    assert _rel_diff(out, ref) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag", [True, False])
+def test_plain_versions_restore_allow_tf32_on_the_card(flag, cuda_device):
+    a, b = _operands(40, 50, 60, cuda_device)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+        for plain in (cm.cmatmul_plain, cm.cmatmul_plain_tf32x3, cm.cmatmul_plain_gauss_tf32x3):
+            plain(a, b)
+            assert torch.backends.cuda.matmul.allow_tf32 is flag
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+def test_flat_mimo_time_varying_launches_the_kernel_once(cuda_device):
+    from ofdm_lte_tpu_torch.channel import rayleigh
+    phi = np.random.default_rng(2).uniform(0, 2 * np.pi, (16, 5 * 2 * 3))
+    before = cm.cmatmul.launches
+    on_card = rayleigh.flat_mimo_time_varying(2, 3, 28, 70.0, batch_shape=(5,), phases=phi,
+                                              device=cuda_device)
+    assert cm.cmatmul.launches == before + 1
+    on_cpu = rayleigh.flat_mimo_time_varying(2, 3, 28, 70.0, batch_shape=(5,), phases=phi,
+                                             device="cpu")
+    assert on_card.shape == (5, 28, 2, 3)
+    torch.testing.assert_close(on_card.re.cpu(), on_cpu.re, rtol=0, atol=1e-5)
+    torch.testing.assert_close(on_card.im.cpu(), on_cpu.im, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_jakes_table_is_kept_on_the_card(cuda_device):
+    from ofdm_lte_tpu_torch.channel import rayleigh
+    cfg = LTEConfig(1.25, modulation="QPSK")
+    link = siso.SisoLink(cfg, channel_type="rayleigh_mp")
+    bits = torch.zeros((2, siso.bits_per_frame(cfg, 14)), dtype=torch.int32, device=cuda_device)
+    rayleigh._tables.clear()
+    link(bits, 20.0)
+    link(bits, 20.0)
+    (key, table), = rayleigh._tables.items()
+    T = 14 * cfg.samples_per_ofdm_symbol
+    assert key[2:] == (T, 1, table.re.device) and table.re.is_cuda and table.im.is_cuda
+    assert rayleigh.jakes_table(link.profile.doppler_hz, link.profile.fs, T,
+                                device="cuda") is table
+    on_cpu = rayleigh.jakes_table(link.profile.doppler_hz, link.profile.fs, T, device="cpu")
+    assert torch.equal(table.re.cpu(), on_cpu.re) and torch.equal(table.im.cpu(), on_cpu.im)
+
+
+SPATIAL_CASES = {
+    "4x2_r2_mmse_bins": dict(num_tx=4, num_rx=2, rank=2, detector_type="MMSE"),
+    "4x2_r2_sic_time": dict(num_tx=4, num_rx=2, rank=2, detector_type="SIC", impl="time"),
+    "4x4_r4_sic_mp": dict(num_tx=4, num_rx=4, rank=4, detector_type="SIC",
+                          channel_type="rayleigh_mp"),
+    "4x4_r3_zf_bins": dict(num_tx=4, num_rx=4, rank=3, detector_type="ZF"),
+    "4x2_r1_mrc_bins": dict(num_tx=4, num_rx=2, rank=1, detector_type="MRC"),
+    "8x4_r2_mmse_ext_mp": dict(num_tx=8, num_rx=4, rank=2, detector_type="MMSE",
+                               channel_type="rayleigh_mp", pilot_layout="extended"),
+}
+# complex-GEMM launches a step: TX; + RX data and RX pilot on the time path;
+# + Jakes over multipath; + one tap-basis product a TX antenna
+SPATIAL_LAUNCHES = {"4x2_r2_mmse_bins": 1, "4x2_r2_sic_time": 3, "4x4_r4_sic_mp": 4,
+                    "4x4_r3_zf_bins": 1, "4x2_r1_mrc_bins": 1, "8x4_r2_mmse_ext_mp": 12}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SPATIAL_CASES))
+def test_spatial_link_on_card_matches_cpu_with_same_draws(name, cuda_device, monkeypatch):
+    from ofdm_lte_tpu_torch.sim import spatial
+    kw = dict(SPATIAL_CASES[name])
+    impl = kw.pop("impl", None)
+    if impl:
+        monkeypatch.setenv("OFDM_LTE_TPU_TORCH_SPATIAL_CHANNEL", impl)
+    cfg = LTEConfig(5.0, modulation="16-QAM")
+    rng = np.random.default_rng(6)
+    g = siso.grid_for(cfg)
+    lanes, S = 3, 14
+    num_tx, num_rx, rank = kw["num_tx"], kw["num_rx"], kw["rank"]
+    m = -(-g.num_data // rank)
+
+    def normals(*shape):
+        return rng.standard_normal(shape), rng.standard_normal(shape)
+
+    draws = {"noise": (normals(num_rx, lanes, S, m), normals(num_rx, lanes, S, g.num_pilot))}
+    if kw.get("channel_type") == "rayleigh_mp":
+        draws["phases"] = rng.uniform(0, 2 * np.pi, (num_rx * num_tx * lanes * 4, 16))
+    else:
+        draws["fading"] = normals(lanes, num_rx, num_tx)
+    bits = rng.integers(0, 2, (lanes, spatial.bits_per_frame(cfg, S))).astype(np.int32)
+    snr = np.array([12.0, 20.0, 30.0], np.float32)
+    before, copies = cm.cmatmul.launches, cm.cmatmul.copies
+    on_card = spatial.simulate_spatial_multiplexing(torch.from_numpy(bits), snr, cfg,
+                                                    draws=draws, **kw)
+    assert cm.cmatmul.launches == before + SPATIAL_LAUNCHES[name]
+    assert cm.cmatmul.copies == copies and on_card.bits_rx.is_cuda
+    on_cpu = spatial.simulate_spatial_multiplexing(torch.from_numpy(bits), snr, cfg,
+                                                   device="cpu", draws=draws, **kw)
+    assert int((on_card.bits_rx.cpu() != on_cpu.bits_rx).sum()) <= 1e-4 * bits.size
+    torch.testing.assert_close(on_card.papr_db.cpu(), on_cpu.papr_db, rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipeline", ["siso", "simo", "sfbc", "spatial"])
+def test_ber_sweep_on_the_card(pipeline, cuda_device):
+    from ofdm_lte_tpu_torch.parallel.sweep import ber_sweep
+    cfg = LTEConfig(1.25, modulation="QPSK")
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    r = ber_sweep(cfg, [0.0, 60.0], frames=4, num_ofdm_symbols=14, pipeline=pipeline,
+                  generator=gen)
+    assert r.bit_errors[0] > r.bit_errors[1] == 0 and r.bit_errors.dtype == np.int64
+    assert np.isfinite(r.papr_db).all()
+
+
+@pytest.mark.cuda
+def test_spatial_entry_points_default_to_the_card(cuda_device):
+    from ofdm_lte_tpu_torch import OFDMSimulator
+    from ofdm_lte_tpu_torch.sim import spatial
+    cfg = LTEConfig(1.25, modulation="QPSK")
+    link = spatial.SpatialLink(cfg, 2, 2, 2)
+    assert all(b.is_cuda for b in link.buffers())
+    res = OFDMSimulator(cfg, seed=0).simulate_spatial_multiplexing(
+        np.random.default_rng(0).integers(0, 2, 300), 60.0, num_tx=2, num_rx=2, rank=2)
+    assert res["ber"] == 0.0

@@ -6,7 +6,8 @@ import torch
 
 from ofdm_lte_tpu_torch import LTEConfig, OFDMModule, OFDMSimulator
 from ofdm_lte_tpu_torch.device import resolve_device
-from ofdm_lte_tpu_torch.sim import diversity, siso
+from ofdm_lte_tpu_torch.parallel import sweep
+from ofdm_lte_tpu_torch.sim import diversity, siso, spatial
 
 torch.set_num_threads(2)
 
@@ -73,7 +74,8 @@ def test_simulate_siso_follows_the_bits(no_card):
 
 FUNCTIONAL = {"simulate_siso": siso.simulate_siso, "simulate_simo": diversity.simulate_simo,
               "simulate_sfbc": diversity.simulate_sfbc, "simulate_miso": diversity.simulate_miso,
-              "simulate_mimo": diversity.simulate_mimo}
+              "simulate_mimo": diversity.simulate_mimo,
+              "simulate_spatial_multiplexing": spatial.simulate_spatial_multiplexing}
 
 
 @pytest.mark.parametrize("name", list(FUNCTIONAL))
@@ -81,8 +83,9 @@ def test_functional_entry_points_resolve_the_device(name, no_card, monkeypatch):
     """device=None goes through resolve_device (the card, or raise), and the
     bits are moved to the device that it names."""
     fn = FUNCTIONAL[name]
-    n = (siso.bits_per_frame(CFG, 14) if name in ("simulate_siso", "simulate_simo")
-         else diversity.sfbc_bits_per_frame(CFG, 14))
+    n = (diversity.sfbc_bits_per_frame(CFG, 14)
+         if name in ("simulate_sfbc", "simulate_miso", "simulate_mimo")
+         else siso.bits_per_frame(CFG, 14))
     bits = torch.from_numpy(np.random.default_rng(3).integers(0, 2, n).astype(np.int32))
     with pytest.raises(RuntimeError, match='device="cpu"'):
         fn(bits, 60.0, CFG)
@@ -90,7 +93,7 @@ def test_functional_entry_points_resolve_the_device(name, no_card, monkeypatch):
     assert r.bits_rx.device == torch.device("cpu") and int(r.bit_errors) == 0
     # with a card present, no device means the card: stand "meta" in for it
     asked = []
-    for mod in (siso, diversity):
+    for mod in (siso, diversity, spatial):
         monkeypatch.setattr(mod, "resolve_device",
                             lambda d=None: asked.append(d) or torch.device("meta"))
     try:
@@ -100,8 +103,20 @@ def test_functional_entry_points_resolve_the_device(name, no_card, monkeypatch):
     assert asked and asked[0] is None
 
 
-@pytest.mark.parametrize("entry", [diversity.SimoLink, diversity.SfbcLink],
-                         ids=["SimoLink", "SfbcLink"])
+def test_ber_sweep_resolves_the_device(no_card, monkeypatch):
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        sweep.ber_sweep(CFG, [60.0], frames=1, num_ofdm_symbols=14)
+    r = sweep.ber_sweep(CFG, [60.0], frames=1, num_ofdm_symbols=14, device="cpu")
+    assert int(r.bit_errors.sum()) == 0
+    asked = []
+    monkeypatch.setattr(sweep, "resolve_device",
+                        lambda d=None: asked.append(d) or torch.device("cpu"))
+    sweep.ber_sweep(CFG, [60.0], frames=1, num_ofdm_symbols=14, pipeline="spatial")
+    assert asked == [None]
+
+
+@pytest.mark.parametrize("entry", [diversity.SimoLink, diversity.SfbcLink, spatial.SpatialLink],
+                         ids=["SimoLink", "SfbcLink", "SpatialLink"])
 def test_diversity_links_take_the_card_or_raise(entry, no_card):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         entry(CFG)

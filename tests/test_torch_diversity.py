@@ -76,8 +76,8 @@ def test_estimate_per_tx_two_tx_matches_jax(bw, rng):
     tables = tmest.per_tx_tables(tc, 2, dbins, device="cpu")
     _close(tmest.estimate_per_tx(tp, tc, 2, dbins, tables=tables), j)
     assert j.shape == (2, 3, 2, 2, len(dbins))
-    with pytest.raises(NotImplementedError, match="A14"):
-        tmest.estimate_per_tx(tp, tc, 8, dbins, layout="extended")
+    j8 = jmest.estimate_per_tx(jp, jc, 8, dbins, layout="extended")
+    _close(tmest.estimate_per_tx(tp, tc, 8, dbins, layout="extended"), j8, 1e-4)
     with pytest.raises(ValueError):
         tmest.estimate_per_tx(tp, tc, 2, dbins, layout="nope")
 

@@ -81,9 +81,11 @@ def test_modulate_custom_multi_matches_jax(num_tx, rng):
     pilots = orthogonal_pilot_indices(jc, num_tx)
     cells = [tx % 4 for tx in range(num_tx)]
     j, t = _pair(rng, (2, 3, num_tx, g.num_data), scale=1 / np.sqrt(2))
-    out = tofdm.modulate_custom_multi(t, tc, g.data_idx, pilots, cells)
-    _close(out, jofdm.modulate_custom_multi(j, jc, g.data_idx, pilots, cells), 1e-4)
-    assert out.shape == (2, 3, num_tx, tc.samples_per_ofdm_symbol)
+    # the port leads with the antenna axis, the JAX package keeps it at -2
+    out = tofdm.modulate_custom_multi(t.transpose(2, 0, 1, 3), tc, g.data_idx, pilots, cells)
+    assert out.shape == (num_tx, 2, 3, tc.samples_per_ofdm_symbol)
+    _close(out.transpose(1, 2, 0, 3),
+           jofdm.modulate_custom_multi(j, jc, g.data_idx, pilots, cells), 1e-4)
 
 
 @pytest.mark.parametrize("bw", [1.25, 5.0])

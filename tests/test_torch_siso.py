@@ -130,8 +130,8 @@ def test_link_is_reproducible_and_follows_bit_dtype(rng):
 
 def test_unported_branches_raise(rng):
     """Every branch of the JAX simulate_siso runs; what raises is an unknown
-    value, a seam of the wrong shape or kind, and the pilot layout that
-    waits for spatial multiplexing."""
+    value, a seam of the wrong shape or kind, and an unknown pilot layout
+    (the extended layout came with spatial multiplexing)."""
     cfg = LTEConfig(1.25)
     bits = torch.from_numpy(_bits(rng, cfg, 1, 14))
     for kw in ({"mode": "sc-fdm"}, {"enable_equalization": False},
@@ -145,8 +145,11 @@ def test_unported_branches_raise(rng):
         with pytest.raises((ValueError, KeyError)):
             tsiso.simulate_siso(bits, 10.0, cfg, device="cpu", **kw)
     from ofdm_lte_tpu_torch.rx import mimo_estimation
-    with pytest.raises(NotImplementedError, match="A14"):
-        mimo_estimation.per_tx_tables(cfg, 8, np.arange(4), layout="extended")
+    tables = mimo_estimation.per_tx_tables(cfg, 8, np.arange(4), layout="extended",
+                                           device="cpu")
+    assert len(tables) == 8 and all(t.basis is not None and t.interp is None for t in tables)
+    with pytest.raises(ValueError, match="layout"):
+        mimo_estimation.per_tx_tables(cfg, 8, np.arange(4), layout="nope")
 
 
 def test_pad_and_frame_helpers():

@@ -162,6 +162,10 @@ def test_port_imports_no_jax():
         "import ofdm_lte_tpu_torch.channel.rayleigh, ofdm_lte_tpu_torch.ops.scfdm\n"
         "import ofdm_lte_tpu_torch.rx.alamouti, ofdm_lte_tpu_torch.rx.mimo_estimation\n"
         "import ofdm_lte_tpu_torch.utils.metrics\n"
+        "import ofdm_lte_tpu_torch.mimo.layer_mapper, ofdm_lte_tpu_torch.mimo.codebook\n"
+        "import ofdm_lte_tpu_torch.mimo.rank_adaptation, ofdm_lte_tpu_torch.mimo.detector\n"
+        "import ofdm_lte_tpu_torch.sim.spatial, ofdm_lte_tpu_torch.sim.links\n"
+        "import ofdm_lte_tpu_torch.parallel.sweep\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'ofdm_lte_tpu'))\n"
         "assert not bad, bad\n"
