@@ -9,7 +9,9 @@ Beside it run the other SISO branches (SC-FDM, simple mode, Jakes/ITU
 multipath, flat fading), the diversity links (SIMO 1×2 MRC, 2×2 Alamouti
 SFBC) and TM4 spatial multiplexing (4×2 rank 2 MMSE over the flat channel
 at the bins and in the time domain, 4×4 rank 4 SIC and 8×4 rank 2 with the
-extended CRS layout over multipath), see PATHS. Every complex GEMM of every path goes through
+extended CRS layout over multipath) and TM6 beamforming with PMI feedback
+(4×2 over the static flat channel, 8×1 over the Jakes channel at 30 km/h
+with W recomputed every 4 symbols), see PATHS. Every complex GEMM of every path goes through
 the tensor-core kernel `cmatmul_tf32x3` (`tc`, 4-dot form); the
 tensor-core Gauss kernel `cmatmul_tf32x3_gauss` and the CUDA-core kernel
 `cmatmul_f32` (`ffma`: 4-dot and Gauss forms) are driven beside it on the
@@ -28,8 +30,9 @@ main path. Phases, each of which raises on failure:
    pilot GEMM twice through each tensor-core kernel and require identical
    bits;
 4. run the facade once per method: OFDMModule.transmit, simulate_simo,
-   simulate_mimo, simulate_spatial_multiplexing and a 3-point run_ber_sweep,
-   and a 3-point `ber_sweep` of the spatial and the SFBC pipelines;
+   simulate_mimo, simulate_spatial_multiplexing, simulate_beamforming over
+   either channel model and a 3-point run_ber_sweep, and a 3-point
+   `ber_sweep` of the spatial, the SFBC and the beamforming pipelines;
 5. run the main path at 60 dB (BER must be 0) and 15 dB (BER in
    [0.0836, 0.0880], around the JAX package's 0.08586), once per kernel,
    counting kernel launches (3 per step); run every other path at 60 dB
@@ -39,9 +42,13 @@ main path. Phases, each of which raises on failure:
    hold the CUDA path against the CPU path on small inputs with the same
    injected draws (main path, SC-FDM, multipath, flat fading, SIMO 1×2
    over multipath, SFBC 2×2 over AWGN and over multipath, spatial 4×2 MMSE
-   and 4×4 SIC over multipath), the spatial link at the bins against its
-   time path on the card under the same draws, and the time-varying flat
-   MIMO channel's one product through the kernel;
+   and 4×4 SIC over multipath, beamforming 4×2 static and 8×1 Jakes), the
+   spatial link at the bins against its time path on the card under the
+   same draws, and the time-varying flat MIMO channel's one product through
+   the kernel; run the coded chain's front end (CRC, rate matching and
+   de-matching at K 40 and 6144, rv 0-3, with repetition and puncturing,
+   max-log LLRs of a 20 MHz 64-QAM frame of 256 lanes) on the card and
+   demand the CPU's results: equal bits, LLRs within 1e-6 of max|LLR|;
 6. time each path (CUDA events, bits and seed changed every step), the main
    one through each of the four kernels in turns, and each GEMM shape
    through the four kernels, the plain versions and one library call
@@ -62,8 +69,10 @@ also traces 10 steps of each PATH (`main`, the default, or names of PATHS)
 with torch.profiler before those two lines and prints where a step's
 device time goes: all kernels, the GEMM kernels, the number of kernels a
 step, and the device's idle share of the traced wall time. It fails if a
-device kernel whose name holds `gemm` or `cutlass` ran: every product of a
-driven path belongs to the four hand-written kernels.
+device kernel whose name holds `gemm` or `cutlass` ran (every product of a
+driven path belongs to the four hand-written kernels) or an eigensolver's
+(EIGENSOLVER_KERNELS: the beamforming paths ask the feedback for the PMI
+and W alone, not for RI).
 """
 import contextlib
 import json
@@ -119,6 +128,16 @@ PATHS = {
         num_tx=8, num_rx=4, rank_used=2, detector_type="MMSE", channel_type="rayleigh_mp",
         itu_profile="Pedestrian_A", pilot_layout="extended"),
         snr=25.0, ber60=1e-3, launches=12),
+    # TM6 rank-1 beamforming with PMI feedback (kind "beamforming":
+    # sim.beamforming.BeamformingLink), the frequency-domain link y = H·W s + n
+    # with MRC: the static flat channel launches no GEMM; the Jakes channel
+    # (30 km/h at 2 GHz: f_D = 55.6 Hz, W recomputed every 4 symbols) its one
+    # E (S, 16) @ P (16, lanes·rx·tx) product
+    "bf_4x2_tm6_codebook": dict(kind="beamforming", kw=dict(
+        num_tx=4, num_rx=2, update_mode="static"), snr=15.0, ber60=0.0, launches=0),
+    "bf_8x1_tm6_jakes_30kmh": dict(kind="beamforming", kw=dict(
+        num_tx=8, num_rx=1, update_mode="static", channel_model="jakes", update_period=4,
+        doppler_hz=30.0 / 3.6 * 2e9 / 3e8), snr=15.0, ber60=0.0, launches=1),
 }
 PATH_STEPS = 10     # timed steps of each of those paths
 
@@ -152,6 +171,11 @@ JAX_BER = {
                                            bits=5370624),
     "spatial_8x4_r2_mmse_ext_rayleigh_mp": dict(mean=0.00704108, lane_std=0.00203682,
                                                 lanes=64, bits=5370624),
+    # one H a lane for the whole frame (static) or one Jakes trajectory a
+    # lane: heavy-tailed per-lane BER, as over the flat MIMO channel
+    "bf_4x2_tm6_codebook": dict(mean=0.0155658, lane_std=0.015778, lanes=64, bits=5370624),
+    "bf_8x1_tm6_jakes_30kmh": dict(mean=0.0234718, lane_std=0.0216076, lanes=64,
+                                   bits=5370624),
 }
 
 # max|Δ| / max|C| against the plain version of the same form. tc and ffma
@@ -161,6 +185,10 @@ TOL = {"tf32x3": 1e-5, "tf32x3_gauss": 1e-4, "f32_fma4": 1e-5, "f32_gauss": 1e-4
 GAUSS = {"tf32x3": False, "tf32x3_gauss": True, "f32_fma4": False, "f32_gauss": True}
 TENSOR_CORE = {"tf32x3": True, "tf32x3_gauss": True, "f32_fma4": False, "f32_gauss": False}
 HBM_BYTES_PER_S = 3.35e12
+# name fragments of cuSOLVER's and MAGMA's Hermitian eigensolver kernels
+# (Jacobi, and the tridiagonal reduction, solve and back-transform of syevd)
+EIGENSOLVER_KERNELS = ("syev", "heev", "sytrd", "hetrd", "steqr", "stedc", "ormtr", "unmtr",
+                       "eigh", "eigval", "jacobi")
 PEAK_FLOPS = {"tf32": 495e12, "fp32": 67e12}
 
 
@@ -219,6 +247,10 @@ def profile_steps(step, steps: int = 10) -> None:
                       if "gemm" in e.name.lower() or "cutlass" in e.name.lower()})
     if library:
         raise AssertionError(f"a library GEMM ran on a driven path: {library}")
+    solvers = sorted({e.name for e in kernels
+                      if any(w in e.name.lower() for w in EIGENSOLVER_KERNELS)})
+    if solvers:
+        raise AssertionError(f"an eigensolver ran on a driven path: {solvers}")
     dev_ms = sum(e.device_time for e in kernels) / 1e3 / steps
     gemm = [e for e in kernels if "cmatmul" in e.name or "splitk" in e.name]
     gemm_ms = sum(e.device_time for e in gemm) / 1e3 / steps
@@ -270,6 +302,51 @@ def profile_targets() -> set:
     return names
 
 
+def coding_front_on_card(rng, dev, cfg) -> None:
+    """CRC, rate matching and de-matching, and max-log LLRs on the card
+    against the CPU on the same inputs: equal bits, LLRs within 1e-6 of
+    max|LLR| over a frame of `cfg`. Raises on any difference."""
+    from ofdm_lte_tpu_torch.coding import crc, rate_matching
+    from ofdm_lte_tpu_torch.cplx import C
+    from ofdm_lte_tpu_torch.grid import grid_for
+    from ofdm_lte_tpu_torch.ops import qam
+    bits = torch.as_tensor(rng.integers(0, 2, (64, 6144)).astype(np.int32))
+    for poly, nbits in ((crc.CRC24A_POLY, 24), (crc.CRC24B_POLY, 24), (crc.CRC16_POLY, 16)):
+        on_card = crc.crc_torch(bits.to(dev), poly, nbits)
+        host = np.stack([crc.crc_bits(b, poly, nbits) for b in bits[:4].numpy()])
+        if not torch.equal(on_card.cpu(), crc.crc_torch(bits, poly, nbits)) \
+                or not np.array_equal(on_card[:4].cpu().numpy(), host):
+            raise AssertionError(f"crc_torch {poly:#x}: the card disagrees")
+    checked = 0
+    for K in (40, 6144):
+        N_cb = 3 * (K + 6)
+        for E in (N_cb // 3, N_cb - 5, N_cb + 7, 2 * N_cb + 101):
+            for rv in range(4):
+                enc = torch.as_tensor(rng.integers(0, 2, (16, 3 * K + 12)).astype(np.int32))
+                llr = torch.as_tensor((rng.standard_normal((16, E)) * 4).astype(np.float32))
+                if not torch.equal(rate_matching.rate_match(enc.to(dev), E, K, rv).cpu(),
+                                   rate_matching.rate_match(enc, E, K, rv)) \
+                        or not torch.equal(rate_matching.rate_dematch(llr.to(dev), K, rv).cpu(),
+                                           rate_matching.rate_dematch(llr, K, rv)):
+                    raise AssertionError(f"rate matching K={K} E={E} rv={rv}: the card disagrees")
+                checked += 1
+    n_sym = SYMBOLS * grid_for(cfg).num_data    # the data bins of a frame
+    y = C(torch.as_tensor(rng.standard_normal((LANES, n_sym)).astype(np.float32) * 0.7),
+          torch.as_tensor(rng.standard_normal((LANES, n_sym)).astype(np.float32) * 0.7))
+    worst = 0.0
+    for nv in (0.02, torch.as_tensor(rng.uniform(0.01, 0.3, (LANES, n_sym)).astype(np.float32))):
+        on_cpu = qam.llrs(y, nv, cfg.modulation)
+        on_card = qam.llrs(C(y.re.to(dev), y.im.to(dev)),
+                           nv.to(dev) if isinstance(nv, torch.Tensor) else nv, cfg.modulation)
+        rel = (on_card.cpu() - on_cpu).abs().max().item() / on_cpu.abs().max().item()
+        worst = max(worst, rel)
+        if on_card.shape != (LANES, n_sym * cfg.bits_per_symbol) or rel > 1e-6:
+            raise AssertionError(f"llrs: the card differs by {rel:.2e} of max|LLR|")
+    print(f"coding front end on the card vs the CPU: CRC-24A/24B/16 of 64 x 6144 bits equal; "
+          f"rate_match and rate_dematch equal in {checked} (K, E, rv) cases; llrs of "
+          f"{LANES} x {n_sym} 64-QAM symbols within {worst:.2e} of max|LLR|")
+
+
 def main() -> None:
     to_profile = profile_targets()
     if not torch.cuda.is_available():
@@ -290,7 +367,7 @@ def main() -> None:
                                                 cmatmul_plain_tf32x3, default_variant)
     from ofdm_lte_tpu_torch.rx import alamouti
     from ofdm_lte_tpu_torch.rx.estimation import SLOT_SIZE
-    from ofdm_lte_tpu_torch.sim import diversity, siso, spatial
+    from ofdm_lte_tpu_torch.sim import beamforming, diversity, siso, spatial
     from ofdm_lte_tpu_torch.sim.links import clear_link_cache
 
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
@@ -324,6 +401,8 @@ def main() -> None:
             return siso.SisoLink(cfg, device=dev, **spec["kw"])
         if spec["kind"] == "spatial":
             return spatial.SpatialLink(cfg, device=dev, **spec["kw"])
+        if spec["kind"] == "beamforming":
+            return beamforming.BeamformingLink(cfg, device=dev, **spec["kw"])
         cls = diversity.SimoLink if spec["kind"] == "simo" else diversity.SfbcLink
         kw = dict(spec["kw"])
         return cls(cfg, kw.pop("num_rx"), device=dev, **kw)
@@ -334,6 +413,8 @@ def main() -> None:
             return diversity.sfbc_bits_per_frame(cfg, SYMBOLS)
         if spec["kind"] == "spatial":
             return spatial.bits_per_frame(cfg, SYMBOLS)
+        if spec["kind"] == "beamforming":
+            return beamforming.bits_per_frame(cfg, SYMBOLS)
         return siso.bits_per_frame(cfg, SYMBOLS, spec["kw"].get("mode", "lte"))
 
     # -- 3. kernel vs plain at the paths' shapes ----------------------------
@@ -423,6 +504,14 @@ def main() -> None:
         del sl, sig
         torch.cuda.empty_cache()      # the multipath tap planes run to gigabytes
     new_gemms.update(sp_gemms)
+    # the beamforming Jakes path's channel: E (S, 16) @ P (16, lanes·rx·tx),
+    # E the kept symbol table, P the phases' exponentials
+    bf_kw = PATHS["bf_8x1_tm6_jakes_30kmh"]["kw"]
+    bf_links = LANES * bf_kw["num_tx"] * 1
+    new_gemms["bf_jakes_8x1"] = (
+        rayleigh.symbol_table(bf_kw["doppler_hz"], SYMBOLS, 1.0 / 15000.0, dev),
+        cplx.expi(torch.rand((rayleigh.N_SINUSOIDS, bf_links), generator=gen, device=dev)
+                  * (2 * np.pi)), None)
 
     g = torch.Generator(device=dev)
     g.manual_seed(7)
@@ -548,19 +637,36 @@ def main() -> None:
             or res["mode"] != "Spatial Multiplexing TM4":
         raise AssertionError(f"facade simulate_spatial_multiplexing: {res['ber']}, launches "
                              f"{cmatmul.launches}")
+    for model, per_call in (("static", 0), ("jakes", 1)):
+        zero_counts()
+        res = sim.simulate_beamforming(host_bits, 15.0, num_tx=4, num_rx=2, velocity_kmh=30.0,
+                                       update_mode="static", channel_model=model)
+        print(f"facade OFDMSimulator.simulate_beamforming 4x2 TM6 {model} at 15 dB: ber "
+              f"{res['ber']:.6g} gain {res['beamforming_gain_db']:.4f} dB, PMIs "
+              f"{res['unique_pmis']} of {len(res['pmi_history'])} symbols, launches "
+              f"{cmatmul.launches}")
+        if not (0 <= res["ber"] < 0.2) or cmatmul.launches != per_call or cmatmul.copies \
+                or res["mode"] != "Beamforming" or len(res["pmi_history"]) != SYMBOLS \
+                or (model == "jakes" and res["update_period_symbols"] != 4):
+            raise AssertionError(f"facade simulate_beamforming {model}: {res['ber']}, launches "
+                                 f"{cmatmul.launches}")
     # one-device sweeps: 3 SNR points x 16 frames as the 48 lanes of one step
-    for pipeline, per_step, kw in (("spatial", 1, dict(num_tx=4, num_rx=2, rank=2)),
-                                   ("sfbc", 3, dict(num_rx=2))):
+    # (beamforming's MRT gain leaves few errors at 20 dB: its points are lower)
+    for pipeline, per_step, points, kw in (
+            ("spatial", 1, [10.0, 20.0, 60.0], dict(num_tx=4, num_rx=2, rank=2)),
+            ("sfbc", 3, [10.0, 20.0, 60.0], dict(num_rx=2)),
+            ("beamforming", 0, [5.0, 12.0, 60.0], dict(num_tx=4, num_rx=2))):
         zero_counts()
         gen.manual_seed(8)
-        sw = ber_sweep(cfg, [10.0, 20.0, 60.0], frames=16, num_ofdm_symbols=SYMBOLS,
+        sw = ber_sweep(cfg, points, frames=16, num_ofdm_symbols=SYMBOLS,
                        pipeline=pipeline, generator=gen, **kw)
         print(f"ber_sweep {pipeline} at {sw.snr_db.tolist()} dB, {sw.frames} frames a point: "
               f"ber {sw.ber.tolist()} papr_db {sw.papr_db.tolist()} launches "
               f"{cmatmul.launches} copies {cmatmul.copies}")
         if not (sw.ber[0] > sw.ber[1] > sw.ber[2] >= 0.0) or sw.ber[2] > 1e-3 \
                 or cmatmul.launches != per_step or cmatmul.copies \
-                or sw.bit_errors.dtype != np.int64 or not np.isfinite(sw.papr_db).all():
+                or sw.bit_errors.dtype != np.int64 or not np.isfinite(sw.papr_db).all() \
+                or (pipeline == "beamforming" and sw.papr_db.tolist() != [0.0] * 3):
             raise AssertionError(f"ber_sweep {pipeline}: {sw}")
     clear_link_cache()
     zero_counts()
@@ -620,19 +726,28 @@ def main() -> None:
             bits = random_bits(LANES, 300 + step, path_bits(name))
             gen.manual_seed(400 + step)
             r = plink(bits, snr, generator=gen)
+            # the beamforming link makes no time signal and has no PAPR
+            papr = getattr(r, "papr_db", torch.zeros(LANES, device=dev))
             if r.bits_rx.shape != bits.shape or r.bits_rx.dtype != bits.dtype \
-                    or r.ber.shape != (LANES,) or not torch.isfinite(r.papr_db).all():
+                    or r.ber.shape != (LANES,) or not torch.isfinite(papr).all():
                 raise AssertionError(f"{name}: bits_rx {r.bits_rx.shape} {r.bits_rx.dtype}, "
                                      f"ber {r.ber.shape} or non-finite PAPR")
             bers[snr] = r.ber.mean().item()
         counts = dict(cmatmul.launches_by_kernel)
         launches["tf32x3"] += counts["tf32x3"]
         launches_by_path[name] = counts["tf32x3"]
-        paprs[name] = r.papr_db.mean().item()
+        paprs[name] = papr.mean().item()
         lo, hi = ber_band(JAX_BER[name], LANES)
+        extra = ""
+        if spec["kind"] == "beamforming":
+            pmi = r.pmi_history if hasattr(r, "pmi_history") else r.pmi
+            extra = (f", gain {r.beamforming_gain_db.mean().item():.4f} dB, PMIs used "
+                     f"{torch.unique(pmi).numel()}")
+            if not torch.isfinite(r.beamforming_gain_db).all():
+                raise AssertionError(f"{name}: non-finite beamforming gain")
         print(f"path {name}: BER@60dB {bers[60.0]:.6g} (at most {spec['ber60']}), "
               f"BER@{spec['snr']:g}dB {bers[spec['snr']]:.6g} (JAX {JAX_BER[name]['mean']:.6g}, "
-              f"band [{lo:.6g}, {hi:.6g}]), PAPR {paprs[name]:.3f} dB, launches {counts}, "
+              f"band [{lo:.6g}, {hi:.6g}]), PAPR {paprs[name]:.3f} dB{extra}, launches {counts}, "
               f"copies {cmatmul.copies}")
         if spec["ber60"] is not None and not bers[60.0] <= spec["ber60"]:
             raise AssertionError(f"{name}: BER {bers[60.0]} at 60 dB, over {spec['ber60']}")
@@ -698,12 +813,29 @@ def main() -> None:
         num_tx=4, num_rx=4, rank=4, detector_type="SIC", channel_type="rayleigh_mp",
         draws={"phases": rng.uniform(0, 2 * np.pi, (16 * lanes * small_profile.num_taps, 16)),
                "noise": (normals(4, lanes, S, m4), normals(4, lanes, S, sg.num_pilot))}))
+    bf_n, bf_nd = beamforming.bits_per_frame(small, S), sg.num_data
+    cases["bf_4x2_tm6_codebook"] = (beamforming.simulate_beamforming, bf_n, dict(
+        num_tx=4, num_rx=2, update_mode="static",
+        draws={"H": normals(lanes, 2, 4), "noise": normals(lanes, 2, S * bf_nd)}))
+    jk = {k: v for k, v in PATHS["bf_8x1_tm6_jakes_30kmh"]["kw"].items() if k != "channel_model"}
+    cases["bf_8x1_tm6_jakes_30kmh"] = (beamforming.simulate_beamforming_time_varying, bf_n, dict(
+        draws={"phases": rng.uniform(0, 2 * np.pi, (16, lanes * 8)),
+               "noise": normals(lanes, S, 1, bf_nd)}, **jk))
     for name, (fn, n, kw) in cases.items():
         sb = torch.as_tensor(rng.integers(0, 2, (lanes, n)).astype(np.int32))
         zero_counts()
         r_gpu = fn(sb, 20.0, small, **kw)
         r_cpu = fn(sb, 20.0, small, device="cpu", **kw)
         mism = int((r_gpu.bits_rx.cpu() != r_cpu.bits_rx).sum())
+        if name.startswith("bf_"):
+            pmi_gpu, pmi_cpu = (x.pmi_history if "jakes" in name else x.pmi
+                                for x in (r_gpu, r_cpu))
+            d_gain = (r_gpu.beamforming_gain_db.cpu() - r_cpu.beamforming_gain_db).abs().max()
+            print(f"cuda vs cpu, same draws, {name}: PMIs equal "
+                  f"{torch.equal(pmi_gpu.cpu(), pmi_cpu)}, gain differs by "
+                  f"{d_gain.item():.2e} dB")
+            if not torch.equal(pmi_gpu.cpu(), pmi_cpu) or d_gain.item() > 1e-4:
+                raise AssertionError(f"{name}: the CUDA path's feedback disagrees with the CPU's")
         print(f"cuda vs cpu, same draws, {name}, 5 MHz 64-QAM 20 dB: {mism} of {sb.numel()} "
               f"bits differ, ber {r_gpu.ber.mean().item():.6g} vs "
               f"{r_cpu.ber.mean().item():.6g}, launches {cmatmul.launches}")
@@ -738,6 +870,9 @@ def main() -> None:
           f"max|d| {err:.2e}, launches {cmatmul.launches}")
     if err > 1e-5 or cmatmul.launches != 1:
         raise AssertionError("flat_mimo_time_varying: not one kernel launch, or wrong")
+
+    # the coded chain's front end on the card: the CPU's results, exactly
+    coding_front_on_card(rng, dev, cfg)
     clear_link_cache()
     torch.cuda.empty_cache()
 

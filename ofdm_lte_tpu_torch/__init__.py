@@ -12,9 +12,13 @@ Ported so far: the SISO link in its OFDM, SC-FDM and simple modes over
 AWGN, flat fading and Jakes/ITU multipath, with and without CRS
 equalization (sim/siso.py, channel/rayleigh.py); the SIMO-MRC and 2×N
 Alamouti SFBC diversity links (sim/diversity.py, channel/mimo.py); the
-metrics (utils/metrics.py); and the facade over them (api.py). Spatial
-multiplexing, beamforming, the coded chain and the sweeps are not ported
-yet (ROADMAP.md).
+metrics (utils/metrics.py); TM4 spatial multiplexing (sim/spatial.py,
+mimo/); TM6/TM4 beamforming with CSI feedback (sim/beamforming.py,
+mimo/beamforming.py, mimo/csi.py); the coded chain's front end (coding/:
+CRC, segmentation, rate matching; ops/qam.llrs); the one-device sweep
+(parallel/sweep.py); and the facade over them (api.py). The turbo code, the
+coded sims with HARQ, the N-process sweeps and the CLI are not ported yet
+(ROADMAP.md).
 """
 
 from .config import LTEConfig, LTE_PROFILES, CP_VALUES_US, MODULATION_SCHEMES

@@ -1,17 +1,18 @@
 """High-level object API: the facade of ofdm_lte_tpu/api.py.
 
-OFDMSimulator.simulate_{siso, simo, miso, mimo}, run_ber_sweep and
-run_ber_sweep_all_modulations, OFDMModule.transmit / run_ber_sweep and the
-create_simulator presets take and return NumPy and the same dict keys as
-the JAX package. Randomness comes from one `torch.Generator` per
-simulator, seeded from `seed` on `device`. A simulator builds one link per
+OFDMSimulator.simulate_{siso, simo, miso, mimo, spatial_multiplexing,
+beamforming}, run_ber_sweep and run_ber_sweep_all_modulations,
+OFDMModule.transmit / run_ber_sweep and the create_simulator presets take
+and return NumPy and the same dict keys as the JAX package. Randomness
+comes from one `torch.Generator` per simulator, seeded from `seed` on
+`device`. A simulator builds one link per
 (pipeline, antennas, rank, detector) on first use and keeps it, tables on
 `device`. With no `device` given the objects run on the CUDA card and raise
 where there is none (device.resolve_device); `device="cpu"` asks for the
 CPU.
 
-The coded and beamforming methods wait for their slices and raise
-NotImplementedError naming their ROADMAP items.
+The two coded methods wait for their slice and raise NotImplementedError
+naming its ROADMAP items (A17-A18).
 """
 from __future__ import annotations
 
@@ -21,8 +22,12 @@ import numpy as np
 import torch
 
 from .config import MODULATION_SCHEMES, LTEConfig
+from .config import doppler_hz as _doppler_hz
 from .device import resolve_device
+from .mimo import beamforming as _bfp
+from .mimo import csi as _csi
 from .ops import qam
+from .sim import beamforming as _bf
 from .sim import diversity as _div
 from .sim import siso as _siso
 from .sim import spatial as _spatial
@@ -89,10 +94,12 @@ class OFDMSimulator:
                  generator=self.generator, **link_kw)
         bits_rx = self._trim(r.bits_rx.cpu().numpy(), n)
         errors = int(np.sum(bits_rx != bits))
-        return r, {"transmitted_bits": n, "received_bits": n,
-                   "bits_received_array": bits_rx, "bit_errors": errors,
-                   "errors": errors, "ber": errors / n, "snr_db": float(snr_db),
-                   "papr_db": float(r.papr_db)}
+        res = {"transmitted_bits": n, "received_bits": n,
+               "bits_received_array": bits_rx, "bit_errors": errors,
+               "errors": errors, "ber": errors / n, "snr_db": float(snr_db)}
+        if hasattr(r, "papr_db"):            # the beamforming link makes no time signal
+            res["papr_db"] = float(r.papr_db)
+        return r, res
 
     # -- SISO --------------------------------------------------------------
     def simulate_siso(self, bits: np.ndarray, snr_db: float = 10.0) -> Dict:
@@ -161,15 +168,63 @@ class OFDMSimulator:
         self.last_results = res
         return res
 
+    # -- TM6/TM4 beamforming with CSI feedback -------------------------------
+    def simulate_beamforming(self, bits: np.ndarray, snr_db: float = 10.0,
+                             num_tx: int = 2, num_rx: int = 1,
+                             codebook_type: str = "TM6", velocity_kmh: float = 3.0,
+                             update_mode: str = "adaptive",
+                             channel_model: str = "static") -> Dict:
+        """channel_model "static": one constant H per call, so the
+        per-symbol PMI history is S equal entries; "jakes": a time-varying
+        channel with W recomputed every update_period_symbols(velocity)
+        symbols (sim.beamforming.BeamformingLink)."""
+        if channel_model not in _bf.CHANNEL_MODELS:
+            raise ValueError(f"unknown channel_model {channel_model!r}")
+        bits = np.asarray(bits).astype(np.int32)
+        per = _bf.bits_per_frame(self.config, 1)
+        S = -(-len(bits) // per)
+        if channel_model == "jakes":
+            period = _bfp.update_period_symbols(velocity_kmh, self.frequency_ghz)
+            doppler = float(_doppler_hz(velocity_kmh, self.frequency_ghz))
+        else:
+            period, doppler = 1, 5.56
+        key = ("beamforming", num_tx, num_rx, codebook_type, update_mode, channel_model,
+               period, doppler)
+        if key not in self._links:
+            self._links[key] = _bf.BeamformingLink(self.config, num_tx, num_rx, codebook_type,
+                                                   update_mode, channel_model, period, doppler,
+                                                   self.device)
+        r, res = self._run(self._links[key], bits, per, snr_db)
+        extra = {}
+        if channel_model == "jakes":
+            pmi_history = [int(p) for p in r.pmi_history.cpu().numpy()]
+            extra = {"update_period_symbols": int(r.update_period),
+                     "gain_history_db": r.gain_history_db.cpu().numpy()}
+        else:
+            # a constant H: the per-symbol feedback logs one PMI S times
+            pmi_history = [int(r.pmi)] * S
+        stats = _csi.pmi_statistics(pmi_history, num_tx, codebook_type)
+        res.update({
+            "num_tx": num_tx, "num_rx": num_rx, "mode": "Beamforming",
+            "codebook_type": codebook_type,
+            "beamforming_gain_db": float(r.beamforming_gain_db),
+            "pmi_history": pmi_history,
+            "unique_pmis": stats["unique_pmis"],
+            "pmi_statistics": stats,
+            "velocity_kmh": velocity_kmh,
+            **extra,
+        })
+        self.last_results = res
+        return res
+
     # -- not ported yet ----------------------------------------------------
     def simulate_siso_coded(self, *args, **kw) -> Dict:
-        raise NotImplementedError("simulate_siso_coded: ROADMAP items A16-A18")
+        raise NotImplementedError("simulate_siso_coded: ROADMAP items A17-A18 "
+                                  "(A16, the front end, is in ofdm_lte_tpu_torch.coding)")
 
     def simulate_siso_coded_harq(self, *args, **kw) -> Dict:
-        raise NotImplementedError("simulate_siso_coded_harq: ROADMAP items A16-A18")
-
-    def simulate_beamforming(self, *args, **kw) -> Dict:
-        raise NotImplementedError("simulate_beamforming: ROADMAP item A15")
+        raise NotImplementedError("simulate_siso_coded_harq: ROADMAP items A17-A18 "
+                                  "(A16, the front end, is in ofdm_lte_tpu_torch.coding)")
 
     # -- sweeps ------------------------------------------------------------
     def run_ber_sweep(self, bits: np.ndarray, snr_range, num_trials: int = 1,

@@ -33,6 +33,7 @@ import torch
 from .. import cplx
 from ..cplx import C
 from ..config import ITU_CHANNEL_MODELS, ITU_DEFAULT_VELOCITY_KMH, doppler_hz
+from ..device import kept
 from ..ops.ofdm import _cmm
 from .awgn import awgn, standard_normals
 
@@ -114,18 +115,35 @@ def jakes_table(doppler_hz: float, fs: float, num_samples: int, sample_stride: i
     sees one or two frame lengths), so a multipath step multiplies by E and
     does not rebuild it. It is evaluated in fp32 on the CPU, so every device
     multiplies by the same numbers."""
-    device = torch.empty(0, device=device).device      # "cuda" and "cuda:0" are one key
-    key = (float(doppler_hz), float(fs), int(num_samples), int(sample_stride), device)
-    table = _tables.get(key)
-    if table is None:
+    def make():
         t = torch.arange(num_samples, dtype=torch.float32) * (sample_stride / fs)
-        E = cplx.expi(torch.as_tensor(_omega(doppler_hz))[:, None] * t[None, :])
-        table = _tables[key] = C(E.re.to(device), E.im.to(device))
-        while len(_tables) > MAX_TABLES:
-            _tables.popitem(last=False)
-    else:
-        _tables.move_to_end(key)
-    return table
+        return cplx.expi(torch.as_tensor(_omega(doppler_hz))[:, None] * t[None, :])
+
+    return _kept((float(doppler_hz), float(fs), int(num_samples), int(sample_stride)),
+                 make, device)
+
+
+def symbol_table(doppler_hz: float, num_symbols: int, symbol_duration_s: float,
+                 device=None) -> C:
+    """The sinusoid table of the flat time-varying channel, E = exp(j·ω_n·t)
+    at t = s·symbol_duration_s, (S, Ns) with the symbols leading: kept like
+    `jakes_table`, in the same dict."""
+    def make():
+        t = torch.arange(num_symbols, dtype=torch.float32) * symbol_duration_s
+        return cplx.expi(t[:, None] * torch.as_tensor(_omega(doppler_hz))[None, :])
+
+    return _kept(("symbols", float(doppler_hz), int(num_symbols), float(symbol_duration_s)),
+                 make, device)
+
+
+def _kept(key: tuple, make, device) -> C:
+    """The table of `key` on `device`: made by make() on the CPU, moved there
+    and kept in `_tables` (device.kept)."""
+    def to_device(dev):
+        E = make()
+        return C(E.re.to(dev), E.im.to(dev))
+
+    return kept(_tables, MAX_TABLES, key, to_device, device)
 
 
 def jakes_taps(profile: MultipathProfile, num_samples: int, batch_shape: tuple = (),
@@ -225,12 +243,11 @@ def flat_mimo_time_varying(num_rx: int, num_tx: int, num_symbols: int, doppler_h
     (E|h|² = 1, unlike the multipath taps' 2). `phases` is (Ns, batch·rx·tx).
 
     One small complex product E (S, Ns) @ P (Ns, L) through `_cmm`, like
-    every other product: K = 16 as in jakes_taps, S and L a few dozen."""
+    every other product: K = 16 as in jakes_taps, S a frame's symbols and L
+    the links of all lanes. E is the kept `symbol_table`."""
     S, ns = num_symbols, N_SINUSOIDS
     batch_shape = tuple(batch_shape)
-    t = torch.arange(S, dtype=torch.float32, device=device) * symbol_duration_s
-    omega = torch.as_tensor(_omega(doppler_hz), device=device)
-    E = cplx.expi(t[:, None] * omega[None, :])                 # (S, Ns)
+    E = symbol_table(doppler_hz, S, symbol_duration_s, device)  # (S, Ns)
 
     L = int(np.prod(batch_shape, dtype=int)) * num_rx * num_tx
     P = cplx.expi(_phases((ns, L), generator, device, phases))

@@ -6,6 +6,8 @@ on silently on the CPU; a caller who wants the CPU says so.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
+
 import torch
 
 
@@ -20,3 +22,20 @@ def resolve_device(device=None) -> torch.device:
             "ofdm_lte_tpu_torch runs on a CUDA card by default and found none "
             '(torch.cuda.is_available() is False); pass device="cpu" to run on the CPU')
     return torch.device("cuda")
+
+
+def kept(store: "OrderedDict[tuple, object]", limit: int, key: tuple, make, device):
+    """`make(device)`, made on first use for (key, device) and kept in
+    `store`, a plain dict of at most `limit` entries, the least recently
+    used dropped first. The constant tables that belong to no link object
+    live in such stores, one per module, keyed by their device too."""
+    device = torch.empty(0, device=device).device      # "cuda" and "cuda:0" are one key
+    key = key + (device,)
+    value = store.get(key)
+    if value is None:
+        value = store[key] = make(device)
+        while len(store) > limit:
+            store.popitem(last=False)
+    else:
+        store.move_to_end(key)
+    return value

@@ -12,6 +12,7 @@ broadcast multiply-sum, cplx.einsum) and an argmax.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -153,14 +154,16 @@ def get_precoder(pmi: int, num_tx: int, transmission_mode: str = "TM6",
 
 
 def select_best_pmi(H: C, num_tx: int, transmission_mode: str = "TM6",
-                    rank: int = 1, metric: str = "capacity"):
+                    rank: int = 1, metric: str = "capacity", table: Optional[C] = None):
     """Vectorized PMI search over the whole codebook.
 
     H: C (..., num_rx, num_tx). Returns (pmi (...,) int32, metric value).
     'capacity' and 'sinr' both reduce to Σ|H·W|²; 'frobenius' is its square
-    root. Ties go to the lowest PMI.
+    root. Ties go to the lowest PMI. `table` is the stacked codebook already
+    on H's device (a link's buffer); without it the codebook is copied there.
     """
-    cb = cplx.const(codebook(num_tx, transmission_mode, rank), H.re.device)  # (P, t, l)
+    cb = table if table is not None else cplx.const(
+        codebook(num_tx, transmission_mode, rank), H.re.device)   # (P, t, l)
     He = cplx.einsum("...rt,ptl->...prl", H, cb)                # (..., P, r, l)
     power = He.abs2().sum(dim=(-2, -1))                         # (..., P)
     if metric == "frobenius":
@@ -173,12 +176,14 @@ def select_best_pmi(H: C, num_tx: int, transmission_mode: str = "TM6",
 
 
 def precoder_for_pmi(pmi, num_tx: int, transmission_mode: str = "TM6",
-                     rank: int = 1, device=None) -> C:
+                     rank: int = 1, device=None, table: Optional[C] = None) -> C:
     """Gather W for a PMI tensor: (...,) -> C (..., num_tx, rank), on the
-    PMI's device (or `device` for a Python integer)."""
+    PMI's device (or `device` for a Python integer). `table` as in
+    select_best_pmi."""
     if isinstance(pmi, torch.Tensor):
         device = pmi.device
-    cb = cplx.const(codebook(num_tx, transmission_mode, rank), device)
+    cb = table if table is not None else cplx.const(
+        codebook(num_tx, transmission_mode, rank), device)
     idx = torch.as_tensor(pmi, dtype=torch.int64, device=device)
     return C(cb.re[idx], cb.im[idx])
 

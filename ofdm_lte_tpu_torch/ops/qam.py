@@ -117,3 +117,58 @@ def indices_to_bits(idx: torch.Tensor, modulation: str) -> torch.Tensor:
 def demodulate(symbols: C, modulation: str) -> torch.Tensor:
     """Hard demap received symbols -> bit tensor (..., n·2k), int32."""
     return indices_to_bits(hard_indices(symbols, modulation), modulation)
+
+
+# ---------------------------------------------------------------------------
+# Soft demodulation: max-log LLRs (for the turbo-coded chain)
+# ---------------------------------------------------------------------------
+
+def llrs(symbols: C, noise_var, modulation: str, clip: float = 10.0) -> torch.Tensor:
+    """Max-log LLRs, interleaved [b_{2k-1} .. b_0] per symbol (MSB first);
+    LLR > 0 means bit 0.
+
+    The mapping is separable per axis, so the 2-D max-log minimization over
+    the constellation reduces exactly to 1-D minimizations over each axis's
+    levels (the other axis cancels in the difference). The levels are in
+    binary order, so the axis of L = 2^k levels reshapes into k axes of 2,
+    one per bit, and the minimum over the levels whose bit b is 1 is a
+    `select` on axis b and a min over the rest: no mask tables.
+
+    QPSK uses the closed form (2/σ²)·y·√2, unclipped; 16/64-QAM the
+    min-distance differences clipped to ±clip. symbols C (..., n);
+    noise_var a scalar or a tensor (..., n); returns (..., n·2k) float32.
+    """
+    s = _SPECS[modulation]
+    dev = symbols.re.device
+    if isinstance(noise_var, torch.Tensor):
+        nv = noise_var.to(device=dev, dtype=torch.float32)
+    else:
+        nv = float(np.float32(noise_var))      # a Python float: no copy to the device
+    lead = symbols.re.shape[:-1]
+
+    if modulation == "QPSK":
+        g = 2.0 / nv if isinstance(nv, torch.Tensor) else float(np.float32(2.0) / np.float32(nv))
+        scale = float(np.sqrt(2.0))
+        return torch.stack([g * symbols.re * scale, g * symbols.im * scale],
+                           dim=-1).reshape(lead + (-1,))
+
+    k, L = s.half_bits, len(s.levels)
+    lv = (2.0 * torch.arange(L, dtype=torch.float32, device=dev) - (L - 1)) / s.norm
+    two_nv = 2.0 * nv[..., None] if isinstance(nv, torch.Tensor) else 2.0 * nv
+
+    def axis_llrs(y: torch.Tensor) -> torch.Tensor:
+        d2 = (y[..., None] - lv) ** 2                         # (..., L)
+        bits = d2.reshape(d2.shape[:-1] + (2,) * k)           # one axis of 2 a bit
+        out = []
+        for b in range(k):
+            ax = d2.ndim - 1 + b
+            d1, d0 = bits.select(ax, 1), bits.select(ax, 0)
+            if k > 1:
+                d1, d0 = d1.flatten(-(k - 1)).amin(-1), d0.flatten(-(k - 1)).amin(-1)
+            out.append(d1 - d0)
+        return torch.stack(out, dim=-1)                       # (..., n, k)
+
+    lr = torch.clamp(axis_llrs(symbols.re) / two_nv, -clip, clip)
+    li = torch.clamp(axis_llrs(symbols.im) / two_nv, -clip, clip)
+    # symbol bit order: the real axis's bits (MSB) then the imaginary axis's
+    return torch.cat([lr, li], dim=-1).reshape(lead + (-1,))

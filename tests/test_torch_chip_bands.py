@@ -26,6 +26,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke
 
 from ofdm_lte_tpu_torch import LTEConfig
+from ofdm_lte_tpu_torch.sim import beamforming as tbf
 from ofdm_lte_tpu_torch.sim import diversity as tdiv
 from ofdm_lte_tpu_torch.sim import siso as tsiso
 from ofdm_lte_tpu_torch.sim import spatial as tspatial
@@ -40,6 +41,8 @@ def _n_bits(kind, cfg, mode="lte"):
         return tdiv.sfbc_bits_per_frame(cfg, chip_smoke.SYMBOLS)
     if kind == "spatial":
         return tspatial.bits_per_frame(cfg, chip_smoke.SYMBOLS)
+    if kind == "beamforming":
+        return tbf.bits_per_frame(cfg, chip_smoke.SYMBOLS)
     return tsiso.bits_per_frame(cfg, chip_smoke.SYMBOLS, mode)
 
 
@@ -57,6 +60,8 @@ def jax_ber(name, snr_db, lanes=JAX_LANES, seed=0):
     bits = np.random.default_rng(seed).integers(0, 2, (lanes, n)).astype(np.int8)
     if spec["kind"] == "spatial":
         return _jax_spatial_ber(spec["kw"], bits, snr_db, cfg, seed), lanes * n
+    if spec["kind"] == "beamforming":
+        return _jax_beamforming_ber(spec["kw"], bits, snr_db, cfg, seed), lanes * n
     fn = {"siso": jsiso.simulate_siso, "simo": jdiv.simulate_simo,
           "sfbc": jdiv.simulate_sfbc}[spec["kind"]]
     return np.asarray(fn(jax.random.PRNGKey(seed), jnp.asarray(bits), snr_db, cfg,
@@ -88,6 +93,20 @@ def _jax_spatial_ber(link_kw, bits, snr_db, cfg, seed, chunk=16):
             else:
                 os.environ["OFDM_LTE_TPU_SPATIAL_CHANNEL"] = saved
     return np.concatenate(bers)
+
+
+def _jax_beamforming_ber(link_kw, bits, snr_db, cfg, seed):
+    """The beamforming link's arguments as the JAX functions take them: the
+    static channel's simulate_beamforming, or with channel_model "jakes"
+    simulate_beamforming_time_varying."""
+    import jax
+    import jax.numpy as jnp
+    from ofdm_lte_tpu.sim import beamforming as jbf
+    kw = dict(link_kw)
+    fn = (jbf.simulate_beamforming_time_varying if kw.pop("channel_model", "static") == "jakes"
+          else jbf.simulate_beamforming)
+    return np.asarray(fn(jax.random.PRNGKey(seed), jnp.asarray(bits), snr_db, cfg, **kw).ber,
+                      np.float64)
 
 
 def kept_output() -> dict:

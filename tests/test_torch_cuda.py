@@ -370,3 +370,93 @@ def test_spatial_entry_points_default_to_the_card(cuda_device):
     res = OFDMSimulator(cfg, seed=0).simulate_spatial_multiplexing(
         np.random.default_rng(0).integers(0, 2, 300), 60.0, num_tx=2, num_rx=2, rank=2)
     assert res["ber"] == 0.0
+
+
+BF_CASES = {"static_4x2_codebook": dict(num_tx=4, num_rx=2, update_mode="static"),
+            "jakes_8x1_codebook_p4": dict(num_tx=8, num_rx=1, update_mode="static",
+                                          update_period=4, doppler_hz=55.5556),
+            "jakes_4x2_mrt_p3": dict(num_tx=4, num_rx=2, update_mode="adaptive",
+                                     update_period=3, doppler_hz=111.1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(BF_CASES))
+def test_beamforming_link_on_card_matches_cpu_with_same_draws(name, cuda_device):
+    """The static link launches no GEMM; the Jakes one the channel's
+    E @ P product once, through the kernel."""
+    from ofdm_lte_tpu_torch.sim import beamforming
+    kw = dict(BF_CASES[name])
+    cfg = LTEConfig(5.0, modulation="64-QAM")
+    rng = np.random.default_rng(8)
+    lanes, S = 4, 14
+    nd = siso.grid_for(cfg).num_data
+    bits = rng.integers(0, 2, (lanes, beamforming.bits_per_frame(cfg, S))).astype(np.int32)
+    num_tx, num_rx = kw["num_tx"], kw["num_rx"]
+
+    def normals(*shape):
+        return rng.standard_normal(shape), rng.standard_normal(shape)
+
+    if "update_period" in kw:
+        fn, launches = beamforming.simulate_beamforming_time_varying, 1
+        draws = {"phases": rng.uniform(0, 2 * np.pi, (16, lanes * num_rx * num_tx)),
+                 "noise": normals(lanes, S, num_rx, nd)}
+    else:
+        fn, launches = beamforming.simulate_beamforming, 0
+        draws = {"H": normals(lanes, num_rx, num_tx), "noise": normals(lanes, num_rx, S * nd)}
+    before, copies = cm.cmatmul.launches, cm.cmatmul.copies
+    on_card = fn(torch.from_numpy(bits), 18.0, cfg, draws=draws, **kw)
+    assert cm.cmatmul.launches == before + launches and cm.cmatmul.copies == copies
+    assert on_card.bits_rx.is_cuda
+    on_cpu = fn(torch.from_numpy(bits), 18.0, cfg, device="cpu", draws=draws, **kw)
+    assert int((on_card.bits_rx.cpu() != on_cpu.bits_rx).sum()) <= 1e-4 * bits.size
+    torch.testing.assert_close(on_card.beamforming_gain_db.cpu(), on_cpu.beamforming_gain_db,
+                               rtol=0, atol=1e-4)
+    if launches:
+        assert torch.equal(on_card.pmi_history.cpu(), on_cpu.pmi_history)
+    else:
+        assert torch.equal(on_card.pmi.cpu(), on_cpu.pmi)
+
+
+@pytest.mark.cuda
+def test_coding_front_on_card_equals_cpu(cuda_device):
+    from ofdm_lte_tpu_torch.coding import crc, rate_matching as rm
+    from ofdm_lte_tpu_torch.ops import qam
+    rng = np.random.default_rng(9)
+    bits = torch.from_numpy(rng.integers(0, 2, (5, 6144)).astype(np.int32))
+    assert torch.equal(crc.crc_torch(bits.to(cuda_device)).cpu(), crc.crc_torch(bits))
+    for K in (40, 6144):
+        N_cb = 3 * (K + 6)
+        for E in (N_cb // 3, N_cb + 7, 2 * N_cb + 101):
+            for rv in range(4):
+                enc = torch.from_numpy(rng.integers(0, 2, (3, 3 * K + 12)).astype(np.int32))
+                assert torch.equal(rm.rate_match(enc.to(cuda_device), E, K, rv).cpu(),
+                                   rm.rate_match(enc, E, K, rv))
+                llr = torch.from_numpy((rng.standard_normal((3, E)) * 4).astype(np.float32))
+                assert torch.equal(rm.rate_dematch(llr.to(cuda_device), K, rv).cpu(),
+                                   rm.rate_dematch(llr, K, rv))
+    y = C(torch.randn(2, 999), torch.randn(2, 999))
+    for mod in ("QPSK", "16-QAM", "64-QAM"):
+        for nv in (0.05, torch.rand(2, 999) * 0.4 + 0.01):
+            on_cpu = qam.llrs(y, nv, mod)
+            on_card = qam.llrs(C(y.re.to(cuda_device), y.im.to(cuda_device)),
+                               nv.to(cuda_device) if isinstance(nv, torch.Tensor) else nv, mod)
+            scale = on_cpu.abs().max().item()
+            assert (on_card.cpu() - on_cpu).abs().max().item() <= 1e-6 * scale
+
+
+@pytest.mark.cuda
+def test_beamforming_entry_points_default_to_the_card(cuda_device):
+    from ofdm_lte_tpu_torch import OFDMSimulator
+    from ofdm_lte_tpu_torch.parallel.sweep import ber_sweep
+    from ofdm_lte_tpu_torch.sim import beamforming
+    cfg = LTEConfig(1.25, modulation="QPSK")
+    assert all(b.is_cuda for b in beamforming.BeamformingLink(cfg, 4, 2).buffers())
+    sim = OFDMSimulator(cfg, seed=0)
+    bits = np.random.default_rng(0).integers(0, 2, 300)
+    for model in ("static", "jakes"):
+        res = sim.simulate_beamforming(bits, 60.0, num_tx=4, num_rx=2, velocity_kmh=30.0,
+                                       channel_model=model)
+        assert res["ber"] == 0.0
+    r = ber_sweep(cfg, [0.0, 60.0], frames=4, num_ofdm_symbols=14, pipeline="beamforming",
+                  generator=torch.Generator(device=cuda_device).manual_seed(1))
+    assert r.bit_errors[0] > r.bit_errors[1] == 0 and r.papr_db.tolist() == [0.0, 0.0]

@@ -165,7 +165,10 @@ def test_port_imports_no_jax():
         "import ofdm_lte_tpu_torch.mimo.layer_mapper, ofdm_lte_tpu_torch.mimo.codebook\n"
         "import ofdm_lte_tpu_torch.mimo.rank_adaptation, ofdm_lte_tpu_torch.mimo.detector\n"
         "import ofdm_lte_tpu_torch.sim.spatial, ofdm_lte_tpu_torch.sim.links\n"
-        "import ofdm_lte_tpu_torch.parallel.sweep\n"
+        "import ofdm_lte_tpu_torch.parallel.sweep, ofdm_lte_tpu_torch.sim.beamforming\n"
+        "import ofdm_lte_tpu_torch.mimo.beamforming, ofdm_lte_tpu_torch.mimo.csi\n"
+        "import ofdm_lte_tpu_torch.coding.crc, ofdm_lte_tpu_torch.coding.segmentation\n"
+        "import ofdm_lte_tpu_torch.coding.rate_matching, ofdm_lte_tpu_torch.coding.tables\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'ofdm_lte_tpu'))\n"
         "assert not bad, bad\n"
