@@ -11,28 +11,37 @@ SFBC) and TM4 spatial multiplexing (4×2 rank 2 MMSE over the flat channel
 at the bins and in the time domain, 4×4 rank 4 SIC and 8×4 rank 2 with the
 extended CRS layout over multipath) and TM6 beamforming with PMI feedback
 (4×2 over the static flat channel, 8×1 over the Jakes channel at 30 km/h
-with W recomputed every 4 symbols), see PATHS. Every complex GEMM of every path goes through
+with W recomputed every 4 symbols) and the TS 36.212 coded chain (a 6,000-bit
+transport block a lane, one transmission; a 75,376-bit one with HARQ over
+rv 0-3; 8 max-log iterations), see PATHS. Every complex GEMM of every path goes through
 the tensor-core kernel `cmatmul_tf32x3` (`tc`, 4-dot form); the
 tensor-core Gauss kernel `cmatmul_tf32x3_gauss` and the CUDA-core kernel
 `cmatmul_f32` (`ffma`: 4-dot and Gauss forms) are driven beside it on the
-main path. Phases, each of which raises on failure:
+main path; every BCJR pass of the turbo decoder is one launch of
+`turbo_bcjr` (csrc/turbo_bcjr.cu). Phases, each of which raises on failure:
 
 1. require a CUDA card; print its name and power limit;
 2. build the CUDA kernels from ofdm_lte_tpu_torch/csrc into build/;
 3. hold the four kernels against their plain PyTorch versions (fp32, TF32
    off) at every GEMM shape of every path, with the strided operands the
    paths make (CP-stripped and slot-start views, a leading antenna axis),
-   and at two small ragged shapes: `tc` against `cmatmul_plain` and
+   (the coded paths' TX, RX data and RX pilot products too) and at two
+   small ragged shapes: `tc` against `cmatmul_plain` and
    `cmatmul_plain_tf32x3`, the tensor-core Gauss kernel against
    `cmatmul_plain(gauss=True)` and `cmatmul_plain_gauss_tf32x3`, `ffma`
    4-dot and Gauss against `cmatmul_plain` of the same form. Print each
    one's error against a float64 product (a yardstick). Run the split-K
    pilot GEMM twice through each tensor-core kernel and require identical
-   bits;
+   bits. Hold `turbo_bcjr` against `bcjr_plain` on the card at K' 43, 1027,
+   5827, 6083 and 6147, batches of 1, 7 and 64 blocks, non-zero a-priori
+   LLRs: max-log equal as floats, log-MAP within BCJR_LOGMAP_TOL, two
+   launches bit-identical;
 4. run the facade once per method: OFDMModule.transmit, simulate_simo,
    simulate_mimo, simulate_spatial_multiplexing, simulate_beamforming over
-   either channel model and a 3-point run_ber_sweep, and a 3-point
-   `ber_sweep` of the spatial, the SFBC and the beamforming pipelines;
+   either channel model, simulate_siso_coded, simulate_siso_coded_harq and
+   a 3-point run_ber_sweep, a 3-point `ber_sweep` of the spatial, the
+   SFBC, the beamforming and the coded pipelines, and a 2-point
+   `harq_sweep`;
 5. run the main path at 60 dB (BER must be 0) and 15 dB (BER in
    [0.0836, 0.0880], around the JAX package's 0.08586), once per kernel,
    counting kernel launches (3 per step); run every other path at 60 dB
@@ -48,7 +57,13 @@ main path. Phases, each of which raises on failure:
    the kernel; run the coded chain's front end (CRC, rate matching and
    de-matching at K 40 and 6144, rv 0-3, with repetition and puncturing,
    max-log LLRs of a 20 MHz 64-QAM frame of 256 lanes) on the card and
-   demand the CPU's results: equal bits, LLRs within 1e-6 of max|LLR|;
+   demand the CPU's results: equal bits, LLRs within 1e-6 of max|LLR|; the
+   coded paths give BLER 0 and BER 0 at 30 dB and, at their working SNR,
+   BLER (per HARQ stage) within 4σ of the JAX package's (binomial σ² =
+   p(1−p)(1/256 + 1/64), one-sided where the JAX BLER is 0 or 1: see
+   bler_band) and BER in its band; the batched HARQ on the card
+   equals the CPU's under the same draws at 5 MHz QPSK (1,000- and
+   12,000-bit transport blocks, 4 lanes): bits, CRC outcomes, transmissions;
 6. time each path (CUDA events, bits and seed changed every step), the main
    one through each of the four kernels in turns, and each GEMM shape
    through the four kernels, the plain versions and one library call
@@ -57,7 +72,13 @@ main path. Phases, each of which raises on failure:
    operations over the peak rate of their type (TF32 tensor cores 495
    TFLOP/s for the two tensor-core kernels, which do three TF32 products
    per fp32 product: 3 x 8·M·K·N for `tc`, 3 x 6·M·K·N for Gauss; fp32
-   CUDA cores 67 TFLOP/s for `ffma`).
+   CUDA cores 67 TFLOP/s for `ffma`); the coded paths' transport blocks
+   and information bits a second, and the BCJR kernel's time a pass at the
+   paths' shapes (256 × K' 6083, 3,328 × K' 5827), there equal to its
+   plain version as floats, beside its bound (16 B a step a block over
+   3.35 TB/s, the LLRs in and out; the design's α scratch printed apart),
+   its plain version's time and its log-MAP time; no single PyTorch call
+   computes a BCJR pass, so its library time is null.
 
 The second-to-last line is a JSON object describing each kernel (its times
 are sums over all timed GEMM shapes, `by_shape` has each); the last is
@@ -70,7 +91,10 @@ with torch.profiler before those two lines and prints where a step's
 device time goes: all kernels, the GEMM kernels, the number of kernels a
 step, and the device's idle share of the traced wall time. It fails if a
 device kernel whose name holds `gemm` or `cutlass` ran (every product of a
-driven path belongs to the four hand-written kernels) or an eigensolver's
+driven path belongs to the four hand-written kernels) beyond the CRC
+products of the coded paths (`coding.crc.crc_torch`, a torch.matmul as the
+JAX package's plain XLA dot: as many library GEMM kernels as its launches
+in the window times the kernels one call launches), or an eigensolver's
 (EIGENSOLVER_KERNELS: the beamforming paths ask the feedback for the PMI
 and W alone, not for RI).
 """
@@ -138,8 +162,22 @@ PATHS = {
     "bf_8x1_tm6_jakes_30kmh": dict(kind="beamforming", kw=dict(
         num_tx=8, num_rx=1, update_mode="static", channel_model="jakes", update_period=4,
         doppler_hz=30.0 / 3.6 * 2e9 / 3e8), snr=15.0, ber60=0.0, launches=1),
+    # the TS 36.212 coded chain (kind "coded": sim.coded.CodedLink), AWGN in the
+    # time domain, 8 max-log iterations, clean at 30 dB. One 6,000-bit
+    # transport block a lane (one block, K 6080, 56 fillers; 4 symbols), rv 0:
+    # ber_sweep's coded default; and the largest single-layer transport block
+    # at 100 PRBs (TS 36.213 Table 7.1.7.2.1-1, I_TBS 26), 75,376 bits (13
+    # blocks of K 5824, 38 symbols), with HARQ over rv 0-3. Launches a step:
+    # 3 GEMMs and 17 BCJR passes a block size a transmission; the 38-symbol
+    # frame's slot-start view does not fold into rows, so its RX pilot
+    # operand (two planes) is copied each transmission.
+    "coded_6000_awgn": dict(kind="coded", kw=dict(tb_bits=6000, rv_sequence=(0,)), snr=20.85,
+                            ber60=0.0, launches=3, bcjr=17, copies=0),
+    "harq_75376_awgn": dict(kind="coded", kw=dict(tb_bits=75376, rv_sequence=(0, 1, 2, 3)),
+                            snr=16.2, ber60=0.0, launches=12, bcjr=68, copies=8),
 }
 PATH_STEPS = 10     # timed steps of each of those paths
+CODED_CLEAN_SNR = 30.0   # the coded paths' clean point (their ber60)
 
 # The JAX package's BER on each path at its working SNR: mean, standard
 # deviation of the per-lane BER, lanes and bits. Run on the CPU, 20 MHz 64-QAM,
@@ -176,12 +214,33 @@ JAX_BER = {
     "bf_4x2_tm6_codebook": dict(mean=0.0155658, lane_std=0.015778, lanes=64, bits=5370624),
     "bf_8x1_tm6_jakes_30kmh": dict(mean=0.0234718, lane_std=0.0216076, lanes=64,
                                    bits=5370624),
+    # one transport block a lane: the per-lane BER is 0 or a failed decode's,
+    # and `bler` is the BLER after each transmission. At 16.2 dB no single
+    # transmission of 13 blocks decodes (the waterfall of one 6,000-bit
+    # transmission runs from 20.6 to 21.25 dB), two combined decode a third
+    # of the time (rv 2 adds nothing to rv 0 and 1 there) and four nearly
+    # always: stage 2 sits on the waterfall
+    "coded_6000_awgn": dict(mean=0.127799, lane_std=0.13063, lanes=64, bits=384000,
+                            bler=[0.5]),
+    "harq_75376_awgn": dict(mean=0.00113224, lane_std=0.00442563, lanes=64, bits=4824064,
+                            bler=[1, 0.34375, 0.34375, 0.0625]),
 }
 
 # max|Δ| / max|C| against the plain version of the same form. tc and ffma
 # 4-dot: the same products in another sum order; Gauss (either kernel): one
 # extra rounding and a fold, t3 − t1 − t2, that cancels.
 TOL = {"tf32x3": 1e-5, "tf32x3_gauss": 1e-4, "f32_fma4": 1e-5, "f32_gauss": 1e-4}
+# turbo_bcjr against bcjr_plain under log-MAP, max|Δ| over the largest path
+# metric Σ_k (|L_sys| + |L_par| + |L_apr|)/2 (the metrics are not renormalised;
+# expf/logf and the 8-state sum order differ by ulps). Max-log: equal.
+BCJR_LOGMAP_TOL = 1e-6
+# what a BCJR pass must move and do a step a code block: 3 LLRs in, 1 out
+# (16 B); 4 branch metrics (3 ops each), α and β (16 adds and 8 ⊕ each), APP
+# (32 adds, 2 × 7 ⊕ and a subtraction). The kernel's α scratch, 8 floats
+# written and read (64 B), is this design's own cost, reported beside it.
+BCJR_BYTES_PER_STEP = 16
+BCJR_SCRATCH_BYTES_PER_STEP = 64
+BCJR_OPS_PER_STEP = 4 * 3 + 2 * (16 + 8) + 32 + 14 + 1
 GAUSS = {"tf32x3": False, "tf32x3_gauss": True, "f32_fma4": False, "f32_gauss": True}
 TENSOR_CORE = {"tf32x3": True, "tf32x3_gauss": True, "f32_fma4": False, "f32_gauss": False}
 HBM_BYTES_PER_S = 3.35e12
@@ -194,9 +253,24 @@ PEAK_FLOPS = {"tf32": 495e12, "fp32": 67e12}
 
 def ber_band(ref: dict, lanes: int) -> tuple:
     """(lo, hi): 4σ around the JAX package's mean BER for a run of `lanes`
-    lanes, σ² = lane_std²·(1/ref lanes + 1/lanes)."""
+    lanes, σ² = lane_std²·(1/ref lanes + 1/lanes). A coded path whose JAX
+    lanes all decoded after the last transmission (lane_std 0) gets the
+    one-sided [0, hi·½], hi the upper BLER limit of that stage: a lane that
+    fails has a BER below one half."""
+    if "bler" in ref and ref["lane_std"] == 0.0:
+        return 0.0, 0.5 * bler_band(ref["bler"][-1], lanes, ref["lanes"])[1]
     half = 4.0 * ref["lane_std"] * np.sqrt(1.0 / ref["lanes"] + 1.0 / lanes)
     return max(0.0, ref["mean"] - half), ref["mean"] + half
+
+
+def bler_band(p: float, lanes: int, ref_lanes: int = 64) -> tuple:
+    """(lo, hi): 4σ around the JAX package's BLER p, σ² = q(1−q)(1/lanes +
+    1/ref_lanes), with q = p held inside [1/(2·ref_lanes), 1 − 1/(2·ref_lanes)]:
+    a BLER of 0 (or 1) over ref_lanes lanes gets a one-sided band of about
+    3/ref_lanes, the rule of three, not a band of width 0."""
+    q = min(max(p, 0.5 / ref_lanes), 1.0 - 0.5 / ref_lanes)
+    half = 4.0 * np.sqrt(q * (1.0 - q) * (1.0 / lanes + 1.0 / ref_lanes))
+    return max(0.0, p - half), min(1.0, p + half)
 
 
 def card_line() -> str:
@@ -226,27 +300,42 @@ def cuda_ms(fn, reps: int, run_ahead: bool = False) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def profile_steps(step, steps: int = 10) -> None:
-    """Print the split of a step's device time from a torch.profiler trace."""
+def is_library_gemm(name: str) -> bool:
+    return "gemm" in name.lower() or "cutlass" in name.lower()
+
+
+def profile_steps(step, steps: int = 10, crc_gemm_kernels: int = 0) -> None:
+    """Print the split of a step's device time from a torch.profiler trace.
+
+    crc_gemm_kernels: the library GEMM kernels one CRC product
+    (coding.crc.crc_torch) launches; the trace may hold that many for each
+    crc_torch call in its window, and no other."""
     from torch.profiler import ProfilerActivity, profile
+    from ofdm_lte_tpu_torch.coding import crc
     for _ in range(3):
         step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        crc.crc_torch.launches = 0
         t1 = time.perf_counter()
         for _ in range(steps):
             step()
         enqueue_ms = 1e3 * (time.perf_counter() - t1) / steps
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t1) / steps
+        crc_calls = crc.crc_torch.launches
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         raise RuntimeError("torch.profiler recorded no device activity")
-    library = sorted({e.name for e in kernels
-                      if "gemm" in e.name.lower() or "cutlass" in e.name.lower()})
+    library = [e.name for e in kernels if is_library_gemm(e.name)]
+    allowed = crc_calls * crc_gemm_kernels
+    if len(library) > allowed:
+        raise AssertionError(f"a library GEMM ran on a driven path: {len(library)} kernels "
+                             f"{sorted(set(library))}, {crc_calls} CRC products allow {allowed}")
     if library:
-        raise AssertionError(f"a library GEMM ran on a driven path: {library}")
+        print(f"library GEMM kernels: {len(library)} in {crc_calls} CRC products "
+              f"({crc_gemm_kernels} a product allowed): {sorted(set(library))}")
     solvers = sorted({e.name for e in kernels
                       if any(w in e.name.lower() for w in EIGENSOLVER_KERNELS)})
     if solvers:
@@ -266,15 +355,33 @@ def profile_steps(step, steps: int = 10) -> None:
         print(f"  {ms:.4f} ms/step  {name[:110]}")
 
 
-def count_kernels(fn) -> int:
-    """Device kernels that one call of fn() launches (torch.profiler)."""
+def count_kernels(fn, which=None) -> int:
+    """Device kernels that one call of fn() launches (torch.profiler); with
+    `which`, those whose name it accepts."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and (which is None or which(e.name)))
+
+
+def crc_gemm_kernels(link, lanes: int) -> int:
+    """The most library GEMM kernels one of a coded link's CRC products
+    launches: CRC-24A over (lanes, n) and, segmented, CRC-24B over
+    (lanes, blocks, K - 24)."""
+    from ofdm_lte_tpu_torch.coding import crc
+    dev = link.device
+    bits = torch.randint(0, 2, (lanes, link.tb_bits), device=dev, dtype=torch.int32)
+    calls = [lambda: crc.crc_torch(bits, M=link.crc_tb)]
+    if link.segmented:
+        for K, n in link.groups:
+            body = torch.randint(0, 2, (lanes, n, K - 24), device=dev, dtype=torch.int32)
+            M = getattr(link, f"crc_body_{K}")
+            calls.append(lambda body=body, M=M: crc.crc_torch(body, crc.CRC24B_POLY, 24, M=M))
+    return max(count_kernels(fn, is_library_gemm) for fn in calls)
 
 
 def bound_ms(kernel: str, M: int, K: int, N: int):
@@ -347,6 +454,40 @@ def coding_front_on_card(rng, dev, cfg) -> None:
           f"{LANES} x {n_sym} 64-QAM symbols within {worst:.2e} of max|LLR|")
 
 
+def coded_on_card(rng, dev) -> None:
+    """The batched coded chain with HARQ on the card against the CPU under
+    the same noise, 5 MHz QPSK, 4 lanes at -1, 1, 3 and 30 dB, a 1,000-bit
+    (one block, 8 iterations) and a 12,000-bit transport block (K 6016 and
+    6080, 2 iterations): equal bits, CRC outcomes by stage and transmissions.
+    Raises on any difference."""
+    from ofdm_lte_tpu_torch import LTEConfig
+    from ofdm_lte_tpu_torch.grid import grid_for
+    from ofdm_lte_tpu_torch.ops import bcjr
+    from ofdm_lte_tpu_torch.sim import coded
+    cfg = LTEConfig(5.0, modulation="QPSK")
+    snr = torch.tensor([-1.0, 1.0, 3.0, 30.0])
+    for n, iterations in ((1000, 8), (12000, 2)):
+        link = coded.CodedLink(cfg, n, device=dev)
+        n_sym = -(-link.coded_len // cfg.bits_per_symbol)
+        samples = -(-n_sym // grid_for(cfg).num_data) * cfg.samples_per_ofdm_symbol
+        noise = (rng.standard_normal((4, 4, samples)), rng.standard_normal((4, 4, samples)))
+        bits = torch.as_tensor(rng.integers(0, 2, (4, n)).astype(np.int32))
+        before = bcjr.bcjr_app.launches
+        on_card = link.harq(bits, snr, num_iterations=iterations, draws={"noise": noise})
+        launched = bcjr.bcjr_app.launches - before
+        on_cpu = coded.CodedLink(cfg, n, device="cpu").harq(
+            bits, snr, num_iterations=iterations, draws={"noise": noise})
+        same = [torch.equal(getattr(on_card, f).cpu(), getattr(on_cpu, f))
+                for f in ("bits_rx", "crc_pass", "crc_pass_stage", "num_transmissions")]
+        print(f"coded HARQ cuda vs cpu, same draws, 5 MHz QPSK, {n} bits ({len(link.groups)} "
+              f"block sizes), {iterations} iterations, lanes at {snr.tolist()} dB: bits, "
+              f"crc_pass, crc_pass_stage, num_transmissions equal {same}; transmissions "
+              f"{on_card.num_transmissions.tolist()}, {launched} BCJR launches")
+        if not all(same) or not on_card.bits_rx.is_cuda \
+                or launched != 4 * (2 * iterations + 1) * len(link.groups):
+            raise AssertionError(f"coded {n}: the card disagrees with the CPU")
+
+
 def main() -> None:
     to_profile = profile_targets()
     if not torch.cuda.is_available():
@@ -359,15 +500,16 @@ def main() -> None:
     from ofdm_lte_tpu_torch import LTEConfig, OFDMModule, OFDMSimulator, _build, cplx
     from ofdm_lte_tpu_torch.channel import mimo, rayleigh
     from ofdm_lte_tpu_torch.mimo import detector
-    from ofdm_lte_tpu_torch.parallel.sweep import ber_sweep
+    from ofdm_lte_tpu_torch.parallel.sweep import ber_sweep, harq_sweep
+    from ofdm_lte_tpu_torch.coding import crc
     from ofdm_lte_tpu_torch.cplx import C
-    from ofdm_lte_tpu_torch.ops import ofdm, qam
+    from ofdm_lte_tpu_torch.ops import bcjr, ofdm, qam
     from ofdm_lte_tpu_torch.ops.cmatmul import (cmatmul, cmatmul_plain,
                                                 cmatmul_plain_gauss_tf32x3,
                                                 cmatmul_plain_tf32x3, default_variant)
     from ofdm_lte_tpu_torch.rx import alamouti
     from ofdm_lte_tpu_torch.rx.estimation import SLOT_SIZE
-    from ofdm_lte_tpu_torch.sim import beamforming, diversity, siso, spatial
+    from ofdm_lte_tpu_torch.sim import beamforming, coded, diversity, siso, spatial
     from ofdm_lte_tpu_torch.sim.links import clear_link_cache
 
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
@@ -394,6 +536,7 @@ def main() -> None:
         cmatmul.launches = cmatmul.copies = 0
         for k in cmatmul.launches_by_kernel:
             cmatmul.launches_by_kernel[k] = 0
+        bcjr.bcjr_app.launches = crc.crc_torch.launches = 0
 
     def path_link(name: str):
         spec = PATHS[name]
@@ -403,6 +546,8 @@ def main() -> None:
             return spatial.SpatialLink(cfg, device=dev, **spec["kw"])
         if spec["kind"] == "beamforming":
             return beamforming.BeamformingLink(cfg, device=dev, **spec["kw"])
+        if spec["kind"] == "coded":
+            return coded.CodedLink(cfg, spec["kw"]["tb_bits"], device=dev)
         cls = diversity.SimoLink if spec["kind"] == "simo" else diversity.SfbcLink
         kw = dict(spec["kw"])
         return cls(cfg, kw.pop("num_rx"), device=dev, **kw)
@@ -415,7 +560,20 @@ def main() -> None:
             return spatial.bits_per_frame(cfg, SYMBOLS)
         if spec["kind"] == "beamforming":
             return beamforming.bits_per_frame(cfg, SYMBOLS)
+        if spec["kind"] == "coded":
+            return spec["kw"]["tb_bits"]
         return siso.bits_per_frame(cfg, SYMBOLS, spec["kw"].get("mode", "lte"))
+
+    def run_path(plink, name: str, bits, snr, **kw):
+        """One step of a path's link; a coded path with several redundancy
+        versions runs its batched HARQ schedule."""
+        spec = PATHS[name]
+        if spec["kind"] != "coded":
+            return plink(bits, snr, generator=gen, **kw)
+        rvs = spec["kw"]["rv_sequence"]
+        if len(rvs) == 1:
+            return plink(bits, snr, rv=rvs[0], generator=gen, **kw)
+        return plink.harq(bits, snr, rvs, generator=gen, **kw)
 
     # -- 3. kernel vs plain at the paths' shapes ----------------------------
     bits = random_bits(LANES, 1)
@@ -523,6 +681,27 @@ def main() -> None:
     ragged = {"ragged_28x999x300": (randc(28, 999), randc(999, 300), None),
               "ragged_5x7x3": (randc(5, 7), randc(7, 3), None)}
 
+    # the coded paths' call sites: TX over the frame of S symbols the
+    # transport block fills, RX data on the CP-stripped view and RX pilot on
+    # the slot-start symbols, which the wrapper copies when S (38) is not a
+    # multiple of 14 and which are passed here as that copy
+    def coded_symbols(name: str) -> int:
+        link_c = coded.link_for(cfg, PATHS[name]["kw"]["tb_bits"], dev)
+        n_sym = -(-link_c.coded_len // cfg.bits_per_symbol)
+        return -(-n_sym // siso.grid_for(cfg).num_data)
+
+    coded_gemms = {}
+    for name in [n for n, spec in PATHS.items() if spec["kind"] == "coded"]:
+        S_c = coded_symbols(name)
+        y_c = ofdm.frame_stream(randc(LANES, S_c * cfg.samples_per_ofdm_symbol), cfg)
+        pil = y_c[..., ::SLOT_SIZE, cfg.cp_length:]
+        coded_gemms[f"{name}_tx"] = (randc(LANES, S_c, siso.grid_for(cfg).num_data),
+                                     link.mod_tables.b, link.mod_tables.bsum)
+        coded_gemms[f"{name}_rx_data"] = (y_c[..., cfg.cp_length:], rx.data.g, rx.data.gsum)
+        coded_gemms[f"{name}_rx_pilot"] = (C(pil.re.contiguous(), pil.im.contiguous()),
+                                           rx.pilot.g, rx.pilot.gsum)
+    clear_link_cache()
+
     def c128(x: C) -> torch.Tensor:
         return torch.complex(x.re.double(), x.im.double())
 
@@ -542,7 +721,7 @@ def main() -> None:
 
     max_err = dict.fromkeys(TOL, 0.0)
     zero_counts()
-    for name, (a, b, bsum) in {**gemms, **new_gemms, **ragged}.items():
+    for name, (a, b, bsum) in {**gemms, **new_gemms, **coded_gemms, **ragged}.items():
         M, K, N = mkn(a, b)
         a2 = C(a.re.reshape(M, K), a.im.reshape(M, K))
         # each kernel once at the whole shape, the operand with the strides the
@@ -605,6 +784,34 @@ def main() -> None:
         if splits < 2 or not same:
             raise AssertionError(f"the split-K pilot GEMM through {kernel} is not split or "
                                  f"not reproducible")
+
+    # the BCJR kernel against its plain version on the card
+    def bcjr_inputs(n: int, kp: int, seed: int):
+        g.manual_seed(seed)
+        return [torch.randn((n, kp), generator=g, device=dev) * 3.0 for _ in range(3)]
+
+    bcjr_err = {True: 0.0, False: 0.0}
+    for kp in (43, 1027, 5827, 6083, 6147):
+        worst = {True: 0.0, False: 0.0}
+        for n in (1, 7, 64):
+            ls, lp, la = bcjr_inputs(n, kp, 100 * kp + n)
+            metric = 0.5 * (ls.abs() + lp.abs() + la.abs()).sum(dim=-1).max().item()
+            for max_log in (True, False):
+                got = bcjr.bcjr_app(ls, lp, la, max_log)
+                again = bcjr.bcjr_app(ls, lp, la, max_log)
+                want = bcjr.bcjr_plain(ls, lp, la, max_log)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                worst[max_log] = max(worst[max_log], err / metric)
+                bcjr_err[max_log] = max(bcjr_err[max_log], err)
+                if not torch.equal(got, again) or (max_log and not torch.equal(got, want)) \
+                        or err > BCJR_LOGMAP_TOL * metric:
+                    raise AssertionError(f"turbo_bcjr at n={n} K'={kp} max_log={max_log}: "
+                                         f"max|d| {err:.3e}, path metric {metric:.1f}, "
+                                         f"launches identical {torch.equal(got, again)}")
+        print(f"check turbo_bcjr vs bcjr_plain, K'={kp}, 1/7/64 blocks, a-priori LLRs non-zero: "
+              f"max-log equal as floats, log-MAP max|d|/path metric {worst[False]:.3e} "
+              f"(tol {BCJR_LOGMAP_TOL:.0e}); two launches identical")
 
     # -- 4. the facade, once per method --------------------------------------
     zero_counts()
@@ -678,6 +885,59 @@ def main() -> None:
         raise AssertionError(f"facade run_ber_sweep: {sweep['ber_values']}")
     del sim
 
+    # the coded facade: one 6,000-bit transport block, then HARQ below the
+    # single-transmission waterfall; 3 GEMMs and 17 BCJR passes a transmission
+    coded_sim = OFDMSimulator(cfg, seed=6)
+    tb = np.random.default_rng(6).integers(0, 2, PATHS["coded_6000_awgn"]["kw"]["tb_bits"])
+    zero_counts()
+    res = coded_sim.simulate_siso_coded(tb, CODED_CLEAN_SNR)
+    print(f"facade OFDMSimulator.simulate_siso_coded, 6000 bits at {CODED_CLEAN_SNR:g} dB: "
+          f"crc_pass {res['crc_pass']} ber {res['ber']} coded bits {res['coded_bits_length']} "
+          f"papr_db {res['papr_db']:.3f} pilot snr {res['channel_snr_db']:.2f} dB, launches "
+          f"{cmatmul.launches} GEMM + {bcjr.bcjr_app.launches} BCJR")
+    if not res["crc_pass"] or res["ber"] != 0 or res["coded_bits_length"] != 3 * 6080 + 12 \
+            or (cmatmul.launches, bcjr.bcjr_app.launches) != (3, 17) or cmatmul.copies:
+        raise AssertionError(f"facade simulate_siso_coded: {res}")
+    zero_counts()
+    res = coded_sim.simulate_siso_coded_harq(tb, 17.0)
+    n_tx = res["num_transmissions"]
+    print(f"facade OFDMSimulator.simulate_siso_coded_harq, 6000 bits at 17 dB: transmissions "
+          f"{n_tx}, crc history {res['crc_history']}, rv {res['rv_history']}, ber {res['ber']}, "
+          f"launches {cmatmul.launches} GEMM + {bcjr.bcjr_app.launches} BCJR")
+    if not 1 <= n_tx <= 4 or res["rv_history"] != [0, 1, 2, 3][:n_tx] \
+            or res["crc_history"][:-1] != [False] * (n_tx - 1) \
+            or (res["crc_pass"] and res["ber"] != 0) or (not res["crc_pass"] and n_tx != 4) \
+            or (cmatmul.launches, bcjr.bcjr_app.launches) != (3 * n_tx, 17 * n_tx):
+        raise AssertionError(f"facade simulate_siso_coded_harq: {res}")
+    del coded_sim
+    clear_link_cache()
+    zero_counts()
+    gen.manual_seed(9)
+    coded_snr = PATHS["coded_6000_awgn"]["snr"]
+    sw = ber_sweep(cfg, [15.0, coded_snr, CODED_CLEAN_SNR], frames=16, pipeline="coded",
+                   generator=gen)
+    print(f"ber_sweep coded (6000-bit transport blocks) at {sw.snr_db.tolist()} dB, "
+          f"{sw.frames} frames a point: ber {sw.ber.tolist()} papr_db {sw.papr_db.tolist()} "
+          f"launches {cmatmul.launches} GEMM + {bcjr.bcjr_app.launches} BCJR")
+    if not (sw.ber[0] > sw.ber[1] > sw.ber[2] == 0.0) or sw.total_bits.tolist() != [96000] * 3 \
+            or (cmatmul.launches, bcjr.bcjr_app.launches) != (3, 17) or cmatmul.copies \
+            or not np.isfinite(sw.papr_db).all():
+        raise AssertionError(f"ber_sweep coded: {sw}")
+    zero_counts()
+    hs = harq_sweep(cfg, [16.0, CODED_CLEAN_SNR], frames=16, generator=gen)
+    print(f"harq_sweep (6000-bit transport blocks, rv 0-3) at {hs.snr_db.tolist()} dB, "
+          f"{hs.frames} frames a point: stage failures {hs.stage_failures.tolist()} "
+          f"transmissions {hs.tx_sum.tolist()} bit errors {hs.bit_errors.tolist()} "
+          f"bler {hs.bler.tolist()}, launches {cmatmul.launches} GEMM + "
+          f"{bcjr.bcjr_app.launches} BCJR")
+    stages = hs.stage_failures
+    if stages.dtype != np.int64 or (np.diff(stages, axis=1) > 0).any() \
+            or stages[1].tolist() != [0] * 4 or hs.tx_sum[1] != 16 or hs.bit_errors[1] != 0 \
+            or hs.tx_sum[0] <= 16 or hs.tb_failures.tolist() != stages[:, -1].tolist() \
+            or (cmatmul.launches, bcjr.bcjr_app.launches) != (12, 68):
+        raise AssertionError(f"harq_sweep: {hs}")
+    clear_link_cache()
+
     # -- 5. the main path, once per kernel ----------------------------------
     def main_path_through(kernel):
         """Context in which the link's GEMMs go to `kernel`."""
@@ -718,14 +978,17 @@ def main() -> None:
     # every other path, through the default kernel
     print(f"paths: {LANES} lanes x {SYMBOLS} symbols each")
     paprs = {}
+    bcjr_launches_by_path = {}
     for name, spec in PATHS.items():
         plink = path_link(name)
+        is_coded = spec["kind"] == "coded"
+        clean = CODED_CLEAN_SNR if is_coded else 60.0
         zero_counts()
-        bers = {}
-        for step, snr in enumerate((60.0, spec["snr"])):
+        bers, blers = {}, {}
+        for step, snr in enumerate((clean, spec["snr"])):
             bits = random_bits(LANES, 300 + step, path_bits(name))
             gen.manual_seed(400 + step)
-            r = plink(bits, snr, generator=gen)
+            r = run_path(plink, name, bits, snr)
             # the beamforming link makes no time signal and has no PAPR
             papr = getattr(r, "papr_db", torch.zeros(LANES, device=dev))
             if r.bits_rx.shape != bits.shape or r.bits_rx.dtype != bits.dtype \
@@ -733,9 +996,15 @@ def main() -> None:
                 raise AssertionError(f"{name}: bits_rx {r.bits_rx.shape} {r.bits_rx.dtype}, "
                                      f"ber {r.ber.shape} or non-finite PAPR")
             bers[snr] = r.ber.mean().item()
+            if is_coded:
+                passed = r.crc_pass_stage if hasattr(r, "crc_pass_stage") else r.crc_pass[:, None]
+                blers[snr] = (1.0 - passed.float().mean(dim=0)).tolist()
         counts = dict(cmatmul.launches_by_kernel)
         launches["tf32x3"] += counts["tf32x3"]
         launches_by_path[name] = counts["tf32x3"]
+        n_bcjr = bcjr.bcjr_app.launches
+        if is_coded:
+            bcjr_launches_by_path[name] = n_bcjr
         paprs[name] = papr.mean().item()
         lo, hi = ber_band(JAX_BER[name], LANES)
         extra = ""
@@ -745,19 +1014,33 @@ def main() -> None:
                      f"{torch.unique(pmi).numel()}")
             if not torch.isfinite(r.beamforming_gain_db).all():
                 raise AssertionError(f"{name}: non-finite beamforming gain")
-        print(f"path {name}: BER@60dB {bers[60.0]:.6g} (at most {spec['ber60']}), "
+        if is_coded:
+            bands = [bler_band(p, LANES, JAX_BER[name]["lanes"]) for p in JAX_BER[name]["bler"]]
+            extra = (f", BLER@{clean:g}dB {blers[clean]}, BLER@{spec['snr']:g}dB by stage "
+                     f"{[round(b, 6) for b in blers[spec['snr']]]} (JAX {JAX_BER[name]['bler']}, "
+                     f"bands {[(round(float(a), 4), round(float(b), 4)) for a, b in bands]}), BCJR launches "
+                     f"{n_bcjr}")
+            if any(blers[clean]) or bers[clean] != 0.0:
+                raise AssertionError(f"{name}: BLER {blers[clean]} BER {bers[clean]} at {clean} dB")
+            if len(bands) != len(blers[spec["snr"]]) or not all(
+                    a <= p <= b for p, (a, b) in zip(blers[spec["snr"]], bands)):
+                raise AssertionError(f"{name}: BLER {blers[spec['snr']]} outside {bands}")
+            if n_bcjr != 2 * spec["bcjr"]:
+                raise AssertionError(f"{name}: {n_bcjr} BCJR launches, expected {2 * spec['bcjr']}")
+        print(f"path {name}: BER@{clean:g}dB {bers[clean]:.6g} (at most {spec['ber60']}), "
               f"BER@{spec['snr']:g}dB {bers[spec['snr']]:.6g} (JAX {JAX_BER[name]['mean']:.6g}, "
               f"band [{lo:.6g}, {hi:.6g}]), PAPR {paprs[name]:.3f} dB{extra}, launches {counts}, "
               f"copies {cmatmul.copies}")
-        if spec["ber60"] is not None and not bers[60.0] <= spec["ber60"]:
-            raise AssertionError(f"{name}: BER {bers[60.0]} at 60 dB, over {spec['ber60']}")
+        if spec["ber60"] is not None and not bers[clean] <= spec["ber60"]:
+            raise AssertionError(f"{name}: BER {bers[clean]} at {clean} dB, over {spec['ber60']}")
         if not (lo <= bers[spec["snr"]] <= hi):
             raise AssertionError(f"{name}: BER {bers[spec['snr']]} outside [{lo}, {hi}]")
         if counts["tf32x3"] != 2 * spec["launches"] or sum(counts.values()) != counts["tf32x3"]:
             raise AssertionError(f"{name}: launches {counts}, expected "
                                  f"{2 * spec['launches']} of tf32x3 alone")
-        if cmatmul.copies:
-            raise AssertionError(f"{name}: the wrapper copied {cmatmul.copies} operand planes")
+        if cmatmul.copies != 2 * spec.get("copies", 0):
+            raise AssertionError(f"{name}: the wrapper copied {cmatmul.copies} operand planes, "
+                                 f"expected {2 * spec.get('copies', 0)}")
         del plink, r
         torch.cuda.empty_cache()      # the multipath tap planes run to gigabytes
     print(f"PAPR: OFDM {main_papr:.3f} dB, SC-FDM {paprs['scfdm_awgn']:.3f} dB")
@@ -873,6 +1156,7 @@ def main() -> None:
 
     # the coded chain's front end on the card: the CPU's results, exactly
     coding_front_on_card(rng, dev, cfg)
+    coded_on_card(rng, dev)
     clear_link_cache()
     torch.cuda.empty_cache()
 
@@ -914,16 +1198,20 @@ def main() -> None:
             i = step_i[0] % PATH_STEPS
             step_i[0] += 1
             gen.manual_seed(6000 + step_i[0])
-            return plink(ppool[i], spec["snr"], generator=gen).bit_errors
+            return run_path(plink, name, ppool[i], spec["snr"]).bit_errors
 
         torch.cuda.reset_peak_memory_stats()
         t = cuda_ms(pstep, PATH_STEPS)
+        rate = (f"{LANES / (t / 1e3):.1f} TBs/s, {LANES * path_bits(name) / (t / 1e3) / 1e6:.3f} "
+                f"information Mbit/s" if spec["kind"] == "coded" else
+                f"{LANES / (t / 1e3):.1f} frames/s, "
+                f"{LANES * path_bits(name) / (t / 1e3) / 1e9:.3f} Gbit/s")
         print(f"[{card}] path {name} 20 MHz 64-QAM through tf32x3, {LANES} lanes: "
-              f"{t:.4f} ms/step, {LANES / (t / 1e3):.1f} frames/s, "
-              f"{LANES * path_bits(name) / (t / 1e3) / 1e9:.3f} Gbit/s, peak device memory "
+              f"{t:.4f} ms/step, {rate}, peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         if name in to_profile:
-            profile_steps(pstep)
+            profile_steps(pstep, crc_gemm_kernels=crc_gemm_kernels(plink, LANES)
+                          if spec["kind"] == "coded" else 0)
         if name == "lte_rayleigh_mp":
             # the channel stage alone: what one fused pass (taps made on the
             # fly, delayed multiply-adds, noise) would have to beat. Fused, it
@@ -971,13 +1259,46 @@ def main() -> None:
         del plink, ppool
         torch.cuda.empty_cache()
 
+    # the BCJR kernel a pass at the coded paths' shapes: 256 blocks of K 6080
+    # and 3,328 blocks of K 5824 (K' = K + 3), against its bound and its plain
+    # version, which must give the same floats there; no single PyTorch call
+    # computes a BCJR pass (library: none). Log-MAP is timed beside it.
+    bcjr_rows = []
+    for name, n_blk, kp in (("coded_6000_awgn", LANES, 6083),
+                            ("harq_75376_awgn", 13 * LANES, 5827)):
+        ls, lp, la = bcjr_inputs(n_blk, kp, 7 * kp)
+        out = {}
+        t_k = cuda_ms(lambda: out.__setitem__("kernel", bcjr.bcjr_app(ls, lp, la, True)), 10)
+        t_p = cuda_ms(lambda: out.__setitem__("plain", bcjr.bcjr_plain(ls, lp, la, True)), 1)
+        if not torch.equal(out["kernel"], out["plain"]):
+            d = (out["kernel"] - out["plain"]).abs().max().item()
+            raise AssertionError(f"turbo_bcjr at {n_blk} blocks x K' {kp}: max-log differs "
+                                 f"from bcjr_plain, max|d| {d:.3e}")
+        t_lm = cuda_ms(lambda: bcjr.bcjr_app(ls, lp, la, False), 10)
+        by_bytes = 1e3 * n_blk * kp * BCJR_BYTES_PER_STEP / HBM_BYTES_PER_S
+        by_ops = 1e3 * n_blk * kp * BCJR_OPS_PER_STEP / PEAK_FLOPS["fp32"]
+        bound, by = max((by_bytes, "bytes"), (by_ops, "operations"))
+        scratch = 1e3 * n_blk * kp * BCJR_SCRATCH_BYTES_PER_STEP / HBM_BYTES_PER_S
+        per_step = PATHS[name]["bcjr"]
+        bcjr_rows.append({"path": name, "n_blocks": n_blk, "K'": kp, "ms": t_k, "plain_ms": t_p,
+                          "bound_ms": bound, "bound_by": by, "library_ms": None,
+                          "scratch_ms": scratch, "log_map_ms": t_lm,
+                          "launches_a_step": per_step})
+        print(f"[{card}] turbo_bcjr max-log, {n_blk} blocks x K' {kp}: {t_k:.4f} ms a pass, "
+              f"equal to plain ({t_p:.4f} ms) as floats; bound {bound:.4f} ms by {by} (bytes "
+              f"{by_bytes:.4f}, operations {by_ops:.4f}; share {bound / t_k:.3f}); the design's "
+              f"α scratch {scratch:.4f} ms more of bytes; log-MAP {t_lm:.4f} ms; {per_step} "
+              f"passes a step of {name} ({per_step * t_k:.3f} ms); no library call")
+        del ls, lp, la, out
+        torch.cuda.empty_cache()
+
     ms = dict.fromkeys(TOL, 0.0)
     plain_ms = dict.fromkeys(TOL, 0.0)
     bounds = dict.fromkeys(TOL, 0.0)
     bound_by = {kernel: {"bytes": 0.0, "operations": 0.0} for kernel in TOL}
     by_shape = {kernel: [] for kernel in TOL}
     library_ms = 0.0
-    for name, (a, b, bsum) in {**gemms, **new_gemms}.items():
+    for name, (a, b, bsum) in {**gemms, **new_gemms, **coded_gemms}.items():
         M, K, N = mkn(a, b)
         # the library call: one cuBLAS cgemm on interleaved complex64; the
         # planar -> interleaved conversion happens here, outside the timing
@@ -1032,6 +1353,24 @@ def main() -> None:
                              if p == f"main/{kernel}" or (kernel == "tf32x3" and "/" not in p)},
         "by_shape": by_shape[kernel],
     } for kernel in TOL]
+    kernels.append({
+        "name": "turbo_bcjr",
+        "route": "cuda",
+        "source": "ofdm_lte_tpu_torch/csrc/turbo_bcjr.cu",
+        "replaces": "ofdm_lte_tpu/coding/turbo.py:424",
+        "launches": sum(bcjr_launches_by_path.values()),
+        "max_abs_err": max(bcjr_err.values()),
+        "max_abs_err_by_semiring": {"max_log": bcjr_err[True], "log_map": bcjr_err[False]},
+        "ms": sum(row["ms"] for row in bcjr_rows),
+        "plain_ms": sum(row["plain_ms"] for row in bcjr_rows),
+        "bound_ms": sum(row["bound_ms"] for row in bcjr_rows),
+        # of the summed bound, the kind that makes up more of it
+        "bound_by": max(("bytes", "operations"), key=lambda by: sum(
+            row["bound_ms"] for row in bcjr_rows if row["bound_by"] == by)),
+        "library_ms": None,
+        "launches_by_path": bcjr_launches_by_path,
+        "by_shape": bcjr_rows,
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

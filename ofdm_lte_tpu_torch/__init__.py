@@ -5,8 +5,10 @@ reference it is tested against. It imports torch and NumPy and never JAX.
 Complex values are planar (`C`, a pair of float32 tensors); the modem's
 complex GEMMs run in hand-written Hopper kernels (ops/cmatmul.py,
 csrc/cmatmul_tc.cu on the tensor cores, csrc/cmatmul.cu on the CUDA cores)
-on CUDA tensors and in plain PyTorch on CPU tensors. Its objects run on
-the CUDA card unless the caller passes `device="cpu"` (device.py).
+and each BCJR pass of the turbo decoder in another (ops/bcjr.py,
+csrc/turbo_bcjr.cu) on CUDA tensors, and in plain PyTorch on CPU tensors.
+Its objects run on the CUDA card unless the caller passes `device="cpu"`
+(device.py).
 
 Ported so far: the SISO link in its OFDM, SC-FDM and simple modes over
 AWGN, flat fading and Jakes/ITU multipath, with and without CRS
@@ -14,11 +16,11 @@ equalization (sim/siso.py, channel/rayleigh.py); the SIMO-MRC and 2×N
 Alamouti SFBC diversity links (sim/diversity.py, channel/mimo.py); the
 metrics (utils/metrics.py); TM4 spatial multiplexing (sim/spatial.py,
 mimo/); TM6/TM4 beamforming with CSI feedback (sim/beamforming.py,
-mimo/beamforming.py, mimo/csi.py); the coded chain's front end (coding/:
-CRC, segmentation, rate matching; ops/qam.llrs); the one-device sweep
-(parallel/sweep.py); and the facade over them (api.py). The turbo code, the
-coded sims with HARQ, the N-process sweeps and the CLI are not ported yet
-(ROADMAP.md).
+mimo/beamforming.py, mimo/csi.py); the TS 36.212 coded chain (coding/:
+CRC, segmentation, rate matching, the turbo code; ops/qam.llrs) and the
+coded SISO sims with HARQ (sim/coded.py); the one-device sweeps
+(parallel/sweep.py: ber_sweep, harq_sweep); and the facade over them
+(api.py). The N-process sweeps and the CLI are not ported yet (ROADMAP.md).
 """
 
 from .config import LTEConfig, LTE_PROFILES, CP_VALUES_US, MODULATION_SCHEMES

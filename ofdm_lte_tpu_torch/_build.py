@@ -105,5 +105,7 @@ def library() -> ctypes.CDLL:
         for fn in (lib.cmatmul_tf32x3_splits, lib.cmatmul_tf32x3_gauss_splits):
             fn.argtypes = [i, i, i, i]
             fn.restype = i
+        lib.turbo_bcjr.argtypes = [p, p, p, p, p, i, i, i, p]
+        lib.turbo_bcjr.restype = i
         _lib = lib
     return _lib

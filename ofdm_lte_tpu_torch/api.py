@@ -7,12 +7,10 @@ and return NumPy and the same dict keys as the JAX package. Randomness
 comes from one `torch.Generator` per simulator, seeded from `seed` on
 `device`. A simulator builds one link per
 (pipeline, antennas, rank, detector) on first use and keeps it, tables on
-`device`. With no `device` given the objects run on the CUDA card and raise
-where there is none (device.resolve_device); `device="cpu"` asks for the
-CPU.
-
-The two coded methods wait for their slice and raise NotImplementedError
-naming its ROADMAP items (A17-A18).
+`device`; the coded methods use the kept link of their transport-block
+size (sim.coded.link_for). With no `device` given the objects run on the
+CUDA card and raise where there is none (device.resolve_device);
+`device="cpu"` asks for the CPU.
 """
 from __future__ import annotations
 
@@ -28,6 +26,7 @@ from .mimo import beamforming as _bfp
 from .mimo import csi as _csi
 from .ops import qam
 from .sim import beamforming as _bf
+from .sim import coded as _coded
 from .sim import diversity as _div
 from .sim import siso as _siso
 from .sim import spatial as _spatial
@@ -217,14 +216,49 @@ class OFDMSimulator:
         self.last_results = res
         return res
 
-    # -- not ported yet ----------------------------------------------------
-    def simulate_siso_coded(self, *args, **kw) -> Dict:
-        raise NotImplementedError("simulate_siso_coded: ROADMAP items A17-A18 "
-                                  "(A16, the front end, is in ofdm_lte_tpu_torch.coding)")
+    # -- turbo-coded SISO --------------------------------------------------
+    def _coded_kwargs(self):
+        return dict(channel_type=self.channel_type, itu_profile=self.itu_profile,
+                    velocity_kmh=self.velocity_kmh, generator=self.generator,
+                    device=self.device)
 
-    def simulate_siso_coded_harq(self, *args, **kw) -> Dict:
-        raise NotImplementedError("simulate_siso_coded_harq: ROADMAP items A17-A18 "
-                                  "(A16, the front end, is in ofdm_lte_tpu_torch.coding)")
+    def simulate_siso_coded(self, bits: np.ndarray, snr_db: float = 10.0,
+                            use_max_log: Optional[bool] = None, rv: int = 0) -> Dict:
+        """One transport block through the TS 36.212 chain (sim.coded.
+        simulate_siso_coded). use_max_log: None follows coding.turbo.
+        USE_MAX_LOG_MAP, False is exact log-MAP; rv the redundancy version."""
+        r = _coded.simulate_siso_coded(bits, float(snr_db), self.config, use_max_log=use_max_log,
+                                       rv=rv, **self._coded_kwargs())
+        res = {
+            "transmitted_bits": len(bits), "received_bits": len(bits),
+            "bits_received_array": r.bits_rx,
+            "bit_errors": r.bit_errors, "ber": r.ber,
+            "crc_pass": r.crc_pass, "snr_db": float(snr_db),
+            "papr_db": r.papr_db, "coded_bits_length": r.coded_bits_length,
+            "channel_snr_db": r.channel_snr_db,
+        }
+        self.last_results = res
+        return res
+
+    def simulate_siso_coded_harq(self, bits: np.ndarray, snr_db: float = 10.0,
+                                 rv_sequence=(0, 1, 2, 3),
+                                 use_max_log: Optional[bool] = None) -> Dict:
+        """HARQ retransmissions with LLR chase combining across redundancy
+        versions until CRC-24A passes (sim.coded.simulate_siso_coded_harq)."""
+        r = _coded.simulate_siso_coded_harq(bits, float(snr_db), self.config,
+                                            rv_sequence=tuple(rv_sequence),
+                                            use_max_log=use_max_log, **self._coded_kwargs())
+        res = {
+            "transmitted_bits": len(bits), "received_bits": len(bits),
+            "bits_received_array": r.bits_rx,
+            "bit_errors": r.bit_errors, "ber": r.ber,
+            "crc_pass": r.crc_pass, "snr_db": float(snr_db),
+            "num_transmissions": r.num_transmissions,
+            "rv_history": list(r.rv_history),
+            "crc_history": list(r.crc_history),
+        }
+        self.last_results = res
+        return res
 
     # -- sweeps ------------------------------------------------------------
     def run_ber_sweep(self, bits: np.ndarray, snr_range, num_trials: int = 1,

@@ -6,8 +6,12 @@ Port of ofdm_lte_tpu/coding/crc.py, with its own copy of the tables:
 - device path: a CRC is GF(2)-linear, so for a fixed message length n the
   checksum is (bits @ M) mod 2 with a constant (n, nbits) 0/1 matrix M.
   `crc_torch` makes that one real fp32 product, exact for n < 2²⁴ (the sums
-  are integers below 2²⁴). M is cached as NumPy and kept on the device by
-  coding.tables.
+  are integers below 2²⁴, and 0/1 operands are exact in TF32 too). M is
+  cached as NumPy and kept on the device by coding.tables, or passed in by
+  a link that holds it as a buffer. The product is torch.matmul, a library
+  GEMM on a card, as the JAX package leaves it to a plain XLA dot outside
+  any kernel: each call adds one to `crc_torch.launches`, so that a profile
+  of a coded path can tell these GEMMs from any other.
 """
 from __future__ import annotations
 
@@ -118,10 +122,17 @@ def crc_matrix(n: int, poly: int = CRC24A_POLY, nbits: int = 24) -> np.ndarray:
     return M
 
 
-def crc_torch(bits: torch.Tensor, poly: int = CRC24A_POLY, nbits: int = 24) -> torch.Tensor:
+def crc_torch(bits: torch.Tensor, poly: int = CRC24A_POLY, nbits: int = 24,
+              M: torch.Tensor = None) -> torch.Tensor:
     """CRC of fixed-length messages on their device: (..., n) integer bits ->
-    (..., nbits) int32, as (bits @ M) mod 2."""
+    (..., nbits) int32, as (bits @ M) mod 2. `M` is crc_matrix(n, poly,
+    nbits) on the bits' device (kept by coding.tables when None)."""
     n = bits.shape[-1]
-    M = on_device(("crc", n, poly, nbits), lambda: crc_matrix(n, poly, nbits), bits.device)
+    if M is None:
+        M = on_device(("crc", n, poly, nbits), lambda: crc_matrix(n, poly, nbits), bits.device)
     acc = torch.matmul(bits.to(torch.float32), M)
+    crc_torch.launches += 1
     return torch.remainder(acc, 2.0).to(torch.int32)
+
+
+crc_torch.launches = 0

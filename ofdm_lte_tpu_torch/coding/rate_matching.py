@@ -106,19 +106,25 @@ def dematch_tables(K: int, E: int, rv_idx: int = 0):
     return pos, _enc_from_cb(K)
 
 
-def rate_match(encoded: torch.Tensor, E: int, K: int, rv_idx: int = 0) -> torch.Tensor:
-    """encoded (..., 3K+12) -> (..., E). One gather."""
-    fwd = on_device(("rm_fwd", K, E, rv_idx), lambda: forward_indices(K, E, rv_idx).astype(
-        np.int64), encoded.device)
+def rate_match(encoded: torch.Tensor, E: int, K: int, rv_idx: int = 0,
+               fwd: torch.Tensor = None) -> torch.Tensor:
+    """encoded (..., 3K+12) -> (..., E). One gather; `fwd` is
+    forward_indices(K, E, rv_idx) as int64 on the device (kept by
+    coding.tables when None)."""
+    if fwd is None:
+        fwd = on_device(("rm_fwd", K, E, rv_idx), lambda: forward_indices(K, E, rv_idx).astype(
+            np.int64), encoded.device)
     padded = torch.cat([encoded, encoded.new_zeros(encoded.shape[:-1] + (1,))], dim=-1)
     return torch.index_select(padded, -1, fwd)
 
 
-def rate_dematch(llrs: torch.Tensor, K: int, rv_idx: int = 0) -> torch.Tensor:
+def rate_dematch(llrs: torch.Tensor, K: int, rv_idx: int = 0,
+                 enc_from_cb: torch.Tensor = None) -> torch.Tensor:
     """llrs (..., E) -> encoder-order LLRs (..., 3K+12).
 
     Repetitions soft-combine (a sum, wrap by wrap in order); punctured
-    positions stay 0."""
+    positions stay 0. `enc_from_cb` is _enc_from_cb(K) as int64 on the
+    device (kept by coding.tables when None)."""
     E = llrs.shape[-1]
     N_cb = 3 * (K + 6)
     start = _start(N_cb, rv_idx)
@@ -130,6 +136,7 @@ def rate_dematch(llrs: torch.Tensor, K: int, rv_idx: int = 0) -> torch.Tensor:
     for w in range(1, wraps):
         cb = cb + laid[..., w, :]
     cb = torch.cat([cb, llrs.new_zeros(lead + (1,))], dim=-1)       # the zero slot N_cb
-    enc_from_cb = on_device(("rm_dematch", K), lambda: _enc_from_cb(K).astype(np.int64),
-                            llrs.device)
+    if enc_from_cb is None:
+        enc_from_cb = on_device(("rm_dematch", K), lambda: _enc_from_cb(K).astype(np.int64),
+                                llrs.device)
     return torch.index_select(cb, -1, enc_from_cb)

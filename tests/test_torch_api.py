@@ -1,6 +1,6 @@
-"""The facade against the JAX package's: the same dict keys for every ported
-method, clean links at 60 dB, the presets, the metrics, and the methods
-that still wait for their slices."""
+"""The facade against the JAX package's: the same dict keys for every
+method, clean links at 60 dB (the coded ones at 30 dB), the presets and the
+metrics."""
 import numpy as np
 import pytest
 import torch
@@ -105,16 +105,32 @@ def test_create_simulator_presets_equal(preset):
         create_simulator("3MHz_QPSK", device="cpu")
 
 
-@pytest.mark.parametrize("method,item", [("simulate_siso_coded", "A16"),
-                                         ("simulate_siso_coded_harq", "A16")])
-def test_unported_methods_name_their_roadmap_item(method, item):
-    """The coded methods wait for the turbo code and the coded sims (A17-A18)
-    and say that their front end (A16) is ported."""
+@pytest.mark.parametrize("method", ["simulate_siso_coded", "simulate_siso_coded_harq"])
+def test_coded_methods_keys_equal_and_clean_at_30_db(method):
+    """The coded methods: the JAX facade's keys and values on a clean link (a
+    1,500-bit transport block, one block of K 1536, 16-QAM)."""
+    j, t = _sims()
+    ref, out = getattr(j, method)(BITS, 30.0), getattr(t, method)(BITS, 30.0)
+    assert set(out) == set(ref) and t.last_results is out
+    for key in set(ref) - {"bits_received_array", "papr_db", "channel_snr_db"}:
+        assert out[key] == ref[key], key
+    assert out["crc_pass"] is True and out["ber"] == 0.0
+    np.testing.assert_array_equal(out["bits_received_array"], BITS)
+    if method == "simulate_siso_coded":
+        assert out["coded_bits_length"] == 3 * 1536 + 12
+        assert abs(out["papr_db"] - ref["papr_db"]) < 1.0          # other noise, same signal
+    else:
+        assert out["num_transmissions"] == 1 and out["rv_history"] == [0]
+
+
+def test_coded_harq_retransmits_below_the_waterfall():
     _, t = _sims()
-    with pytest.raises(NotImplementedError, match=item):
-        getattr(t, method)(BITS, 10.0)
-    with pytest.raises(NotImplementedError, match="A17-A18"):
-        getattr(t, method)(BITS, 10.0)
+    out = t.simulate_siso_coded_harq(BITS, 2.0, rv_sequence=(0, 2), use_max_log=False)
+    n = out["num_transmissions"]
+    assert out["rv_history"] == [0, 2][:n] and len(out["crc_history"]) == n
+    assert out["crc_history"][0] is False                        # 16-QAM at 2 dB
+    assert out["crc_pass"] == out["crc_history"][-1]
+    assert t.simulate_siso_coded(BITS, 2.0, rv=1)["crc_pass"] is False
 
 
 @pytest.mark.parametrize("kw", [dict(num_tx=2, num_rx=2, rank=2),

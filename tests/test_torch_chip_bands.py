@@ -1,19 +1,29 @@
 """The BER bands that chip_smoke.py holds its paths to, and where they come
 from: the JAX package, run on the CPU at chip_smoke's configuration (20 MHz
-64-QAM, 14 symbols) and working SNRs with fewer lanes.
+64-QAM, 14 symbols; the coded paths' transport blocks) and working SNRs with
+fewer lanes.
 
     JAX_PLATFORMS=cpu python tests/test_torch_chip_bands.py
 
 prints the JAX_BER table to paste into chip_smoke.py: per path the mean
-BER, the standard deviation of the per-lane BER, the lanes and the bits
-(under a minute on two cores for the SISO and diversity paths, about three
-more for the four spatial ones; path names on the command line restrict the
-run). Its output is kept beside this file,
-test_torch_chip_bands.txt. chip_smoke.py then accepts a mean BER within 4σ,
-σ² = lane_std²·(1/lanes here + 1/lanes there). The test below holds
-chip_smoke's constants to that kept output; the port itself is held to the
-JAX package under the same draws, at a small size, by the other
-tests/test_torch_*.py."""
+BER, the standard deviation of the per-lane BER, the lanes and the bits,
+and for the coded paths the BLER after each transmission (under a minute on
+two cores for the SISO and diversity paths, about three more for the four
+spatial ones, some 20 s for coded_6000_awgn and two minutes for
+harq_75376_awgn; path names on the command line restrict the run). Its
+output is kept beside this file, test_torch_chip_bands.txt. chip_smoke.py
+then accepts a mean BER within 4σ, σ² = lane_std²·(1/lanes here + 1/lanes
+there), and a BLER within 4σ, σ² = p(1−p)(1/lanes here + 1/lanes there)
+(one-sided, about 3/64 wide, where the JAX BLER is 0 or 1). The working
+SNRs of the coded paths were picked with this script: where the JAX BLER
+of coded_6000_awgn lies between 0.2 and 0.8 (its waterfall runs from BLER
+1.0 at 20.6 dB to 0.0 at 21.25), and where the first stage's BLER of
+harq_75376_awgn is above 0.5, the fourth's below 0.2 and the second's
+between 0.2 and 0.8 (16.2 dB; at 16.0 the stages read 1, 1, 1, 0.56 over
+16 lanes, at 16.5 1, 0, 0, 0).
+The test below holds chip_smoke's constants to that kept output; the port
+itself is held to the JAX package under the same draws, at a small size,
+by the other tests/test_torch_*.py."""
 import os
 import re
 import sys
@@ -46,6 +56,13 @@ def _n_bits(kind, cfg, mode="lte"):
     return tsiso.bits_per_frame(cfg, chip_smoke.SYMBOLS, mode)
 
 
+def _path_bits(spec) -> int:
+    if spec["kind"] == "coded":
+        return spec["kw"]["tb_bits"]
+    return _n_bits(spec["kind"], LTEConfig(20.0, modulation="64-QAM"),
+                   spec["kw"].get("mode", "lte"))
+
+
 def jax_ber(name, snr_db, lanes=JAX_LANES, seed=0):
     """Per-lane BER of the JAX package on one path of chip_smoke.PATHS."""
     import jax
@@ -56,8 +73,10 @@ def jax_ber(name, snr_db, lanes=JAX_LANES, seed=0):
     jax.config.update("jax_platforms", "cpu")
     spec = chip_smoke.PATHS[name]
     cfg = jcfg.LTEConfig(20.0, modulation="64-QAM")
-    n = _n_bits(spec["kind"], LTEConfig(20.0, modulation="64-QAM"), spec["kw"].get("mode", "lte"))
+    n = _path_bits(spec)
     bits = np.random.default_rng(seed).integers(0, 2, (lanes, n)).astype(np.int8)
+    if spec["kind"] == "coded":
+        return _jax_coded(spec["kw"], bits, snr_db, cfg, seed), lanes * n
     if spec["kind"] == "spatial":
         return _jax_spatial_ber(spec["kw"], bits, snr_db, cfg, seed), lanes * n
     if spec["kind"] == "beamforming":
@@ -109,25 +128,69 @@ def _jax_beamforming_ber(link_kw, bits, snr_db, cfg, seed):
                       np.float64)
 
 
+def _jax_coded(link_kw, bits, snr_db, cfg, seed):
+    """(per-lane BER, BLER after each transmission) of the JAX package's
+    batched coded chain: one transmission, or HARQ over the rv sequence."""
+    import jax
+    import jax.numpy as jnp
+    from ofdm_lte_tpu.sim import coded as jcoded
+    rvs, key = link_kw["rv_sequence"], jax.random.PRNGKey(seed)
+    if len(rvs) == 1:
+        r = jcoded.simulate_siso_coded_batched(key, jnp.asarray(bits, jnp.int32), snr_db, cfg,
+                                               rv=rvs[0])
+        passed = np.asarray(r.crc_pass)[:, None]
+    else:
+        r = jcoded.simulate_siso_coded_harq_batched(key, jnp.asarray(bits, jnp.int32), snr_db,
+                                                    cfg, rv_sequence=rvs)
+        passed = np.asarray(r.crc_pass_stage)
+    return np.asarray(r.ber, np.float64), 1.0 - passed.mean(axis=0)
+
+
 def kept_output() -> dict:
     """The JAX_BER table as the generator printed it."""
     here = os.path.dirname(os.path.abspath(__file__))
     with open(os.path.join(here, "test_torch_chip_bands.txt")) as f:
-        rows = re.findall(r'"(\w+)": dict\(mean=(\S+), lane_std=(\S+), lanes=(\d+), bits=(\d+)\)',
-                          f.read())
-    return {name: dict(mean=float(mean), lane_std=float(std), lanes=int(lanes), bits=int(bits))
-            for name, mean, std, lanes, bits in rows}
+        rows = re.findall(r'"(\w+)": dict\(mean=(\S+), lane_std=(\S+), lanes=(\d+), bits=(\d+)'
+                          r'(?:, bler=\[([^\]]*)\])?\)', f.read())
+    out = {}
+    for name, mean, std, lanes, bits, bler in rows:
+        out[name] = dict(mean=float(mean), lane_std=float(std), lanes=int(lanes), bits=int(bits))
+        if bler:
+            out[name]["bler"] = [float(p) for p in bler.split(",")]
+    return out
 
 
 @pytest.mark.parametrize("name", list(chip_smoke.PATHS))
 def test_band_constants_are_the_generator_output(name):
     spec, ref = chip_smoke.PATHS[name], chip_smoke.JAX_BER[name]
     assert ref == kept_output()[name]
-    n = _n_bits(spec["kind"], LTEConfig(20.0, modulation="64-QAM"),
-                spec["kw"].get("mode", "lte"))
-    assert ref["lanes"] == JAX_LANES and ref["bits"] == JAX_LANES * n
+    assert ref["lanes"] == JAX_LANES and ref["bits"] == JAX_LANES * _path_bits(spec)
     lo, hi = chip_smoke.ber_band(ref, chip_smoke.LANES)
-    assert 0.0 <= lo < ref["mean"] < hi < 0.6
+    if spec["kind"] == "coded":
+        # a HARQ schedule that every lane passes leaves no residual error
+        assert 0.0 <= lo <= ref["mean"] <= hi < 0.6
+        bler = ref["bler"]
+        assert len(bler) == len(spec["kw"]["rv_sequence"])
+        assert all(0.0 <= p <= 1.0 for p in bler) and list(bler) == sorted(bler, reverse=True)
+        if len(bler) == 1:
+            assert 0.2 <= bler[0] <= 0.8                      # mid-waterfall
+        else:                                               # HARQ combining recovers,
+            assert bler[0] > 0.5 and bler[-1] < 0.2 and 0.2 < bler[1] < 0.8  # on the waterfall
+    else:
+        assert 0.0 <= lo < ref["mean"] < hi < 0.6
+
+
+def test_bler_band():
+    # a BLER of 0 or 1 over 64 JAX lanes: one-sided, about 3/64 wide
+    lo, hi = chip_smoke.bler_band(0.0, 256)
+    assert lo == 0.0 and 2.5 / 64 < hi < 3.5 / 64
+    lo1, hi1 = chip_smoke.bler_band(1.0, 256)
+    assert hi1 == 1.0 and abs(lo1 - (1.0 - hi)) < 1e-12
+    lo, hi = chip_smoke.bler_band(0.5, 256)
+    assert abs(0.5 - lo - 4 * np.sqrt(0.25 * (1 / 256 + 1 / 64))) < 1e-12 and hi == 1.0 - lo
+    # a coded path with no residual failure: BER below half the BLER limit
+    ref = dict(mean=0.0, lane_std=0.0, lanes=64, bits=64, bler=[1.0, 0.0])
+    assert chip_smoke.ber_band(ref, 256) == (0.0, 0.5 * chip_smoke.bler_band(0.0, 256)[1])
 
 
 if __name__ == "__main__":
@@ -137,9 +200,14 @@ if __name__ == "__main__":
     for path, spec_ in chip_smoke.PATHS.items():
         if path not in wanted:
             continue
+        clean_snr = chip_smoke.CODED_CLEAN_SNR if spec_["kind"] == "coded" else 60.0
         ber, n_bits = jax_ber(path, spec_["snr"])
-        clean, _ = jax_ber(path, 60.0, lanes=8)
+        clean, _ = jax_ber(path, clean_snr, lanes=8)
+        extra = ""
+        if spec_["kind"] == "coded":                # (per-lane BER, BLER by stage)
+            (ber, bler), clean = ber, clean[0]
+            extra = f", bler=[{', '.join(f'{p:.6g}' for p in bler)}]"
         print(f'    "{path}": dict(mean={ber.mean():.6g}, lane_std={ber.std(ddof=1):.6g}, '
-              f'lanes={JAX_LANES}, bits={n_bits}),   # {spec_["snr"]} dB; at 60 dB, 8 lanes: '
-              f'{clean.mean():.3g}', flush=True)
+              f'lanes={JAX_LANES}, bits={n_bits}{extra}),   # {spec_["snr"]} dB; at '
+              f'{clean_snr:g} dB, 8 lanes: {clean.mean():.3g}', flush=True)
     print("}")

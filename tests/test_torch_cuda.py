@@ -460,3 +460,95 @@ def test_beamforming_entry_points_default_to_the_card(cuda_device):
     r = ber_sweep(cfg, [0.0, 60.0], frames=4, num_ofdm_symbols=14, pipeline="beamforming",
                   generator=torch.Generator(device=cuda_device).manual_seed(1))
     assert r.bit_errors[0] > r.bit_errors[1] == 0 and r.papr_db.tolist() == [0.0, 0.0]
+
+
+def _bcjr_inputs(n, kp, seed, device):
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return [torch.randn((n, kp), generator=g, device=device) * 3.0 for _ in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_max_log", [True, False], ids=["max_log", "log_map"])
+@pytest.mark.parametrize("n,kp", [(1, 43), (7, 1027), (64, 6147), (17, 5827), (3, 64), (2, 1)])
+def test_bcjr_kernel_matches_plain(n, kp, use_max_log, cuda_device, monkeypatch):
+    """Max-log equal as floats; log-MAP within 1e-6 of the largest path
+    metric (expf/logf and the 8-state sum order differ by ulps). The wrapper
+    never hands a CUDA tensor to the plain version."""
+    from ofdm_lte_tpu_torch.ops import bcjr
+    ls, lp, la = _bcjr_inputs(n, kp, n * kp, cuda_device)
+    want = bcjr.bcjr_plain(ls, lp, la, use_max_log)
+    monkeypatch.setattr(bcjr, "bcjr_plain", None)
+    before = bcjr.bcjr_app.launches
+    got = bcjr.bcjr_app(ls, lp, la, use_max_log)
+    again = bcjr.bcjr_app(ls, lp, la, use_max_log)
+    torch.cuda.synchronize()
+    assert bcjr.bcjr_app.launches == before + 2 and got.shape == (n, kp)
+    assert torch.equal(got, again)
+    if use_max_log:
+        assert torch.equal(got, want)
+    else:
+        metric = 0.5 * (ls.abs() + lp.abs() + la.abs()).sum(dim=-1).max().item()
+        assert (got - want).abs().max().item() <= 1e-6 * metric
+
+
+@pytest.mark.cuda
+def test_bcjr_wrapper_checks_its_inputs(cuda_device):
+    from ofdm_lte_tpu_torch.ops import bcjr
+    ls, lp, la = _bcjr_inputs(4, 50, 1, cuda_device)
+    with pytest.raises(TypeError):
+        bcjr.bcjr_app(ls.double(), lp, la)
+    with pytest.raises(ValueError):
+        bcjr.bcjr_app(ls[:, ::2], lp[:, ::2], la[:, ::2])
+    with pytest.raises(ValueError):
+        bcjr.bcjr_app(ls, lp[:3], la)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,iterations", [(1000, 8), (12000, 2)])
+def test_coded_chain_on_card_matches_cpu_with_same_draws(n, iterations, cuda_device):
+    """The batched chain and its HARQ on the card against the CPU under the
+    same noise: equal bits, CRC outcomes and transmissions."""
+    from ofdm_lte_tpu_torch.ops import bcjr
+    from ofdm_lte_tpu_torch.sim import coded
+    cfg = LTEConfig(5.0, modulation="QPSK")
+    rng = np.random.default_rng(10)
+    bits = torch.from_numpy(rng.integers(0, 2, (4, n)).astype(np.int32))
+    link = coded.link_for(cfg, n, cuda_device)
+    assert all(b.is_cuda for b in link.buffers())
+    n_sym = -(-link.coded_len // cfg.bits_per_symbol)
+    samples = -(-n_sym // siso.grid_for(cfg).num_data) * cfg.samples_per_ofdm_symbol
+    noise = (rng.standard_normal((4, 4, samples)), rng.standard_normal((4, 4, samples)))
+    snr = torch.tensor([-1.0, 1.0, 3.0, 30.0])
+    before = bcjr.bcjr_app.launches
+    card = link.harq(bits, snr, num_iterations=iterations, draws={"noise": noise})
+    assert bcjr.bcjr_app.launches == before + 4 * (2 * iterations + 1) * len(link.groups)
+    cpu = coded.link_for(cfg, n, "cpu").harq(bits, snr, num_iterations=iterations,
+                                             draws={"noise": noise})
+    assert torch.equal(card.crc_pass_stage.cpu(), cpu.crc_pass_stage)
+    assert torch.equal(card.num_transmissions.cpu(), cpu.num_transmissions)
+    assert torch.equal(card.bits_rx.cpu(), cpu.bits_rx)
+    # one transmission: the lanes below the waterfall fail on both, with
+    # decodes that rounding may move; the passing ones agree bit for bit
+    one = {"noise": (noise[0][0], noise[1][0])}
+    card1 = link(bits, snr, num_iterations=iterations, draws=one)
+    cpu1 = coded.link_for(cfg, n, "cpu")(bits, snr, num_iterations=iterations, draws=one)
+    assert torch.equal(card1.crc_pass.cpu(), cpu1.crc_pass) and bool(cpu1.crc_pass[-1])
+    assert torch.equal(card1.bits_rx.cpu()[cpu1.crc_pass], cpu1.bits_rx[cpu1.crc_pass])
+
+
+@pytest.mark.cuda
+def test_coded_entry_points_default_to_the_card(cuda_device):
+    from ofdm_lte_tpu_torch import OFDMSimulator
+    from ofdm_lte_tpu_torch.parallel.sweep import ber_sweep, harq_sweep
+    cfg = LTEConfig(1.25, modulation="QPSK")
+    sim = OFDMSimulator(cfg, seed=0)
+    bits = np.random.default_rng(0).integers(0, 2, 1000)
+    assert sim.simulate_siso_coded(bits, 30.0)["crc_pass"]
+    assert sim.simulate_siso_coded_harq(bits, 30.0)["num_transmissions"] == 1
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    r = ber_sweep(cfg, [-5.0, 30.0], frames=2, pipeline="coded", coded_tb_bits=1000,
+                  generator=gen)
+    assert r.bit_errors[0] > r.bit_errors[1] == 0
+    h = harq_sweep(cfg, [-10.0, 30.0], frames=2, tb_bits=1000, generator=gen)
+    assert h.tb_failures.tolist() == [2, 0] and h.tx_sum.tolist() == [8, 2]
