@@ -17,8 +17,9 @@ rv 0-3; 8 max-log iterations), see PATHS. Every complex GEMM of every path goes 
 the tensor-core kernel `cmatmul_tf32x3` (`tc`, 4-dot form); the
 tensor-core Gauss kernel `cmatmul_tf32x3_gauss` and the CUDA-core kernel
 `cmatmul_f32` (`ffma`: 4-dot and Gauss forms) are driven beside it on the
-main path; every BCJR pass of the turbo decoder is one launch of
-`turbo_bcjr` (csrc/turbo_bcjr.cu). Phases, each of which raises on failure:
+main path; every half-iteration of the turbo decoder (the a-priori's QPP
+gather, the BCJR pass, the extrinsic) is one launch of `turbo_bcjr`
+(csrc/turbo_bcjr.cu), 17 a decode. Phases, each of which raises on failure:
 
 1. require a CUDA card; print its name and power limit;
 2. build the CUDA kernels from ofdm_lte_tpu_torch/csrc into build/;
@@ -32,10 +33,14 @@ main path; every BCJR pass of the turbo decoder is one launch of
    4-dot and Gauss against `cmatmul_plain` of the same form. Print each
    one's error against a float64 product (a yardstick). Run the split-K
    pilot GEMM twice through each tensor-core kernel and require identical
-   bits. Hold `turbo_bcjr` against `bcjr_plain` on the card at K' 43, 1027,
-   5827, 6083 and 6147, batches of 1, 7 and 64 blocks, non-zero a-priori
-   LLRs: max-log equal as floats, log-MAP within BCJR_LOGMAP_TOL, two
-   launches bit-identical;
+   bits. Hold `turbo_bcjr` on the card at K' 43, 1027, 5827, 6083 and
+   6147, batches of 1, 7 and 64 blocks (odd counts leave a half-warp
+   alone), non-zero a-priori LLRs, in every mode: APP (`bcjr_app`) against
+   `bcjr_plain`, and the half-iteration (`bcjr_half`: the extrinsic with
+   the a-priori through the QPP π, through π⁻¹ and null, and the hard
+   bits) against `bcjr_half_plain`: max-log equal as floats, log-MAP within
+   BCJR_LOGMAP_TOL (hard bits equal wherever the APP is farther than that
+   from 0), two launches bit-identical;
 4. run the facade once per method: OFDMModule.transmit, simulate_simo,
    simulate_mimo, simulate_spatial_multiplexing, simulate_beamforming over
    either channel model, simulate_siso_coded, simulate_siso_coded_harq and
@@ -74,11 +79,15 @@ main path; every BCJR pass of the turbo decoder is one launch of
    per fp32 product: 3 x 8·M·K·N for `tc`, 3 x 6·M·K·N for Gauss; fp32
    CUDA cores 67 TFLOP/s for `ffma`); the coded paths' transport blocks
    and information bits a second, and the BCJR kernel's time a pass at the
-   paths' shapes (256 × K' 6083, 3,328 × K' 5827), there equal to its
-   plain version as floats, beside its bound (16 B a step a block over
-   3.35 TB/s, the LLRs in and out; the design's α scratch printed apart),
-   its plain version's time and its log-MAP time; no single PyTorch call
-   computes a BCJR pass, so its library time is null.
+   paths' shapes (256 × K' 6083, 3,328 × K' 5827) in its APP and extrinsic
+   modes, there equal to its plain versions as floats, beside its bound
+   (16 B a step a block over 3.35 TB/s, the LLRs in and out; the design's
+   scratch printed apart), its registers and spills (from the build log),
+   its plain versions' times and its log-MAP time; no single PyTorch call
+   computes a BCJR pass, so its library time is null; and a whole decode
+   (8 max-log iterations, 17 launches) at both shapes through the kernel
+   and through the plain half-iteration, with equal bits required and the
+   BER inside the JAX package's band at that σ (JAX_DECODE_BER).
 
 The second-to-last line is a JSON object describing each kernel (its times
 are sums over all timed GEMM shapes, `by_shape` has each); the last is
@@ -89,7 +98,8 @@ are sums over all timed GEMM shapes, `by_shape` has each); the last is
 also traces 10 steps of each PATH (`main`, the default, or names of PATHS)
 with torch.profiler before those two lines and prints where a step's
 device time goes: all kernels, the GEMM kernels, the number of kernels a
-step, and the device's idle share of the traced wall time. It fails if a
+step (for the coded paths: 17 BCJR launches a decode and the rest), and
+the device's idle share of the traced wall time. It fails if a
 device kernel whose name holds `gemm` or `cutlass` ran (every product of a
 driven path belongs to the four hand-written kernels) beyond the CRC
 products of the coded paths (`coding.crc.crc_torch`, a torch.matmul as the
@@ -226,6 +236,25 @@ JAX_BER = {
                             bler=[1, 0.34375, 0.34375, 0.0625]),
 }
 
+# A whole turbo decode in phase 6: DECODE_ITERATIONS max-log iterations on
+# BPSK codewords (±1 plus Gaussian noise of σ DECODE_SIGMA, LLR 2y/σ²), at the
+# coded paths' block shapes. σ 0.7 lies on the waterfall of the JAX
+# package's trellis: some blocks decode, some fail (at σ 0.75 every block
+# fails, BER about 0.35). JAX_DECODE_BER, per K, is the JAX package's BER
+# there (mean and standard deviation of the per-block BER, blocks, bits),
+# from `JAX_PLATFORMS=cpu python tests/test_torch_chip_bands.py turbo_decode`
+# (kept in tests/test_torch_chip_bands.txt); the card's decode must lie
+# within ber_band of it. The comparison with the plain decode, which runs
+# the same turbo_decode, cannot see a fault in the decoder's wiring (π, π⁻¹,
+# the extrinsic); this band can.
+DECODE_SIGMA = 0.7
+DECODE_ITERATIONS = 8
+DECODE_SHAPES = (("coded_6000_awgn", LANES, 6080), ("harq_75376_awgn", 13 * LANES, 5824))
+JAX_DECODE_BER = {
+    6080: dict(mean=0.133794, lane_std=0.147296, lanes=256, bits=1556480),
+    5824: dict(mean=0.145484, lane_std=0.164245, lanes=256, bits=1490944),
+}
+
 # max|Δ| / max|C| against the plain version of the same form. tc and ffma
 # 4-dot: the same products in another sum order; Gauss (either kernel): one
 # extra rounding and a fold, t3 − t1 − t2, that cancels.
@@ -234,13 +263,17 @@ TOL = {"tf32x3": 1e-5, "tf32x3_gauss": 1e-4, "f32_fma4": 1e-5, "f32_gauss": 1e-4
 # metric Σ_k (|L_sys| + |L_par| + |L_apr|)/2 (the metrics are not renormalised;
 # expf/logf and the 8-state sum order differ by ulps). Max-log: equal.
 BCJR_LOGMAP_TOL = 1e-6
-# what a BCJR pass must move and do a step a code block: 3 LLRs in, 1 out
-# (16 B); 4 branch metrics (3 ops each), α and β (16 adds and 8 ⊕ each), APP
-# (32 adds, 2 × 7 ⊕ and a subtraction). The kernel's α scratch, 8 floats
-# written and read (64 B), is this design's own cost, reported beside it.
+# what a BCJR pass must move and do a step a code block: 3 LLRs in (in the
+# extrinsic mode the third is the other decoder's extrinsic, gathered through
+# the QPP table that every block shares), 1 out (16 B); 4 branch metrics (3
+# ops each), α and β (16 adds and 8 ⊕ each), APP (32 adds, 2 × 7 ⊕ and a
+# subtraction), and in the extrinsic mode two more subtractions. The
+# kernel's scratch, 8 floats of α or β written and read (64 B), is this
+# design's own cost, reported beside it.
 BCJR_BYTES_PER_STEP = 16
 BCJR_SCRATCH_BYTES_PER_STEP = 64
-BCJR_OPS_PER_STEP = 4 * 3 + 2 * (16 + 8) + 32 + 14 + 1
+BCJR_OPS_PER_STEP = {"app": 4 * 3 + 2 * (16 + 8) + 32 + 14 + 1,
+                     "extrinsic": 4 * 3 + 2 * (16 + 8) + 32 + 14 + 3}
 GAUSS = {"tf32x3": False, "tf32x3_gauss": True, "f32_fma4": False, "f32_gauss": True}
 TENSOR_CORE = {"tf32x3": True, "tf32x3_gauss": True, "f32_fma4": False, "f32_gauss": False}
 HBM_BYTES_PER_S = 3.35e12
@@ -395,6 +428,20 @@ def bound_ms(kernel: str, M: int, K: int, N: int):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
+def bcjr_registers(log: str) -> str:
+    """Registers and spill of each turbo_bcjr instantiation (max-log or
+    log-MAP, mode 0 APP, 1 extrinsic, 2 hard) from nvcc's -Xptxas -v log."""
+    import re
+    lines, found = log.splitlines(), []
+    for i, line in enumerate(lines):
+        m = re.search(r"bcjr_kernelILb([01])ELi([0-2])E", line)
+        if "Compiling entry function" in line and m:
+            info = " ".join(x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
+                            if "Used" in x or "spill" in x)
+            found.append(f"{'max-log' if m[1] == '1' else 'log-MAP'} mode {m[2]}: {info}")
+    return "; ".join(found) or "not in the build log"
+
+
 def profile_targets() -> set:
     """The paths named after --profile (comma-separated), "main" when none
     is, the empty set without the flag."""
@@ -472,9 +519,9 @@ def coded_on_card(rng, dev) -> None:
         samples = -(-n_sym // grid_for(cfg).num_data) * cfg.samples_per_ofdm_symbol
         noise = (rng.standard_normal((4, 4, samples)), rng.standard_normal((4, 4, samples)))
         bits = torch.as_tensor(rng.integers(0, 2, (4, n)).astype(np.int32))
-        before = bcjr.bcjr_app.launches
+        before = bcjr.bcjr_half.launches
         on_card = link.harq(bits, snr, num_iterations=iterations, draws={"noise": noise})
-        launched = bcjr.bcjr_app.launches - before
+        launched = bcjr.bcjr_half.launches - before
         on_cpu = coded.CodedLink(cfg, n, device="cpu").harq(
             bits, snr, num_iterations=iterations, draws={"noise": noise})
         same = [torch.equal(getattr(on_card, f).cpu(), getattr(on_cpu, f))
@@ -501,7 +548,7 @@ def main() -> None:
     from ofdm_lte_tpu_torch.channel import mimo, rayleigh
     from ofdm_lte_tpu_torch.mimo import detector
     from ofdm_lte_tpu_torch.parallel.sweep import ber_sweep, harq_sweep
-    from ofdm_lte_tpu_torch.coding import crc
+    from ofdm_lte_tpu_torch.coding import crc, turbo
     from ofdm_lte_tpu_torch.cplx import C
     from ofdm_lte_tpu_torch.ops import bcjr, ofdm, qam
     from ofdm_lte_tpu_torch.ops.cmatmul import (cmatmul, cmatmul_plain,
@@ -536,7 +583,7 @@ def main() -> None:
         cmatmul.launches = cmatmul.copies = 0
         for k in cmatmul.launches_by_kernel:
             cmatmul.launches_by_kernel[k] = 0
-        bcjr.bcjr_app.launches = crc.crc_torch.launches = 0
+        bcjr.bcjr_app.launches = bcjr.bcjr_half.launches = crc.crc_torch.launches = 0
 
     def path_link(name: str):
         spec = PATHS[name]
@@ -813,6 +860,53 @@ def main() -> None:
               f"max-log equal as floats, log-MAP max|d|/path metric {worst[False]:.3e} "
               f"(tol {BCJR_LOGMAP_TOL:.0e}); two launches identical")
 
+    # the half-iteration modes against bcjr_half_plain: the extrinsic with the
+    # a-priori through the QPP π, through π⁻¹ and null, and the hard bits
+    # (K' − 3 is a QPP size at each of these K')
+    for kp in (43, 1027, 5827, 6083, 6147):
+        K = kp - 3
+        perm, inv = turbo.qpp_tables(K, dev)
+        worst = 0.0
+        for n in (1, 7, 64):
+            ls, lp, la = bcjr_inputs(n, kp, 100 * kp + n + 1)
+            ext = la[:, :K].t().contiguous()                  # step-major (K, n)
+            metric = 0.5 * (ls.abs() + lp.abs() + la.abs()).sum(dim=-1).max().item()
+            for max_log in (True, False):
+                for mode, e, idx, hard in (("extrinsic/pi", ext, perm, False),
+                                           ("extrinsic/pi_inv", ext, inv, False),
+                                           ("extrinsic/none", None, None, False),
+                                           ("hard/pi_inv", ext, inv, True)):
+                    got = bcjr.bcjr_half(ls, lp, e, idx, hard, max_log)
+                    again = bcjr.bcjr_half(ls, lp, e, idx, hard, max_log)
+                    want = bcjr.bcjr_half_plain(ls, lp, e, idx, hard, max_log)
+                    torch.cuda.synchronize()
+                    if hard:
+                        off = got != want
+                        if not max_log:
+                            # bits may differ only where the APP is within
+                            # the tolerance of 0
+                            apr = torch.cat([ext.index_select(0, idx.long()).t(),
+                                             torch.zeros_like(ls[:, :3])], -1)
+                            app = bcjr.bcjr_plain(ls, lp, apr, False)[:, :K]
+                            off &= app.abs() > BCJR_LOGMAP_TOL * metric
+                        err = off.sum().item()
+                        ok = err == 0
+                    else:
+                        err = (got - want).abs().max().item()
+                        worst = max(worst, err / metric)
+                        bcjr_err[max_log] = max(bcjr_err[max_log], err)
+                        ok = err <= BCJR_LOGMAP_TOL * metric
+                    if not torch.equal(got, again) or (max_log and not torch.equal(got, want)) \
+                            or not ok:
+                        raise AssertionError(f"turbo_bcjr {mode} at n={n} K'={kp} max_log="
+                                             f"{max_log}: max|d| or bits off {err:.3e}, path "
+                                             f"metric {metric:.1f}, launches identical "
+                                             f"{torch.equal(got, again)}")
+        print(f"check turbo_bcjr half-iteration modes vs bcjr_half_plain, K'={kp}, 1/7/64 "
+              f"blocks: extrinsic through pi, pi_inv and a null a-priori, hard bits; max-log "
+              f"equal as floats, log-MAP max|d|/path metric {worst:.3e} (tol "
+              f"{BCJR_LOGMAP_TOL:.0e}), hard bits equal off the tolerance; two launches identical")
+
     # -- 4. the facade, once per method --------------------------------------
     zero_counts()
     host_bits = np.random.default_rng(3).integers(0, 2, n_bits)
@@ -894,20 +988,20 @@ def main() -> None:
     print(f"facade OFDMSimulator.simulate_siso_coded, 6000 bits at {CODED_CLEAN_SNR:g} dB: "
           f"crc_pass {res['crc_pass']} ber {res['ber']} coded bits {res['coded_bits_length']} "
           f"papr_db {res['papr_db']:.3f} pilot snr {res['channel_snr_db']:.2f} dB, launches "
-          f"{cmatmul.launches} GEMM + {bcjr.bcjr_app.launches} BCJR")
+          f"{cmatmul.launches} GEMM + {bcjr.bcjr_half.launches} BCJR")
     if not res["crc_pass"] or res["ber"] != 0 or res["coded_bits_length"] != 3 * 6080 + 12 \
-            or (cmatmul.launches, bcjr.bcjr_app.launches) != (3, 17) or cmatmul.copies:
+            or (cmatmul.launches, bcjr.bcjr_half.launches) != (3, 17) or cmatmul.copies:
         raise AssertionError(f"facade simulate_siso_coded: {res}")
     zero_counts()
     res = coded_sim.simulate_siso_coded_harq(tb, 17.0)
     n_tx = res["num_transmissions"]
     print(f"facade OFDMSimulator.simulate_siso_coded_harq, 6000 bits at 17 dB: transmissions "
           f"{n_tx}, crc history {res['crc_history']}, rv {res['rv_history']}, ber {res['ber']}, "
-          f"launches {cmatmul.launches} GEMM + {bcjr.bcjr_app.launches} BCJR")
+          f"launches {cmatmul.launches} GEMM + {bcjr.bcjr_half.launches} BCJR")
     if not 1 <= n_tx <= 4 or res["rv_history"] != [0, 1, 2, 3][:n_tx] \
             or res["crc_history"][:-1] != [False] * (n_tx - 1) \
             or (res["crc_pass"] and res["ber"] != 0) or (not res["crc_pass"] and n_tx != 4) \
-            or (cmatmul.launches, bcjr.bcjr_app.launches) != (3 * n_tx, 17 * n_tx):
+            or (cmatmul.launches, bcjr.bcjr_half.launches) != (3 * n_tx, 17 * n_tx):
         raise AssertionError(f"facade simulate_siso_coded_harq: {res}")
     del coded_sim
     clear_link_cache()
@@ -918,9 +1012,9 @@ def main() -> None:
                    generator=gen)
     print(f"ber_sweep coded (6000-bit transport blocks) at {sw.snr_db.tolist()} dB, "
           f"{sw.frames} frames a point: ber {sw.ber.tolist()} papr_db {sw.papr_db.tolist()} "
-          f"launches {cmatmul.launches} GEMM + {bcjr.bcjr_app.launches} BCJR")
+          f"launches {cmatmul.launches} GEMM + {bcjr.bcjr_half.launches} BCJR")
     if not (sw.ber[0] > sw.ber[1] > sw.ber[2] == 0.0) or sw.total_bits.tolist() != [96000] * 3 \
-            or (cmatmul.launches, bcjr.bcjr_app.launches) != (3, 17) or cmatmul.copies \
+            or (cmatmul.launches, bcjr.bcjr_half.launches) != (3, 17) or cmatmul.copies \
             or not np.isfinite(sw.papr_db).all():
         raise AssertionError(f"ber_sweep coded: {sw}")
     zero_counts()
@@ -929,12 +1023,12 @@ def main() -> None:
           f"{hs.frames} frames a point: stage failures {hs.stage_failures.tolist()} "
           f"transmissions {hs.tx_sum.tolist()} bit errors {hs.bit_errors.tolist()} "
           f"bler {hs.bler.tolist()}, launches {cmatmul.launches} GEMM + "
-          f"{bcjr.bcjr_app.launches} BCJR")
+          f"{bcjr.bcjr_half.launches} BCJR")
     stages = hs.stage_failures
     if stages.dtype != np.int64 or (np.diff(stages, axis=1) > 0).any() \
             or stages[1].tolist() != [0] * 4 or hs.tx_sum[1] != 16 or hs.bit_errors[1] != 0 \
             or hs.tx_sum[0] <= 16 or hs.tb_failures.tolist() != stages[:, -1].tolist() \
-            or (cmatmul.launches, bcjr.bcjr_app.launches) != (12, 68):
+            or (cmatmul.launches, bcjr.bcjr_half.launches) != (12, 68):
         raise AssertionError(f"harq_sweep: {hs}")
     clear_link_cache()
 
@@ -1002,7 +1096,7 @@ def main() -> None:
         counts = dict(cmatmul.launches_by_kernel)
         launches["tf32x3"] += counts["tf32x3"]
         launches_by_path[name] = counts["tf32x3"]
-        n_bcjr = bcjr.bcjr_app.launches
+        n_bcjr = bcjr.bcjr_half.launches
         if is_coded:
             bcjr_launches_by_path[name] = n_bcjr
         paprs[name] = papr.mean().item()
@@ -1025,7 +1119,7 @@ def main() -> None:
             if len(bands) != len(blers[spec["snr"]]) or not all(
                     a <= p <= b for p, (a, b) in zip(blers[spec["snr"]], bands)):
                 raise AssertionError(f"{name}: BLER {blers[spec['snr']]} outside {bands}")
-            if n_bcjr != 2 * spec["bcjr"]:
+            if n_bcjr != 2 * spec["bcjr"] or bcjr.bcjr_app.launches:
                 raise AssertionError(f"{name}: {n_bcjr} BCJR launches, expected {2 * spec['bcjr']}")
         print(f"path {name}: BER@{clean:g}dB {bers[clean]:.6g} (at most {spec['ber60']}), "
               f"BER@{spec['snr']:g}dB {bers[spec['snr']]:.6g} (JAX {JAX_BER[name]['mean']:.6g}, "
@@ -1260,36 +1354,100 @@ def main() -> None:
         torch.cuda.empty_cache()
 
     # the BCJR kernel a pass at the coded paths' shapes: 256 blocks of K 6080
-    # and 3,328 blocks of K 5824 (K' = K + 3), against its bound and its plain
-    # version, which must give the same floats there; no single PyTorch call
-    # computes a BCJR pass (library: none). Log-MAP is timed beside it.
+    # and 3,328 blocks of K 5824 (K' = K + 3), in the APP mode and in the
+    # extrinsic mode the decoder runs (the a-priori through π, as decoder 2
+    # reads it), against its bound and its plain version, which must give
+    # the same floats there; no single PyTorch call computes a BCJR pass
+    # (library: none). Log-MAP is timed beside each.
+    print(f"turbo_bcjr registers and spill (ptxas): {bcjr_registers(_build.build_log)}")
     bcjr_rows = []
     for name, n_blk, kp in (("coded_6000_awgn", LANES, 6083),
                             ("harq_75376_awgn", 13 * LANES, 5827)):
+        K = kp - 3
         ls, lp, la = bcjr_inputs(n_blk, kp, 7 * kp)
-        out = {}
-        t_k = cuda_ms(lambda: out.__setitem__("kernel", bcjr.bcjr_app(ls, lp, la, True)), 10)
-        t_p = cuda_ms(lambda: out.__setitem__("plain", bcjr.bcjr_plain(ls, lp, la, True)), 1)
-        if not torch.equal(out["kernel"], out["plain"]):
-            d = (out["kernel"] - out["plain"]).abs().max().item()
-            raise AssertionError(f"turbo_bcjr at {n_blk} blocks x K' {kp}: max-log differs "
-                                 f"from bcjr_plain, max|d| {d:.3e}")
-        t_lm = cuda_ms(lambda: bcjr.bcjr_app(ls, lp, la, False), 10)
-        by_bytes = 1e3 * n_blk * kp * BCJR_BYTES_PER_STEP / HBM_BYTES_PER_S
-        by_ops = 1e3 * n_blk * kp * BCJR_OPS_PER_STEP / PEAK_FLOPS["fp32"]
-        bound, by = max((by_bytes, "bytes"), (by_ops, "operations"))
-        scratch = 1e3 * n_blk * kp * BCJR_SCRATCH_BYTES_PER_STEP / HBM_BYTES_PER_S
+        ext = la[:, :K].t().contiguous()                      # step-major (K, n)
+        perm = turbo.qpp_tables(K, dev)[0]
+        modes = {"app": (lambda ml: bcjr.bcjr_app(ls, lp, la, ml),
+                         lambda: bcjr.bcjr_plain(ls, lp, la, True)),
+                 "extrinsic": (lambda ml: bcjr.bcjr_half(ls, lp, ext, perm, use_max_log=ml),
+                               lambda: bcjr.bcjr_half_plain(ls, lp, ext, perm))}
         per_step = PATHS[name]["bcjr"]
-        bcjr_rows.append({"path": name, "n_blocks": n_blk, "K'": kp, "ms": t_k, "plain_ms": t_p,
-                          "bound_ms": bound, "bound_by": by, "library_ms": None,
-                          "scratch_ms": scratch, "log_map_ms": t_lm,
-                          "launches_a_step": per_step})
-        print(f"[{card}] turbo_bcjr max-log, {n_blk} blocks x K' {kp}: {t_k:.4f} ms a pass, "
-              f"equal to plain ({t_p:.4f} ms) as floats; bound {bound:.4f} ms by {by} (bytes "
-              f"{by_bytes:.4f}, operations {by_ops:.4f}; share {bound / t_k:.3f}); the design's "
-              f"α scratch {scratch:.4f} ms more of bytes; log-MAP {t_lm:.4f} ms; {per_step} "
-              f"passes a step of {name} ({per_step * t_k:.3f} ms); no library call")
-        del ls, lp, la, out
+        for mode, (kernel, plain) in modes.items():
+            out = {}
+            t_k = cuda_ms(lambda: out.__setitem__("kernel", kernel(True)), 10)
+            t_p = cuda_ms(lambda: out.__setitem__("plain", plain()), 1)
+            if not torch.equal(out["kernel"], out["plain"]):
+                d = (out["kernel"] - out["plain"]).abs().max().item()
+                raise AssertionError(f"turbo_bcjr {mode} at {n_blk} blocks x K' {kp}: max-log "
+                                     f"differs from its plain version, max|d| {d:.3e}")
+            t_lm = cuda_ms(lambda: kernel(False), 10)
+            by_bytes = 1e3 * n_blk * kp * BCJR_BYTES_PER_STEP / HBM_BYTES_PER_S
+            by_ops = 1e3 * n_blk * kp * BCJR_OPS_PER_STEP[mode] / PEAK_FLOPS["fp32"]
+            bound, by = max((by_bytes, "bytes"), (by_ops, "operations"))
+            scratch = 1e3 * n_blk * kp * BCJR_SCRATCH_BYTES_PER_STEP / HBM_BYTES_PER_S
+            bcjr_rows.append({"path": name, "mode": mode, "n_blocks": n_blk, "K'": kp,
+                              "ms": t_k, "plain_ms": t_p, "bound_ms": bound, "bound_by": by,
+                              "library_ms": None, "scratch_ms": scratch, "log_map_ms": t_lm,
+                              "launches_a_step": per_step})
+            print(f"[{card}] turbo_bcjr {mode} max-log, {n_blk} blocks x K' {kp}: {t_k:.4f} ms "
+                  f"a pass, equal to plain ({t_p:.4f} ms) as floats; bound {bound:.4f} ms by "
+                  f"{by} (bytes {by_bytes:.4f}, operations {by_ops:.4f}; share "
+                  f"{bound / t_k:.3f}); the design's scratch {scratch:.4f} ms more of bytes; "
+                  f"log-MAP {t_lm:.4f} ms; {per_step} passes a step of {name} "
+                  f"({per_step * t_k:.3f} ms); no library call")
+        del ls, lp, la, ext, out
+        torch.cuda.empty_cache()
+
+    # a whole decode, DECODE_ITERATIONS max-log iterations (17 launches),
+    # through the kernel and through the plain half-iteration on the same
+    # noisy codewords: equal bits, and a BER inside the JAX package's band
+    decode_rows = []
+    for name, n_blk, K in DECODE_SHAPES:
+        gen.manual_seed(K)
+        bits = torch.randint(0, 2, (n_blk, K), generator=gen, device=dev, dtype=torch.int32)
+        sigma, its = DECODE_SIGMA, DECODE_ITERATIONS
+        llr = (2.0 / sigma ** 2) * ((1.0 - 2.0 * turbo.turbo_encode(bits, K).float())
+                                    + sigma * torch.randn((n_blk, 3 * K + 12), generator=gen,
+                                                          device=dev))
+        out = {}
+        bcjr.bcjr_half.launches = 0
+        out["kernel"] = turbo.turbo_decode(llr, K, its, True)
+        if bcjr.bcjr_half.launches != 2 * its + 1:
+            raise AssertionError(f"a decode launched {bcjr.bcjr_half.launches} BCJR passes")
+        t_dec = cuda_ms(lambda: out.__setitem__("kernel", turbo.turbo_decode(llr, K, its, True)),
+                        5)
+        # the decode's one-time set-up beside its 2·its + 1 passes
+        n_kern = count_kernels(lambda: turbo.turbo_decode(llr, K, its, True))
+        if n_kern > 2 * its + 1 + 10:
+            raise AssertionError(f"a decode launched {n_kern} kernels, {2 * its + 1} of them "
+                                 f"BCJR passes: its set-up takes more than 10")
+        kernel_half = turbo.bcjr_half
+        try:
+            turbo.bcjr_half = bcjr.bcjr_half_plain
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out["plain"] = turbo.turbo_decode(llr, K, its, True)
+            e1.record()
+            torch.cuda.synchronize()
+            t_plain = e0.elapsed_time(e1)
+        finally:
+            turbo.bcjr_half = kernel_half
+        ber = (out["kernel"] != bits).float().mean().item()
+        if not torch.equal(out["kernel"], out["plain"]):
+            raise AssertionError(f"a decode of {n_blk} x K {K} through turbo_bcjr differs from "
+                                 f"the plain decode in {(out['kernel'] != out['plain']).sum()} bits")
+        lo, hi = ber_band(JAX_DECODE_BER[K], n_blk)
+        if not lo <= ber <= hi:
+            raise AssertionError(f"a decode of {n_blk} x K {K} at sigma {sigma}: BER {ber:.6g} "
+                                 f"outside the JAX package's band [{lo:.6g}, {hi:.6g}]")
+        decode_rows.append({"path": name, "n_blocks": n_blk, "K": K, "ms": t_dec,
+                            "plain_ms": t_plain, "launches": 2 * its + 1, "kernels": n_kern,
+                            "ber": ber})
+        print(f"[{card}] turbo_decode {n_blk} blocks x K {K}, {its} max-log iterations: "
+              f"{t_dec:.4f} ms through turbo_bcjr ({2 * its + 1} launches, {n_kern} kernels in "
+              f"all), plain {t_plain:.1f} ms, equal bits; BER {ber:.6g} at sigma {sigma} (JAX "
+              f"{JAX_DECODE_BER[K]['mean']:.6g}, band [{lo:.6g}, {hi:.6g}])")
+        del bits, llr, out
         torch.cuda.empty_cache()
 
     ms = dict.fromkeys(TOL, 0.0)
@@ -1353,6 +1511,7 @@ def main() -> None:
                              if p == f"main/{kernel}" or (kernel == "tf32x3" and "/" not in p)},
         "by_shape": by_shape[kernel],
     } for kernel in TOL]
+    ext_rows = [row for row in bcjr_rows if row["mode"] == "extrinsic"]
     kernels.append({
         "name": "turbo_bcjr",
         "route": "cuda",
@@ -1361,15 +1520,19 @@ def main() -> None:
         "launches": sum(bcjr_launches_by_path.values()),
         "max_abs_err": max(bcjr_err.values()),
         "max_abs_err_by_semiring": {"max_log": bcjr_err[True], "log_map": bcjr_err[False]},
-        "ms": sum(row["ms"] for row in bcjr_rows),
-        "plain_ms": sum(row["plain_ms"] for row in bcjr_rows),
-        "bound_ms": sum(row["bound_ms"] for row in bcjr_rows),
+        # the mode the decoder runs, summed over the two shapes
+        "ms": sum(row["ms"] for row in ext_rows),
+        "plain_ms": sum(row["plain_ms"] for row in ext_rows),
+        "bound_ms": sum(row["bound_ms"] for row in ext_rows),
         # of the summed bound, the kind that makes up more of it
         "bound_by": max(("bytes", "operations"), key=lambda by: sum(
-            row["bound_ms"] for row in bcjr_rows if row["bound_by"] == by)),
+            row["bound_ms"] for row in ext_rows if row["bound_by"] == by)),
         "library_ms": None,
         "launches_by_path": bcjr_launches_by_path,
+        "modes_checked": ["app", "extrinsic/pi", "extrinsic/pi_inv", "extrinsic/none",
+                          "hard/pi_inv"],
         "by_shape": bcjr_rows,
+        "decode_by_shape": decode_rows,
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,7 +9,8 @@ together,
 
 links them into one shared library with a plain C interface,
 `build/libofdm_lte_tpu_torch_<hash>.so`, under the repository's git-ignored
-`build/` directory, and loads it. The file name carries a hash of the
+`build/` directory, with nvcc's output beside it (`.log`, registers and
+spills of every kernel), and loads it. The file name carries a hash of the
 sources and flags, so a library is rebuilt only when they change. Nothing
 is built at import time.
 """
@@ -29,7 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
-build_log = ""          # compiler output of the build this process ran
+build_log = ""          # compiler output of the library's build (kept beside it)
 build_seconds = 0.0     # 0.0 when the library was already built
 
 
@@ -61,6 +62,8 @@ def build() -> Path:
     global build_log, build_seconds
     out = library_path()
     if out.exists():
+        log = out.with_suffix(".log")
+        build_log = build_log or (log.read_text() if log.exists() else "")
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
@@ -83,6 +86,7 @@ def build() -> Path:
         build_log += link.stdout + link.stderr
         if link.returncode != 0:
             raise RuntimeError(f"nvcc failed to link {out.name}\n{build_log}")
+        out.with_suffix(".log").write_text(build_log)
         os.replace(tmp, out)
     finally:
         build_seconds = time.perf_counter() - t0
@@ -105,7 +109,7 @@ def library() -> ctypes.CDLL:
         for fn in (lib.cmatmul_tf32x3_splits, lib.cmatmul_tf32x3_gauss_splits):
             fn.argtypes = [i, i, i, i]
             fn.restype = i
-        lib.turbo_bcjr.argtypes = [p, p, p, p, p, i, i, i, p]
+        lib.turbo_bcjr.argtypes = [p, p, p, p, i, p, p, i, i, i, i, p]
         lib.turbo_bcjr.restype = i
         _lib = lib
     return _lib

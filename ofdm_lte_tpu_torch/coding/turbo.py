@@ -15,7 +15,8 @@ Port of ofdm_lte_tpu/coding/turbo.py, with its own copy of the QPP table:
   laid out as (⌈K/7⌉, 7) rows, and four shifted reads. The parity is
   fb ⊕ fb_{-1} ⊕ fb_{-3}; the three tail steps follow from the final state.
 - Decoder: the JAX package's "scan" BCJR (max-log by default, exact
-  log-MAP on request) in ops/bcjr.py, one launch a pass on a card; the
+  log-MAP on request) in ops/bcjr.py, one launch a half-iteration on a
+  card, the QPP gather of the a-priori and the extrinsic inside it; the
   extrinsic, tail and final-pass semantics of turbo.py:465-517.
 """
 from __future__ import annotations
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 # the trellis lives beside the BCJR pass that walks it; named here too
-from ..ops.bcjr import bcjr_app, reverse_trellis, trellis_tables  # noqa: F401
+from ..ops.bcjr import bcjr_app, bcjr_half, reverse_trellis, trellis_tables  # noqa: F401
 from .tables import on_device
 
 # QPP interleaver parameters (TS 36.212 Table 5.1.3-3): K -> (f1, f2).
@@ -97,9 +98,10 @@ def qpp_inverse_indices(K: int) -> np.ndarray:
 
 
 def qpp_tables(K: int, device) -> tuple:
-    """(π, π⁻¹) as int64 index tensors on `device`, kept by coding.tables."""
-    return (on_device(("qpp", K), lambda: qpp_indices(K).astype(np.int64), device),
-            on_device(("qpp_inv", K), lambda: qpp_inverse_indices(K).astype(np.int64), device))
+    """(π, π⁻¹) as int32 index tensors on `device`, kept by coding.tables:
+    the gathers take them, and so does the decoder's kernel."""
+    return (on_device(("qpp", K), lambda: qpp_indices(K).copy(), device),
+            on_device(("qpp_inv", K), lambda: qpp_inverse_indices(K).copy(), device))
 
 
 def qpp_interleave(x: torch.Tensor, K: int, perm: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -184,6 +186,21 @@ def _bcjr(llr_sys: torch.Tensor, llr_par: torch.Tensor, llr_apriori: torch.Tenso
     return bcjr_app(llr_sys, llr_par, llr_apriori, use_max_log)
 
 
+def constituent_llrs(llr_encoded: torch.Tensor, K: int, perm: torch.Tensor) -> tuple:
+    """The two constituent decoders' systematic and parity LLRs (..., K+3),
+    each with its tail, from llr_encoded (..., 3K+12): decoder 2's
+    systematic is decoder 1's through π."""
+    llr = llr_encoded.to(torch.float32)
+    lead = tuple(llr.shape[:-1])
+    data = llr[..., :3 * K].reshape(lead + (K, 3))
+    l_sys, l_par1, l_par2 = data[..., 0], data[..., 1], data[..., 2]
+    t = llr[..., 3 * K:]
+    return (torch.cat([l_sys, t[..., 0:3]], dim=-1),
+            torch.cat([l_par1, t[..., 3:6]], dim=-1),
+            torch.cat([torch.index_select(l_sys, -1, perm), t[..., 6:9]], dim=-1),
+            torch.cat([l_par2, t[..., 9:12]], dim=-1))
+
+
 def turbo_decode(llr_encoded: torch.Tensor, K: int, num_iterations: int = 5,
                  use_max_log: Optional[bool] = None, perm: Optional[torch.Tensor] = None,
                  inv: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -191,31 +208,23 @@ def turbo_decode(llr_encoded: torch.Tensor, K: int, num_iterations: int = 5,
     encoder's interlaced order (LLR > 0 means bit 0) -> hard bits (..., K)
     int32. extrinsic = APP − a-priori − systematic, the tails appended per
     constituent decoder, the final pass on decoder 1's APP: 2·num_iterations
-    + 1 BCJR passes. `perm`/`inv` are the QPP index tensors (qpp_tables)."""
+    + 1 BCJR passes, each one `bcjr_half` (one kernel launch on a card)
+    that reads the other decoder's extrinsic through π or π⁻¹. `perm`/`inv`
+    are the QPP index tensors, int32 (qpp_tables).
+
+    The JAX package's loop (ofdm_lte_tpu/coding/turbo.py:495-517) keeps
+    ext21 = deinterleave(ext_2) in decoder 1's order; here decoder 2's
+    extrinsic e2 stays in its own order and decoder 1 reads e2[π⁻¹[j]],
+    which is ext21[j], while decoder 2 reads e1[π[k]], ext12's interleave:
+    the same numbers in the same operations. e1 and e2 are step-major
+    (K, ...) planes, as bcjr_half keeps them."""
     if use_max_log is None:
         use_max_log = USE_MAX_LOG_MAP
     if perm is None or inv is None:
         perm, inv = qpp_tables(K, llr_encoded.device)
-    llr = llr_encoded.to(torch.float32)
-    lead = tuple(llr.shape[:-1])
-    data = llr[..., :3 * K].reshape(lead + (K, 3))
-    l_sys, l_par1, l_par2 = data[..., 0], data[..., 1], data[..., 2]
-    t = llr[..., 3 * K:]
-    l_sys1 = torch.cat([l_sys, t[..., 0:3]], dim=-1)              # (..., K+3)
-    l_par1e = torch.cat([l_par1, t[..., 3:6]], dim=-1)
-    l_sys2 = torch.cat([torch.index_select(l_sys, -1, perm), t[..., 6:9]], dim=-1)
-    l_par2e = torch.cat([l_par2, t[..., 9:12]], dim=-1)
-    zeros3 = llr.new_zeros(lead + (3,))
-
-    ext21 = llr.new_zeros(lead + (K,))
+    l_sys1, l_par1e, l_sys2, l_par2e = constituent_llrs(llr_encoded, K, perm)
+    e2 = None                                   # the first iteration's zeros
     for _ in range(num_iterations):
-        apr1 = torch.cat([ext21, zeros3], dim=-1)
-        app1 = _bcjr(l_sys1, l_par1e, apr1, use_max_log=use_max_log)
-        ext12 = (app1 - apr1 - l_sys1)[..., :K]
-        apr2 = torch.cat([torch.index_select(ext12, -1, perm), zeros3], dim=-1)
-        app2 = _bcjr(l_sys2, l_par2e, apr2, use_max_log=use_max_log)
-        ext21 = torch.index_select((app2 - apr2 - l_sys2)[..., :K], -1, inv)
-
-    apr1 = torch.cat([ext21, zeros3], dim=-1)
-    app = _bcjr(l_sys1, l_par1e, apr1, use_max_log=use_max_log)
-    return (app[..., :K] < 0).to(torch.int32)
+        e1 = bcjr_half(l_sys1, l_par1e, e2, inv, use_max_log=use_max_log)
+        e2 = bcjr_half(l_sys2, l_par2e, e1, perm, use_max_log=use_max_log)
+    return bcjr_half(l_sys1, l_par1e, e2, inv, hard=True, use_max_log=use_max_log)

@@ -1,5 +1,6 @@
-"""One BCJR pass over a batch of terminated code blocks: the CUDA kernel's
-wrapper and its plain version.
+"""One BCJR pass over a batch of terminated code blocks, and the turbo
+decoder's half-iteration around it: the CUDA kernel's wrappers and their
+plain versions.
 
 The turbo decoder's constituent pass (coding/turbo._bcjr): from the
 systematic, parity and a-priori LLRs of K' = K + 3 trellis steps, the
@@ -9,12 +10,23 @@ state 0. The JAX package runs it as two lax.scans
 make that a Python loop of some 10 launches a step, about 10^6 a decode,
 so on a card one launch does a whole pass for every code block:
 
-- on a CPU tensor `bcjr_app` runs `bcjr_plain`, a loop over the K' steps
-  that repeats the "scan" form's arithmetic op for op (the form the CPU
-  tests compare with the JAX package);
-- on a CUDA tensor it launches csrc/turbo_bcjr.cu (`turbo_bcjr`), built on
-  first use (_build.py), or raises. It never falls back to the plain
-  version. Each launch adds one to `bcjr_app.launches`.
+- `bcjr_app(l_sys, l_par, l_apr)`: the APP LLRs (..., K') of one pass;
+- `bcjr_half(l_sys, l_par, ext_in, index)`: one half-iteration of the
+  decoder (ofdm_lte_tpu/coding/turbo.py:495-517) in one launch: the
+  a-priori of step k < K is ext_in[index[k]] (the other decoder's
+  extrinsic through π or π⁻¹; zeros when ext_in is None) and 0 on the
+  three tail steps, and the result is the extrinsic (APP − a-priori) −
+  L_sys in this decoder's order, or with `hard=True` the bits APP < 0
+  (..., K) int32. The extrinsic planes are step-major, (K, ...): the
+  kernel's QPP gather then reads neighbouring blocks from one sector.
+
+On a CPU tensor each runs its plain version (`bcjr_plain`, a loop over the
+K' steps that repeats the "scan" form's arithmetic op for op, and
+`bcjr_half_plain`, the gather, `cat`, `bcjr_plain` and subtraction as
+the JAX package's decoder does them); on a CUDA tensor it launches
+csrc/turbo_bcjr.cu (`turbo_bcjr`), built on first use (_build.py), or
+raises. It never falls back to the plain version. Each launch adds one to
+its wrapper's `launches`.
 
 Both semirings: max-log (⊕ = max) and exact log-MAP (⊕ = log-sum-exp).
 Under max-log every operation is an add of ±L/2 terms or a max, so the
@@ -29,6 +41,7 @@ ofdm_lte_tpu/coding/turbo.py:110-141.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -128,18 +141,61 @@ def bcjr_plain(l_sys: torch.Tensor, l_par: torch.Tensor, l_apr: torch.Tensor,
     return app.reshape(lead + (kp,))
 
 
-def _check(tensors) -> None:
-    first = tensors[0]
+def bcjr_half_plain(l_sys: torch.Tensor, l_par: torch.Tensor,
+                    ext_in: Optional[torch.Tensor], index: Optional[torch.Tensor],
+                    hard: bool = False, use_max_log: bool = True) -> torch.Tensor:
+    """One half-iteration of the turbo decoder in plain PyTorch, as the JAX
+    package's decoder does it: the a-priori plane cat(ext_in[index], 0³)
+    (zeros when ext_in is None), `bcjr_plain`, then (APP − a-priori −
+    L_sys)[..., :K] float32 step-major (K, ...), or with `hard` (APP <
+    0)[..., :K] int32 (..., K). ext_in is step-major (K, ...)."""
+    lead, K = tuple(l_sys.shape[:-1]), l_sys.shape[-1] - 3
+    if ext_in is None:
+        body = l_sys.new_zeros(lead + (K,))
+    else:
+        body = (ext_in if index is None else torch.index_select(ext_in, 0, index)).movedim(0, -1)
+    apr = torch.cat([body, l_sys.new_zeros(lead + (3,))], dim=-1)
+    app = bcjr_plain(l_sys, l_par, apr, use_max_log)
+    if hard:
+        return (app[..., :K] < 0).to(torch.int32)
+    return (app - apr - l_sys)[..., :K].movedim(-1, 0).contiguous()
+
+
+def _check(name: str, tensors, shape: tuple, device: torch.device) -> None:
     for t in tensors:
         if t.dtype != torch.float32:
-            raise TypeError(f"bcjr_app: LLRs must be float32, got {t.dtype}")
-        if t.shape != first.shape or t.device != first.device:
-            raise ValueError(f"bcjr_app: LLRs {tuple(t.shape)} on {t.device} and "
-                             f"{tuple(first.shape)} on {first.device}")
+            raise TypeError(f"{name}: LLRs must be float32, got {t.dtype}")
+        if t.shape != shape or t.device != device:
+            raise ValueError(f"{name}: LLRs {tuple(t.shape)} on {t.device}, expected "
+                             f"{shape} on {device}")
         if not t.is_contiguous():
-            raise ValueError("bcjr_app: the kernel reads contiguous (n_blocks, K') LLRs")
-    if first.ndim < 1 or first.shape[-1] < 1:
-        raise ValueError(f"bcjr_app: no trellis steps in {tuple(first.shape)}")
+            raise ValueError(f"{name}: the kernel reads contiguous LLR planes")
+
+
+def _launch(name: str, l_sys, l_par, l_apr, index, n_apr: int, out: torch.Tensor,
+            mode: int, use_max_log: bool) -> bool:
+    """One launch of turbo_bcjr over the (n_blocks, K') planes, none for no
+    block (returns whether it launched); raises if it is refused."""
+    dev = l_sys.device
+    kp = l_sys.shape[-1]
+    n = l_sys.numel() // kp
+    if n >= 2 ** 31 or kp >= 2 ** 31:
+        raise ValueError(f"{name}: a dimension exceeds int32")
+    if n == 0:
+        return False
+    scratch = torch.empty((n, kp, 8), dtype=torch.float32, device=dev)   # α and β
+    from .._build import library
+    lib = library()
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.turbo_bcjr(l_sys.data_ptr(), l_par.data_ptr(), ptr(l_apr), ptr(index), n_apr,
+                            out.data_ptr(), scratch.data_ptr(), n, kp, mode,
+                            int(bool(use_max_log)), stream)
+    if rc != 0:
+        raise RuntimeError(f"turbo_bcjr launch failed: CUDA error {rc} "
+                           f"(n_blocks={n}, K'={kp}, mode {mode})")
+    return True
 
 
 def bcjr_app(l_sys: torch.Tensor, l_par: torch.Tensor, l_apr: torch.Tensor,
@@ -152,27 +208,49 @@ def bcjr_app(l_sys: torch.Tensor, l_par: torch.Tensor, l_apr: torch.Tensor,
         return bcjr_plain(l_sys, l_par, l_apr, use_max_log)
     if dev.type != "cuda":
         raise ValueError(f"bcjr_app: no kernel for device {dev}")
-    _check((l_sys, l_par, l_apr))
-    kp = l_sys.shape[-1]
-    n = l_sys.numel() // kp
-    if n >= 2 ** 31 or kp >= 2 ** 31:
-        raise ValueError("bcjr_app: a dimension exceeds int32")
+    if l_sys.ndim < 1 or l_sys.shape[-1] < 1:
+        raise ValueError(f"bcjr_app: no trellis steps in {tuple(l_sys.shape)}")
+    _check("bcjr_app", (l_sys, l_par, l_apr), l_sys.shape, dev)
     app = torch.empty_like(l_sys)
-    if n == 0:
-        return app
-    alpha = torch.empty((n, kp, 8), dtype=torch.float32, device=dev)   # α scratch
-    from .._build import library
-    lib = library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.turbo_bcjr(l_sys.data_ptr(), l_par.data_ptr(), l_apr.data_ptr(),
-                            app.data_ptr(), alpha.data_ptr(), n, kp, int(bool(use_max_log)),
-                            stream)
-    if rc != 0:
-        raise RuntimeError(f"turbo_bcjr launch failed: CUDA error {rc} "
-                           f"(n_blocks={n}, K'={kp})")
-    bcjr_app.launches += 1
+    if _launch("bcjr_app", l_sys, l_par, l_apr, None, l_sys.shape[-1], app, 0, use_max_log):
+        bcjr_app.launches += 1
     return app
 
 
+def bcjr_half(l_sys: torch.Tensor, l_par: torch.Tensor, ext_in: Optional[torch.Tensor],
+              index: Optional[torch.Tensor], hard: bool = False,
+              use_max_log: bool = True) -> torch.Tensor:
+    """One half-iteration of the turbo decoder over every code block: from
+    L_sys, L_par (..., K') and the other decoder's extrinsic ext_in (K, ...)
+    (step-major; None: the first iteration's zeros) read through `index`
+    (K,) (a permutation of range(K), int32 on a card; None: in order), the
+    extrinsic (K, ...) float32, or with `hard` the bits (..., K) int32:
+    `bcjr_half_plain` on a CPU tensor, one launch of `turbo_bcjr` on a CUDA
+    tensor."""
+    dev = l_sys.device
+    if dev.type == "cpu":
+        return bcjr_half_plain(l_sys, l_par, ext_in, index, hard, use_max_log)
+    if dev.type != "cuda":
+        raise ValueError(f"bcjr_half: no kernel for device {dev}")
+    if l_sys.ndim < 1 or l_sys.shape[-1] < 4:
+        raise ValueError(f"bcjr_half: K' = K + 3 steps with K > 0, got {tuple(l_sys.shape)}")
+    _check("bcjr_half", (l_sys, l_par), l_sys.shape, dev)
+    lead, K = tuple(l_sys.shape[:-1]), l_sys.shape[-1] - 3
+    if ext_in is not None:
+        _check("bcjr_half", (ext_in,), (K,) + lead, dev)
+    if index is not None:
+        if index.dtype != torch.int32:
+            raise TypeError(f"bcjr_half: the kernel reads an int32 index, got {index.dtype}")
+        if index.shape != (K,) or index.device != dev or not index.is_contiguous():
+            raise ValueError(f"bcjr_half: index {tuple(index.shape)} on {index.device}, "
+                             f"expected ({K},) on {dev}, contiguous")
+    out = torch.empty(lead + (K,), dtype=torch.int32, device=dev) if hard else \
+        torch.empty((K,) + lead, dtype=torch.float32, device=dev)
+    if _launch("bcjr_half", l_sys, l_par, ext_in, index if ext_in is not None else None, K,
+               out, 2 if hard else 1, use_max_log):
+        bcjr_half.launches += 1
+    return out
+
+
 bcjr_app.launches = 0
+bcjr_half.launches = 0

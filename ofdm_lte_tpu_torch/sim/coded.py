@@ -166,8 +166,8 @@ class CodedLink(nn.Module):
             buf(f"blocks_{K}", gather)
             if self.segmented:
                 buf(f"crc_body_{K}", crc.crc_matrix(K - 24, crc.CRC24B_POLY, 24))
-            buf(f"qpp_{K}", turbo.qpp_indices(K).astype(np.int64))
-            buf(f"qpp_inv_{K}", turbo.qpp_inverse_indices(K).astype(np.int64))
+            buf(f"qpp_{K}", turbo.qpp_indices(K).astype(np.int32))
+            buf(f"qpp_inv_{K}", turbo.qpp_inverse_indices(K).astype(np.int32))
             for rv in range(4):
                 buf(f"rm_fwd_{K}_{rv}", rm.forward_indices(K, 3 * K + 12, rv).astype(np.int64))
             buf(f"rm_dematch_{K}", rm._enc_from_cb(K).astype(np.int64))

@@ -7,10 +7,12 @@ fewer lanes.
 
 prints the JAX_BER table to paste into chip_smoke.py: per path the mean
 BER, the standard deviation of the per-lane BER, the lanes and the bits,
-and for the coded paths the BLER after each transmission (under a minute on
+and for the coded paths the BLER after each transmission, then the
+JAX_DECODE_BER table of phase 6's whole decode (under a minute on
 two cores for the SISO and diversity paths, about three more for the four
-spatial ones, some 20 s for coded_6000_awgn and two minutes for
-harq_75376_awgn; path names on the command line restrict the run). Its
+spatial ones, some 20 s for coded_6000_awgn, two minutes for
+harq_75376_awgn and half a minute for the decode; path names on the
+command line, or `turbo_decode`, restrict the run). Its
 output is kept beside this file, test_torch_chip_bands.txt. chip_smoke.py
 then accepts a mean BER within 4σ, σ² = lane_std²·(1/lanes here + 1/lanes
 there), and a BLER within 4σ, σ² = p(1−p)(1/lanes here + 1/lanes there)
@@ -44,6 +46,7 @@ from ofdm_lte_tpu_torch.sim import spatial as tspatial
 torch.set_num_threads(2)
 
 JAX_LANES = 64
+JAX_DECODE_LANES = 256
 
 
 def _n_bits(kind, cfg, mode="lte"):
@@ -85,6 +88,25 @@ def jax_ber(name, snr_db, lanes=JAX_LANES, seed=0):
           "sfbc": jdiv.simulate_sfbc}[spec["kind"]]
     return np.asarray(fn(jax.random.PRNGKey(seed), jnp.asarray(bits), snr_db, cfg,
                          **spec["kw"]).ber, np.float64), lanes * n
+
+
+def jax_decode_ber(K, sigma=None, lanes=JAX_DECODE_LANES, seed=None):
+    """Per-block BER of the JAX package's turbo_decode (max-log,
+    chip_smoke.DECODE_ITERATIONS iterations) on `lanes` random blocks of K
+    bits, BPSK over AWGN of σ `sigma`: LLR = 2·(±1 + σ·n)/σ², drawn with
+    numpy from `seed` (K by default)."""
+    import jax
+    import jax.numpy as jnp
+    from ofdm_lte_tpu.coding import turbo as jturbo
+    jax.config.update("jax_platforms", "cpu")
+    sigma = chip_smoke.DECODE_SIGMA if sigma is None else sigma
+    rng = np.random.default_rng(K if seed is None else seed)
+    bits = rng.integers(0, 2, (lanes, K)).astype(np.int32)
+    code = np.asarray(jturbo.turbo_encode(jnp.asarray(bits), K))
+    llr = ((2.0 / sigma ** 2) * ((1.0 - 2.0 * code) + sigma * rng.standard_normal(code.shape)))
+    out = jturbo.turbo_decode(jnp.asarray(llr, jnp.float32), K, chip_smoke.DECODE_ITERATIONS,
+                              use_max_log=True)
+    return (np.asarray(out) != bits).mean(axis=1)
 
 
 def _jax_spatial_ber(link_kw, bits, snr_db, cfg, seed, chunk=16):
@@ -160,6 +182,16 @@ def kept_output() -> dict:
     return out
 
 
+def kept_decode_output() -> dict:
+    """The JAX_DECODE_BER table as the generator printed it."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "test_torch_chip_bands.txt")) as f:
+        rows = re.findall(r'(\d+): dict\(mean=(\S+), lane_std=(\S+), lanes=(\d+), bits=(\d+)\)',
+                          f.read())
+    return {int(K): dict(mean=float(mean), lane_std=float(std), lanes=int(lanes), bits=int(bits))
+            for K, mean, std, lanes, bits in rows}
+
+
 @pytest.mark.parametrize("name", list(chip_smoke.PATHS))
 def test_band_constants_are_the_generator_output(name):
     spec, ref = chip_smoke.PATHS[name], chip_smoke.JAX_BER[name]
@@ -180,6 +212,18 @@ def test_band_constants_are_the_generator_output(name):
         assert 0.0 <= lo < ref["mean"] < hi < 0.6
 
 
+@pytest.mark.parametrize("shape", chip_smoke.DECODE_SHAPES, ids=lambda s: s[0])
+def test_decode_band_constants_are_the_generator_output(shape):
+    _, n_blocks, K = shape
+    ref = chip_smoke.JAX_DECODE_BER[K]
+    assert ref == kept_decode_output()[K]
+    assert ref["lanes"] == JAX_DECODE_LANES and ref["bits"] == JAX_DECODE_LANES * K
+    # on the waterfall: some blocks fail, and the band is far from the BER of
+    # a decoder that fails every block (about 0.35 at σ 0.75)
+    lo, hi = chip_smoke.ber_band(ref, n_blocks)
+    assert 0.0 < lo < ref["mean"] < hi < 0.3
+
+
 def test_bler_band():
     # a BLER of 0 or 1 over 64 JAX lanes: one-sided, about 3/64 wide
     lo, hi = chip_smoke.bler_band(0.0, 256)
@@ -194,12 +238,14 @@ def test_bler_band():
 
 
 if __name__ == "__main__":
-    # the paths named on the command line, or all of them
-    wanted = sys.argv[1:] or list(chip_smoke.PATHS)
-    print("JAX_BER = {")
-    for path, spec_ in chip_smoke.PATHS.items():
-        if path not in wanted:
-            continue
+    # the paths named on the command line (`turbo_decode` for phase 6's
+    # decode), or all of them
+    wanted = sys.argv[1:] or list(chip_smoke.PATHS) + ["turbo_decode"]
+    paths = [path for path in chip_smoke.PATHS if path in wanted]
+    if paths:
+        print("JAX_BER = {")
+    for path in paths:
+        spec_ = chip_smoke.PATHS[path]
         clean_snr = chip_smoke.CODED_CLEAN_SNR if spec_["kind"] == "coded" else 60.0
         ber, n_bits = jax_ber(path, spec_["snr"])
         clean, _ = jax_ber(path, clean_snr, lanes=8)
@@ -210,4 +256,15 @@ if __name__ == "__main__":
         print(f'    "{path}": dict(mean={ber.mean():.6g}, lane_std={ber.std(ddof=1):.6g}, '
               f'lanes={JAX_LANES}, bits={n_bits}{extra}),   # {spec_["snr"]} dB; at '
               f'{clean_snr:g} dB, 8 lanes: {clean.mean():.3g}', flush=True)
-    print("}")
+    if paths:
+        print("}")
+    if "turbo_decode" in wanted:
+        print("JAX_DECODE_BER = {")
+        for _, _, K_ in chip_smoke.DECODE_SHAPES:
+            ber = jax_decode_ber(K_)
+            above = jax_decode_ber(K_, sigma=0.75, lanes=JAX_LANES)
+            print(f'    {K_}: dict(mean={ber.mean():.6g}, lane_std={ber.std(ddof=1):.6g}, '
+                  f'lanes={JAX_DECODE_LANES}, bits={JAX_DECODE_LANES * K_}),   # sigma '
+                  f'{chip_smoke.DECODE_SIGMA}; at sigma 0.75, {JAX_LANES} lanes: '
+                  f'{above.mean():.6g}, blocks decoded {int((above == 0).sum())}', flush=True)
+        print("}")

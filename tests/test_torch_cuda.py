@@ -504,6 +504,129 @@ def test_bcjr_wrapper_checks_its_inputs(cuda_device):
         bcjr.bcjr_app(ls, lp[:3], la)
 
 
+# a-priori sources of a half-iteration: the other decoder's extrinsic through
+# a permutation (the role of π or π⁻¹) or in order, or none (the first one)
+HALF_APRIORI = ["permuted", "in_order", "none"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_max_log", [True, False], ids=["max_log", "log_map"])
+@pytest.mark.parametrize("apriori", HALF_APRIORI)
+@pytest.mark.parametrize("n,kp", [(1, 43), (7, 1027), (64, 6147), (17, 5827), (3, 64), (2, 4)])
+def test_bcjr_half_kernel_matches_plain(n, kp, apriori, use_max_log, cuda_device, monkeypatch):
+    """The extrinsic and hard modes against bcjr_half_plain: max-log equal as
+    floats, log-MAP within 1e-6 of the largest path metric (hard bits equal
+    wherever the plain APP is farther than that from 0); two launches
+    identical; odd block counts leave a half-warp alone."""
+    from ofdm_lte_tpu_torch.ops import bcjr
+    K = kp - 3
+    ls, lp, la = _bcjr_inputs(n, kp, n * kp + 1, cuda_device)
+    ext = None if apriori == "none" else la[:, :K].t().contiguous()      # step-major
+    index = None
+    if apriori == "permuted":
+        index = torch.as_tensor(np.random.default_rng(kp).permutation(K).astype(np.int32),
+                                device=cuda_device)
+    want = bcjr.bcjr_half_plain(ls, lp, ext, index, False, use_max_log)
+    want_bits = bcjr.bcjr_half_plain(ls, lp, ext, index, True, use_max_log)
+    body = torch.zeros_like(ls[:, :K]) if ext is None else \
+        (ext if index is None else ext.index_select(0, index.long())).t()
+    app = bcjr.bcjr_plain(ls, lp, torch.cat([body, torch.zeros_like(ls[:, :3])], -1),
+                          use_max_log)[:, :K]
+    monkeypatch.setattr(bcjr, "bcjr_half_plain", None)
+    before = bcjr.bcjr_half.launches
+    got = bcjr.bcjr_half(ls, lp, ext, index, use_max_log=use_max_log)
+    again = bcjr.bcjr_half(ls, lp, ext, index, use_max_log=use_max_log)
+    bits = bcjr.bcjr_half(ls, lp, ext, index, hard=True, use_max_log=use_max_log)
+    torch.cuda.synchronize()
+    assert bcjr.bcjr_half.launches == before + 3
+    assert got.shape == (K, n) and got.dtype == torch.float32 and got.is_contiguous()
+    assert bits.shape == (n, K) and bits.dtype == torch.int32
+    assert torch.equal(got, again)
+    metric = 0.5 * (ls.abs() + lp.abs() + la.abs()).sum(dim=-1).max().item()
+    if use_max_log:
+        assert torch.equal(got, want) and torch.equal(bits, want_bits)
+    else:
+        assert (got - want).abs().max().item() <= 1e-6 * metric
+        clear = app.abs() > 1e-6 * metric
+        assert torch.equal(bits[clear], want_bits[clear])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,K,iterations", [(3, 1024, 8), (2, 6144, 2)])
+def test_turbo_decode_through_kernel_matches_plain_on_card(n, K, iterations, cuda_device):
+    """A whole decode through the kernel against the same decode through the
+    plain half-iteration on the card, max-log: the last extrinsic plane and
+    the bits equal as floats; 2·iterations + 1 launches."""
+    from ofdm_lte_tpu_torch.coding import turbo
+    from ofdm_lte_tpu_torch.ops import bcjr
+    rng = np.random.default_rng(K)
+    bits = torch.as_tensor(rng.integers(0, 2, (n, K)).astype(np.int32), device=cuda_device)
+    enc = turbo.turbo_encode(bits, K).float()
+    sigma = 0.55                                  # past the waterfall
+    llr = (2.0 / sigma ** 2) * ((1.0 - 2.0 * enc) + sigma * torch.as_tensor(
+        rng.standard_normal(tuple(enc.shape)).astype(np.float32), device=cuda_device))
+    perm, inv = turbo.qpp_tables(K, cuda_device)
+    ls1, lp1, ls2, lp2 = turbo.constituent_llrs(llr, K, perm)
+
+    def decode(half):
+        e2 = None
+        for _ in range(iterations):
+            e1 = half(ls1, lp1, e2, inv)
+            e2 = half(ls2, lp2, e1, perm)
+        return e2, half(ls1, lp1, e2, inv, True)
+
+    before = bcjr.bcjr_half.launches
+    e2, hard = decode(bcjr.bcjr_half)
+    assert bcjr.bcjr_half.launches == before + 2 * iterations + 1
+    e2_plain, hard_plain = decode(bcjr.bcjr_half_plain)
+    assert torch.equal(e2, e2_plain) and torch.equal(hard, hard_plain)
+    assert torch.equal(turbo.turbo_decode(llr, K, iterations, True), hard)
+    assert (hard != bits).float().mean().item() < 0.01
+
+
+@pytest.mark.cuda
+def test_bcjr_half_raises_when_the_library_fails_to_build(cuda_device, monkeypatch):
+    """No fallback: a CUDA tensor never reaches the plain version."""
+    from ofdm_lte_tpu_torch import _build
+    from ofdm_lte_tpu_torch.ops import bcjr
+
+    def broken():
+        raise RuntimeError("nvcc failed")
+
+    ls, lp, la = _bcjr_inputs(2, 43, 3, cuda_device)
+    monkeypatch.setattr(_build, "library", broken)
+    monkeypatch.setattr(bcjr, "bcjr_half_plain", None)
+    monkeypatch.setattr(bcjr, "bcjr_plain", None)
+    before = bcjr.bcjr_half.launches
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        bcjr.bcjr_half(ls, lp, la[:, :40].t().contiguous(), None)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        bcjr.bcjr_app(ls, lp, la)
+    assert bcjr.bcjr_half.launches == before
+
+
+@pytest.mark.cuda
+def test_bcjr_half_wrapper_checks_its_inputs(cuda_device):
+    from ofdm_lte_tpu_torch.ops import bcjr
+    ls, lp, la = _bcjr_inputs(4, 50, 1, cuda_device)
+    ext = la[:, :47].t().contiguous()                     # step-major (K, n)
+    index = torch.arange(47, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        bcjr.bcjr_half(ls, lp, ext, index.long())
+    with pytest.raises(TypeError):
+        bcjr.bcjr_half(ls, lp, ext.double(), index)
+    with pytest.raises(ValueError):
+        bcjr.bcjr_half(ls, lp, ext.t().contiguous(), index)   # block-major
+    with pytest.raises(ValueError):
+        bcjr.bcjr_half(ls, lp, la[:, :47].t(), index)        # not contiguous
+    with pytest.raises(ValueError):
+        bcjr.bcjr_half(ls, lp, ext, index[:40])
+    with pytest.raises(ValueError):
+        bcjr.bcjr_half(ls[:, :3].contiguous(), lp[:, :3].contiguous(), None, None)
+    with pytest.raises(ValueError):
+        bcjr.bcjr_half(ls, lp, ext, index.cpu())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,iterations", [(1000, 8), (12000, 2)])
 def test_coded_chain_on_card_matches_cpu_with_same_draws(n, iterations, cuda_device):
@@ -520,9 +643,9 @@ def test_coded_chain_on_card_matches_cpu_with_same_draws(n, iterations, cuda_dev
     samples = -(-n_sym // siso.grid_for(cfg).num_data) * cfg.samples_per_ofdm_symbol
     noise = (rng.standard_normal((4, 4, samples)), rng.standard_normal((4, 4, samples)))
     snr = torch.tensor([-1.0, 1.0, 3.0, 30.0])
-    before = bcjr.bcjr_app.launches
+    before = bcjr.bcjr_half.launches
     card = link.harq(bits, snr, num_iterations=iterations, draws={"noise": noise})
-    assert bcjr.bcjr_app.launches == before + 4 * (2 * iterations + 1) * len(link.groups)
+    assert bcjr.bcjr_half.launches == before + 4 * (2 * iterations + 1) * len(link.groups)
     cpu = coded.link_for(cfg, n, "cpu").harq(bits, snr, num_iterations=iterations,
                                              draws={"noise": noise})
     assert torch.equal(card.crc_pass_stage.cpu(), cpu.crc_pass_stage)
