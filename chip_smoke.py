@@ -87,11 +87,27 @@ gather, the BCJR pass, the extrinsic) is one launch of `turbo_bcjr`
    computes a BCJR pass, so its library time is null; and a whole decode
    (8 max-log iterations, 17 launches) at both shapes through the kernel
    and through the plain half-iteration, with equal bits required and the
-   BER inside the JAX package's band at that σ (JAX_DECODE_BER).
+   BER inside the JAX package's band at that σ (JAX_DECODE_BER);
+7. drive the command-line interface (ofdm_lte_tpu_torch/cli.py) in-process
+   with no --device, so on the card, at 20 MHz 64-QAM, each command timed
+   on the host's clock with its kernel launches counted: `info` (the CPU's
+   lines); `run` of each of the eight pipelines at 60 dB on one 14-symbol
+   frame (BER 0, the GEMMs of CLI_RUN_GEMMS, 17 turbo_bcjr launches a
+   decode); `sweep` at 15 and 60 dB, 256 frames a point, twice into one
+   checkpoint (BER in the main path's band, 0 at 60 dB; the resumed run
+   banks a second, new round); the HARQ `sweep` of the 75,376-bit
+   transport block at 16.2 and 30 dB (BLER by stage in the JAX bands, 0 at
+   30 dB); `fullsweep` over 1 and 2 RX (BER 0 at 60 dB); the image
+   workflow's array part (cli.transmit_image: a 128x128x3 image back
+   exactly at 60 dB); `bfcompare` at its defaults (12 rows; the SFBC rows
+   within the JAX band, JAX_BFCOMPARE_SFBC_BER; each beamforming row's
+   spread beside the published value); `papr` against `papr --device cpu`
+   (within 1e-3 dB).
 
 The second-to-last line is a JSON object describing each kernel (its times
-are sums over all timed GEMM shapes, `by_shape` has each); the last is
-{"ok": true, "device": {...}}. Needs one card and no network.
+are sums over all timed GEMM shapes, `by_shape` has each; `launches_by_path`
+has the launches of each path and of each CLI command, `cli/<command>`);
+the last is {"ok": true, "device": {...}}. Needs one card and no network.
 
     python3 chip_smoke.py --profile [PATH[,PATH...]]
 
@@ -109,10 +125,12 @@ in the window times the kernels one call launches), or an eigensolver's
 and W alone, not for RI).
 """
 import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -254,6 +272,27 @@ JAX_DECODE_BER = {
     6080: dict(mean=0.133794, lane_std=0.147296, lanes=256, bits=1556480),
     5824: dict(mean=0.145484, lane_std=0.164245, lanes=256, bits=1490944),
 }
+
+# Phase 7's `bfcompare` at its defaults (10 MHz 64-QAM, 15 dB, 1,620,000
+# bits): the JAX package's BER on the 2×num_rx SFBC row, which runs the whole
+# payload as one frame over the fixed-phase AWGN channel (mean and standard
+# deviation over 64 runs), from `JAX_PLATFORMS=cpu python
+# tests/test_torch_chip_bands.py bfcompare_sfbc` (kept in
+# tests/test_torch_chip_bands.txt); the card's one run must lie within
+# ber_band(·, 1) of it. The beamforming rows are one random H a lane: their
+# spread is printed beside the published value, not held.
+JAX_BFCOMPARE_SFBC_BER = {
+    1: dict(mean=0.0503926, lane_std=0.000752162, lanes=64, bits=103680000),
+    2: dict(mean=0.0122999, lane_std=0.000297536, lanes=64, bits=103680000),
+    4: dict(mean=0.0011314, lane_std=6.45842e-05, lanes=64, bits=103680000),
+}
+# GEMM launches of one `cli run` at one 14-symbol frame, by pipeline: the
+# TX, RX data and RX pilot products of the SISO link and of the SIMO and
+# SFBC links over AWGN, the spatial link's TX product at the bins, none for
+# the frequency-domain beamforming link; the coded pipelines decode once a
+# transmission per code-block size, 17 turbo_bcjr launches a decode.
+CLI_RUN_GEMMS = {"siso": 3, "siso-coded": 3, "harq": 3, "simo": 3, "miso": 3, "mimo": 3,
+                 "beamforming": 0, "spatial": 1}
 
 # max|Δ| / max|C| against the plain version of the same form. tc and ffma
 # 4-dot: the same products in another sum order; Gauss (either kernel): one
@@ -533,6 +572,168 @@ def coded_on_card(rng, dev) -> None:
         if not all(same) or not on_card.bits_rx.is_cuda \
                 or launched != 4 * (2 * iterations + 1) * len(link.groups):
             raise AssertionError(f"coded {n}: the card disagrees with the CPU")
+
+
+def cli_on_card(card: str, zero_counts) -> tuple:
+    """Phase 7: the port's command-line interface, in-process (cli.main) with
+    no --device, so on the card, at 20 MHz 64-QAM unless a command's own
+    defaults say otherwise. Each command runs with the kernel counts set to
+    0 just before it and read just after; returns ({command: tf32x3
+    launches}, {command: turbo_bcjr launches}) and raises on any failed
+    check. The CPU runs it is compared with (info, papr) launch nothing."""
+    from ofdm_lte_tpu_torch import LTEConfig, cli
+    from ofdm_lte_tpu_torch._build import BUILD_DIR
+    from ofdm_lte_tpu_torch.coding import segmentation
+    from ofdm_lte_tpu_torch.device import resolve_device
+    from ofdm_lte_tpu_torch.ops import bcjr
+    from ofdm_lte_tpu_torch.ops.cmatmul import cmatmul
+    from ofdm_lte_tpu_torch.sim import siso
+
+    gemms, passes = {}, {}
+    wide = ["--bandwidth", "20", "--modulation", "64-QAM"]
+
+    def capture(argv) -> str:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        return buf.getvalue()
+
+    def run(name, call):
+        zero_counts()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        gemms[name] = cmatmul.launches_by_kernel["tf32x3"]
+        passes[name] = bcjr.bcjr_half.launches
+        print(f"[{card}] cli {name}: {wall:.3f} s wall, launches tf32x3 {gemms[name]}, "
+              f"turbo_bcjr {passes[name]}")
+        return out
+
+    # info: the numerology, as printed on the CPU
+    info = run("info", lambda: capture(["info"] + wide))
+    if info != capture(["info", "--device", "cpu"] + wide) or "Data Subcarriers: 999" not in info:
+        raise AssertionError(f"cli info on the card differs from the CPU's:\n{info}")
+
+    # run: each pipeline at 60 dB, one 14-symbol frame of bits, 2x2 where
+    # antennas apply, spatial rank 2 MMSE; every link is clean over AWGN there
+    n = siso.bits_per_frame(LTEConfig(20.0, modulation="64-QAM"), SYMBOLS)
+    decodes = len(set(segmentation.segment_layout(n + 24)["sizes"]))
+    for pipeline, per_run in CLI_RUN_GEMMS.items():
+        name = f"run/{pipeline}"
+        res = json.loads(run(name, lambda: capture(
+            ["run", "--snr", "60", "--num-bits", str(n), "--pipeline", pipeline, "--num-tx", "2",
+             "--num-rx", "2", "--rank", "2", "--detector", "MMSE"] + wide)))
+        coded = pipeline in ("siso-coded", "harq")
+        print(f"cli {name}, {n} bits at 60 dB: ber {res['ber']}, bit errors {res['bit_errors']}"
+              + (f", crc_pass {res['crc_pass']}" if coded else ""))
+        if res["ber"] != 0.0 or res["transmitted_bits"] != n or gemms[name] != per_run \
+                or passes[name] != (17 * decodes if coded else 0):
+            raise AssertionError(f"cli {name}: {res}, launches {gemms[name]} GEMM + "
+                                 f"{passes[name]} BCJR (expected {per_run} + "
+                                 f"{17 * decodes if coded else 0})")
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        # sweep: the main path's configuration, 256 frames a point, twice
+        # into one checkpoint: the second run resumes and banks a new round
+        ckpt = os.path.join(tmp, "sweep.json")
+        argv = ["sweep", "--snr-min", "15", "--snr-max", "60", "--snr-step", "45", "--frames",
+                str(LANES), "--num-symbols", str(SYMBOLS), "--checkpoint", ckpt] + wide
+        for name in ("sweep", "sweep-resumed"):
+            res = json.loads(run(name, lambda: capture(argv)))
+            with open(ckpt) as f:
+                state = json.load(f)
+            print(f"cli {name}: snr {res['snr_db']} ber {res['ber']} total bits "
+                  f"{res['total_bits']} rounds {state['rounds']} (round BERs "
+                  f"{state['round_bers']})")
+            rounds = 1 if name == "sweep" else 2
+            if res["snr_db"] != [15.0, 60.0] or not BER_15DB[0] <= res["ber"][0] <= BER_15DB[1] \
+                    or res["ber"][1] != 0.0 or state["rounds"] != rounds \
+                    or res["total_bits"] != [rounds * LANES * n] * 2 or gemms[name] != 3:
+                raise AssertionError(f"cli {name}: {res}, {state['rounds']} rounds, "
+                                     f"launches {gemms[name]}")
+        if state["round_bers"][0] == state["round_bers"][1]:
+            raise AssertionError("cli sweep: the resumed round redrew the banked one")
+
+    # the HARQ sweep: the 75,376-bit path's transport block at its working
+    # SNR and clean point, 256 transport blocks a point
+    harq = PATHS["harq_75376_awgn"]
+    res = json.loads(run("sweep-harq", lambda: capture(
+        ["sweep", "--pipeline", "harq", "--tb-bits", str(harq["kw"]["tb_bits"]), "--snr-min",
+         "16.2", "--snr-max", "30", "--snr-step", "13.8", "--frames", str(LANES)] + wide)))
+    ref = JAX_BER["harq_75376_awgn"]["bler"]
+    bands = [bler_band(p, LANES, JAX_BER["harq_75376_awgn"]["lanes"]) for p in ref]
+    print(f"cli sweep-harq: snr {res['snr_db']} bler {res['bler']} by stage "
+          f"{res['bler_per_stage']} (JAX at 16.2 dB {ref}, bands "
+          f"{[(round(float(a), 4), round(float(b), 4)) for a, b in bands]}) avg transmissions "
+          f"{res['avg_transmissions']} TBs a point {res['tbs_per_point']}")
+    stages = res["bler_per_stage"][0]
+    if res["snr_db"] != [16.2, 30.0] or res["bler"][1] != 0.0 or res["ber"][1] != 0.0 \
+            or any(res["bler_per_stage"][1]) or res["tbs_per_point"] != LANES \
+            or not all(a <= p <= b for p, (a, b) in zip(stages, bands)) \
+            or (gemms["sweep-harq"], passes["sweep-harq"]) != (3 * 4, 17 * 4):
+        raise AssertionError(f"cli sweep-harq: {res}, launches {gemms['sweep-harq']} GEMM + "
+                             f"{passes['sweep-harq']} BCJR")
+
+    # fullsweep: 64-QAM over 1 and 2 RX, SISO then SIMO, one call each
+    res = json.loads(run("fullsweep", lambda: capture(
+        ["fullsweep", "--bandwidth", "20", "--modulations", "64-QAM", "--rx-list", "1,2",
+         "--snr-min", "0", "--snr-max", "60", "--snr-step", "30", "--iterations", "64"])))
+    print(f"cli fullsweep: {[(k, c['ber']) for k, c in res['curves'].items()]}, frames a point "
+          f"{res['frames_per_point']}")
+    if list(res["curves"]) != ["64-QAM/1rx", "64-QAM/2rx"] or gemms["fullsweep"] != 6 \
+            or any(c["ber"][-1] != 0.0 or c["snr_db"] != [0.0, 30.0, 60.0]
+                   for c in res["curves"].values()):
+        raise AssertionError(f"cli fullsweep: {res}")
+
+    # the image workflow through its array part: a seeded 128x128x3 image,
+    # SISO at 60 dB, comes back as it went
+    args = cli.build_parser().parse_args(["image", "--input", "unused", "--snr", "60"] + wide)
+    args.device = resolve_device(args.device)
+    original = np.random.default_rng(7).integers(0, 256, (128, 128, 3), dtype=np.uint8)
+    received, res = run("image", lambda: cli.transmit_image(cli._mk_sim(args), original,
+                                                             "siso", 60.0, args))
+    print(f"cli image 128x128x3 through siso at 60 dB: ber {res['ber']} psnr {res['psnr_db']} "
+          f"ssim {res['ssim']}")
+    if not np.array_equal(received, original) or res["psnr_db"] != float("inf") \
+            or res["ssim"] != 1.0 or gemms["image"] != 3:
+        raise AssertionError(f"cli image: {res}")
+
+    # bfcompare at its defaults: 12 rows; the SFBC rows in the JAX band
+    res = json.loads(run("bfcompare", lambda: capture(["bfcompare"])))
+    rows = res["rows"]
+    for row in rows:
+        if row["kind"] == "sfbc":
+            lo, hi = ber_band(JAX_BFCOMPARE_SFBC_BER[row["num_rx"]], 1)
+            print(f"cli bfcompare {row['name']}: ber {row['ber']:.6g} (JAX "
+                  f"{JAX_BFCOMPARE_SFBC_BER[row['num_rx']]['mean']:.6g}, band [{lo:.6g}, "
+                  f"{hi:.6g}]; published {row['published_ber']:.4e})")
+            if not lo <= row["ber"] <= hi:
+                raise AssertionError(f"cli bfcompare {row['name']}: BER {row['ber']} outside "
+                                     f"the JAX band [{lo}, {hi}]")
+            continue
+        print(f"cli bfcompare {row['name']}: ber {row['ber']:.6g}, spread [{row['ber_min']:.4e}, "
+              f"{row['ber_max']:.4e}] over 16 channels, published "
+              f"{row['published_ber']:.4e}, in spread {row['published_in_spread']}, gain "
+              f"{row['gain_db']:.3f} dB")
+        if not (row["ber_min"] <= row["ber"] <= row["ber_max"] and np.isfinite(row["gain_db"])):
+            raise AssertionError(f"cli bfcompare {row['name']}: {row}")
+    if len(rows) != 12 or gemms["bfcompare"] != 3 * 3:
+        raise AssertionError(f"cli bfcompare: {len(rows)} rows, {gemms['bfcompare']} GEMMs")
+
+    # papr: the card's CCDF summary against the CPU's on the same bits
+    argv = ["papr", "--bandwidth", "20", "--num-symbols", "200"]
+    card_res = json.loads(run("papr", lambda: capture(argv)))
+    cpu_res = json.loads(capture(argv + ["--device", "cpu"]))
+    worst = max(abs(card_res[k][m] - v) for k, row in cpu_res.items() for m, v in row.items())
+    print(f"cli papr: {card_res}; max |card - cpu| {worst:.2e} dB")
+    if list(card_res) != list(cpu_res) or worst > 1e-3 or gemms["papr"] != 2 * (1 + 2):
+        raise AssertionError(f"cli papr: {card_res} against the CPU's {cpu_res}")
+
+    if not sum(gemms.values()) or not sum(passes.values()):
+        raise AssertionError(f"cli phase: launches {gemms} GEMM, {passes} BCJR")
+    return gemms, {k: v for k, v in passes.items() if v}
 
 
 def main() -> None:
@@ -1450,6 +1651,15 @@ def main() -> None:
         del bits, llr, out
         torch.cuda.empty_cache()
 
+    # -- 7. the command-line interface -------------------------------------
+    clear_link_cache()
+    cli_gemms, cli_passes = cli_on_card(card, zero_counts)
+    launches["tf32x3"] += sum(cli_gemms.values())
+    launches_by_path.update({f"cli/{name}": n for name, n in cli_gemms.items()})
+    bcjr_launches_by_path.update({f"cli/{name}": n for name, n in cli_passes.items()})
+    clear_link_cache()
+    torch.cuda.empty_cache()
+
     ms = dict.fromkeys(TOL, 0.0)
     plain_ms = dict.fromkeys(TOL, 0.0)
     bounds = dict.fromkeys(TOL, 0.0)
@@ -1508,7 +1718,8 @@ def main() -> None:
         "bound_by": max(bound_by[kernel], key=bound_by[kernel].get),
         "library_ms": library_ms,
         "launches_by_path": {p: n for p, n in launches_by_path.items()
-                             if p == f"main/{kernel}" or (kernel == "tf32x3" and "/" not in p)},
+                             if p == f"main/{kernel}"
+                             or (kernel == "tf32x3" and not p.startswith("main/"))},
         "by_shape": by_shape[kernel],
     } for kernel in TOL]
     ext_rows = [row for row in bcjr_rows if row["mode"] == "extrinsic"]

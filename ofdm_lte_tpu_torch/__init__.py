@@ -19,8 +19,11 @@ mimo/); TM6/TM4 beamforming with CSI feedback (sim/beamforming.py,
 mimo/beamforming.py, mimo/csi.py); the TS 36.212 coded chain (coding/:
 CRC, segmentation, rate matching, the turbo code; ops/qam.llrs) and the
 coded SISO sims with HARQ (sim/coded.py); the one-device sweeps
-(parallel/sweep.py: ber_sweep, harq_sweep); and the facade over them
-(api.py). The N-process sweeps and the CLI are not ported yet (ROADMAP.md).
+(parallel/sweep.py: ber_sweep, harq_sweep); the facade over them (api.py);
+and the command-line interface over the facade and the sweeps
+(`python -m ofdm_lte_tpu_torch.cli <command>`: info, run, sweep, fullsweep,
+image, bfcompare, papr), with utils/image.py. The N-process sweeps are not
+ported yet (ROADMAP.md).
 """
 
 from .config import LTEConfig, LTE_PROFILES, CP_VALUES_US, MODULATION_SCHEMES

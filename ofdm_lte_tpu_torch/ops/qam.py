@@ -18,6 +18,7 @@ Constellation tables:
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -45,6 +46,20 @@ _SPECS = {
 
 def spec(modulation: str) -> QamSpec:
     return _SPECS[modulation]
+
+
+@functools.lru_cache(maxsize=None)
+def constellation(modulation: str) -> np.ndarray:
+    """Full constellation by index (NumPy complex128), for tests and plots,
+    in the JAX package's index order: point r·L + i is (level r, level i)."""
+    s = _SPECS[modulation]
+    L = len(s.levels)
+    pts = np.empty(L * L, dtype=np.complex128)
+    for r in range(L):
+        for i in range(L):
+            # Python's complex division, as the JAX package rounds it
+            pts[r * L + i] = (s.levels[r] + 1j * s.levels[i]) / s.norm
+    return pts
 
 
 def _level(q: torch.Tensor, s: QamSpec) -> torch.Tensor:
@@ -117,6 +132,15 @@ def indices_to_bits(idx: torch.Tensor, modulation: str) -> torch.Tensor:
 def demodulate(symbols: C, modulation: str) -> torch.Tensor:
     """Hard demap received symbols -> bit tensor (..., n·2k), int32."""
     return indices_to_bits(hard_indices(symbols, modulation), modulation)
+
+
+def ser(tx: C, rx_detected: C, modulation: str) -> torch.Tensor:
+    """Symbol error rate, a float32 scalar tensor: the share of symbols whose
+    nearest constellation index differs (utils.metrics.ser is its float
+    form on the host)."""
+    ti = hard_indices(tx, modulation)
+    ri = hard_indices(rx_detected, modulation)
+    return (ti != ri).to(torch.float32).mean()
 
 
 # ---------------------------------------------------------------------------

@@ -8,11 +8,13 @@ fewer lanes.
 prints the JAX_BER table to paste into chip_smoke.py: per path the mean
 BER, the standard deviation of the per-lane BER, the lanes and the bits,
 and for the coded paths the BLER after each transmission, then the
-JAX_DECODE_BER table of phase 6's whole decode (under a minute on
-two cores for the SISO and diversity paths, about three more for the four
-spatial ones, some 20 s for coded_6000_awgn, two minutes for
-harq_75376_awgn and half a minute for the decode; path names on the
-command line, or `turbo_decode`, restrict the run). Its
+JAX_DECODE_BER table of phase 6's whole decode and the
+JAX_BFCOMPARE_SFBC_BER table of phase 7's `bfcompare` SFBC rows (under a
+minute on two cores for the SISO and diversity paths, about three more for
+the four spatial ones, some 20 s for coded_6000_awgn, two minutes for
+harq_75376_awgn, half a minute for the decode and 40 s for the SFBC rows;
+path names on the command line, or `turbo_decode` or `bfcompare_sfbc`,
+restrict the run). Its
 output is kept beside this file, test_torch_chip_bands.txt. chip_smoke.py
 then accepts a mean BER within 4σ, σ² = lane_std²·(1/lanes here + 1/lanes
 there), and a BLER within 4σ, σ² = p(1−p)(1/lanes here + 1/lanes there)
@@ -109,6 +111,38 @@ def jax_decode_ber(K, sigma=None, lanes=JAX_DECODE_LANES, seed=None):
     return (np.asarray(out) != bits).mean(axis=1)
 
 
+def bfcompare_defaults():
+    """The arguments `bfcompare` runs with when given none (the CLI's parser)."""
+    from ofdm_lte_tpu_torch import cli
+    return cli.build_parser().parse_args(["bfcompare"])
+
+
+def jax_bfcompare_sfbc_ber(num_rx, lanes=JAX_LANES):
+    """Per-run BER of the JAX package on `bfcompare`'s 2×num_rx SFBC row at
+    its defaults (10 MHz 64-QAM, 15 dB): the CLI's payload, 1,620,000 bits
+    from default_rng(seed), padded to whole symbols and run as ONE frame
+    through simulate_sfbc over the fixed-phase AWGN channel, as
+    run_bf_comparison runs it, `lanes` times under keys folded from 0."""
+    import jax
+    import jax.numpy as jnp
+    from ofdm_lte_tpu import config as jcfg
+    from ofdm_lte_tpu.sim import diversity as jdiv
+    jax.config.update("jax_platforms", "cpu")
+    d = bfcompare_defaults()
+    cfg = jcfg.LTEConfig(d.bandwidth, modulation=d.modulation)
+    bits = np.random.default_rng(d.seed).integers(0, 2, d.num_bits).astype(np.int32)
+    per = jdiv.sfbc_bits_per_frame(cfg, 1)
+    padded = np.zeros(-(-d.num_bits // per) * per, np.int32)
+    padded[:d.num_bits] = bits
+    bers = []
+    for i in range(lanes):
+        r = jdiv.simulate_sfbc(jax.random.fold_in(jax.random.PRNGKey(0), i),
+                               jnp.asarray(padded), d.snr, cfg, num_rx=num_rx,
+                               channel_type="awgn")
+        bers.append(np.mean(np.asarray(r.bits_rx)[:d.num_bits] != bits))
+    return np.asarray(bers, np.float64)
+
+
 def _jax_spatial_ber(link_kw, bits, snr_db, cfg, seed, chunk=16):
     """The spatial link's arguments as the JAX function takes them
     (`rank_used` is its `rank`, `channel_impl` its environment variable), run
@@ -168,12 +202,19 @@ def _jax_coded(link_kw, bits, snr_db, cfg, seed):
     return np.asarray(r.ber, np.float64), 1.0 - passed.mean(axis=0)
 
 
-def kept_output() -> dict:
-    """The JAX_BER table as the generator printed it."""
+def _kept_section(table: str) -> str:
+    """The lines of one table (`JAX_BER = {` to its `}`) of the kept output."""
     here = os.path.dirname(os.path.abspath(__file__))
     with open(os.path.join(here, "test_torch_chip_bands.txt")) as f:
-        rows = re.findall(r'"(\w+)": dict\(mean=(\S+), lane_std=(\S+), lanes=(\d+), bits=(\d+)'
-                          r'(?:, bler=\[([^\]]*)\])?\)', f.read())
+        text = f.read()
+    start = text.index(table + " = {")
+    return text[start:text.index("\n}", start)]
+
+
+def kept_output() -> dict:
+    """The JAX_BER table as the generator printed it."""
+    rows = re.findall(r'"(\w+)": dict\(mean=(\S+), lane_std=(\S+), lanes=(\d+), bits=(\d+)'
+                      r'(?:, bler=\[([^\]]*)\])?\)', _kept_section("JAX_BER"))
     out = {}
     for name, mean, std, lanes, bits, bler in rows:
         out[name] = dict(mean=float(mean), lane_std=float(std), lanes=int(lanes), bits=int(bits))
@@ -182,14 +223,21 @@ def kept_output() -> dict:
     return out
 
 
+def _kept_int_keyed(table: str) -> dict:
+    rows = re.findall(r'(\d+): dict\(mean=(\S+), lane_std=(\S+), lanes=(\d+), bits=(\d+)\)',
+                      _kept_section(table))
+    return {int(k): dict(mean=float(mean), lane_std=float(std), lanes=int(lanes), bits=int(bits))
+            for k, mean, std, lanes, bits in rows}
+
+
 def kept_decode_output() -> dict:
     """The JAX_DECODE_BER table as the generator printed it."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    with open(os.path.join(here, "test_torch_chip_bands.txt")) as f:
-        rows = re.findall(r'(\d+): dict\(mean=(\S+), lane_std=(\S+), lanes=(\d+), bits=(\d+)\)',
-                          f.read())
-    return {int(K): dict(mean=float(mean), lane_std=float(std), lanes=int(lanes), bits=int(bits))
-            for K, mean, std, lanes, bits in rows}
+    return _kept_int_keyed("JAX_DECODE_BER")
+
+
+def kept_bfcompare_output() -> dict:
+    """The JAX_BFCOMPARE_SFBC_BER table as the generator printed it."""
+    return _kept_int_keyed("JAX_BFCOMPARE_SFBC_BER")
 
 
 @pytest.mark.parametrize("name", list(chip_smoke.PATHS))
@@ -224,6 +272,16 @@ def test_decode_band_constants_are_the_generator_output(shape):
     assert 0.0 < lo < ref["mean"] < hi < 0.3
 
 
+@pytest.mark.parametrize("num_rx", [1, 2, 4])
+def test_bfcompare_band_constants_are_the_generator_output(num_rx):
+    ref = chip_smoke.JAX_BFCOMPARE_SFBC_BER[num_rx]
+    assert ref == kept_bfcompare_output()[num_rx]
+    assert ref["lanes"] == JAX_LANES and ref["bits"] == JAX_LANES * bfcompare_defaults().num_bits
+    # the card runs the row once: a band for one run
+    lo, hi = chip_smoke.ber_band(ref, 1)
+    assert 0.0 < lo < ref["mean"] < hi < 0.1
+
+
 def test_bler_band():
     # a BLER of 0 or 1 over 64 JAX lanes: one-sided, about 3/64 wide
     lo, hi = chip_smoke.bler_band(0.0, 256)
@@ -239,8 +297,8 @@ def test_bler_band():
 
 if __name__ == "__main__":
     # the paths named on the command line (`turbo_decode` for phase 6's
-    # decode), or all of them
-    wanted = sys.argv[1:] or list(chip_smoke.PATHS) + ["turbo_decode"]
+    # decode, `bfcompare_sfbc` for phase 7's SFBC rows), or all of them
+    wanted = sys.argv[1:] or list(chip_smoke.PATHS) + ["turbo_decode", "bfcompare_sfbc"]
     paths = [path for path in chip_smoke.PATHS if path in wanted]
     if paths:
         print("JAX_BER = {")
@@ -257,6 +315,14 @@ if __name__ == "__main__":
               f'lanes={JAX_LANES}, bits={n_bits}{extra}),   # {spec_["snr"]} dB; at '
               f'{clean_snr:g} dB, 8 lanes: {clean.mean():.3g}', flush=True)
     if paths:
+        print("}")
+    if "bfcompare_sfbc" in wanted:
+        print("JAX_BFCOMPARE_SFBC_BER = {")
+        for rx in (1, 2, 4):
+            ber = jax_bfcompare_sfbc_ber(rx)
+            print(f'    {rx}: dict(mean={ber.mean():.6g}, lane_std={ber.std(ddof=1):.6g}, '
+                  f'lanes={JAX_LANES}, bits={JAX_LANES * bfcompare_defaults().num_bits}),'
+                  f'   # 2x{rx} SFBC, one frame of the whole payload a run', flush=True)
         print("}")
     if "turbo_decode" in wanted:
         print("JAX_DECODE_BER = {")
