@@ -102,12 +102,34 @@ gather, the BCJR pass, the extrinsic) is one launch of `turbo_bcjr`
    exactly at 60 dB); `bfcompare` at its defaults (12 rows; the SFBC rows
    within the JAX band, JAX_BFCOMPARE_SFBC_BER; each beamforming row's
    spread beside the published value); `papr` against `papr --device cpu`
-   (within 1e-3 dB).
+   (within 1e-3 dB);
+8. the N-process sweeps over torch.distributed (parallel.distributed,
+   parallel.mp_bench), the native bit library and the H100 cost model:
+   (a) native/bitops.cc built into build/: CRC-24A of a 75,376-bit
+   transport block and CRC-24B of its 13 code blocks equal to
+   crc_bits_plain, pack, unpack and bit_errors equal to NumPy, host times;
+   (b) the HBM rate of one 2 GiB device-to-device copy (CUDA events) beside
+   utils.profiling's; (c) a world-1 NCCL group in this process: the
+   flagship sweep (15 and 60 dB, 256 frames) with its counts reduced on the
+   card equal to the one-device sweep's, under the same bits and seams and
+   drawn; (d) two fresh interpreters in one gloo group, both on cuda:0,
+   one job list: the flagship sweep drawn at 128 frames a rank (BER in the
+   main path's band, 0 at 60 dB), under global bits and seams (counts equal
+   to the one-device sweep's), on 2 SNR shards over 3 points (padding),
+   the HARQ sweep of the 75,376-bit block at 16.2 and 30 dB (BLER by stage
+   in phase 7's bands), `cli sweep --snr-shards 2` (rank 0 alone prints);
+   both ranks' reduced counts equal, each rank's launches in
+   `mp2/<path>/rank<r>`; (e) distributed.dryrun(2), the JAX package's dry
+   run; (f) mp_bench's frames/s at 1 and 2 processes sharing the card, for
+   the flagship and the coded 6,000-bit link; (g) the flagship step of
+   phase 6 against utils.profiling.roofline_report, every fraction in
+   (0, 1].
 
 The second-to-last line is a JSON object describing each kernel (its times
 are sums over all timed GEMM shapes, `by_shape` has each; `launches_by_path`
-has the launches of each path and of each CLI command, `cli/<command>`);
-the last is {"ok": true, "device": {...}}. Needs one card and no network.
+has the launches of each path, of each CLI command, `cli/<command>`, and of
+each N-process path, `nccl1/<path>` and `mp2/<path>/rank<r>`); the last is
+{"ok": true, "device": {...}}. Needs one card and no network.
 
     python3 chip_smoke.py --profile [PATH[,PATH...]]
 
@@ -135,6 +157,10 @@ import time
 
 import numpy as np
 import torch
+
+# the card's peaks, and what a BCJR pass moves and does a step a block
+from ofdm_lte_tpu_torch.utils.profiling import (BCJR_BYTES_PER_STEP, BCJR_OPS_PER_STEP,
+                                                BCJR_SCRATCH_BYTES_PER_STEP, DATASHEET)
 
 LANES = 256
 SYMBOLS = 14
@@ -302,25 +328,20 @@ TOL = {"tf32x3": 1e-5, "tf32x3_gauss": 1e-4, "f32_fma4": 1e-5, "f32_gauss": 1e-4
 # metric Σ_k (|L_sys| + |L_par| + |L_apr|)/2 (the metrics are not renormalised;
 # expf/logf and the 8-state sum order differ by ulps). Max-log: equal.
 BCJR_LOGMAP_TOL = 1e-6
-# what a BCJR pass must move and do a step a code block: 3 LLRs in (in the
-# extrinsic mode the third is the other decoder's extrinsic, gathered through
-# the QPP table that every block shares), 1 out (16 B); 4 branch metrics (3
-# ops each), α and β (16 adds and 8 ⊕ each), APP (32 adds, 2 × 7 ⊕ and a
-# subtraction), and in the extrinsic mode two more subtractions. The
-# kernel's scratch, 8 floats of α or β written and read (64 B), is this
-# design's own cost, reported beside it.
-BCJR_BYTES_PER_STEP = 16
-BCJR_SCRATCH_BYTES_PER_STEP = 64
-BCJR_OPS_PER_STEP = {"app": 4 * 3 + 2 * (16 + 8) + 32 + 14 + 1,
-                     "extrinsic": 4 * 3 + 2 * (16 + 8) + 32 + 14 + 3}
+# phase 8: the largest share of a point's bits whose decision may differ
+# between an N-process sweep and the one-device sweep of all its lanes under
+# the same bits and seams: the GEMMs of a rank's M rows split K otherwise
+# than those of all rows, so bins on the decision boundary round either way
+# (3 of 21.5 M bits in a first run on the card)
+MAX_SPLIT_ORDER_FLIPS = 1e-6
 GAUSS = {"tf32x3": False, "tf32x3_gauss": True, "f32_fma4": False, "f32_gauss": True}
 TENSOR_CORE = {"tf32x3": True, "tf32x3_gauss": True, "f32_fma4": False, "f32_gauss": False}
-HBM_BYTES_PER_S = 3.35e12
+HBM_BYTES_PER_S = DATASHEET["hbm"]
 # name fragments of cuSOLVER's and MAGMA's Hermitian eigensolver kernels
 # (Jacobi, and the tridiagonal reduction, solve and back-transform of syevd)
 EIGENSOLVER_KERNELS = ("syev", "heev", "sytrd", "hetrd", "steqr", "stedc", "ormtr", "unmtr",
                        "eigh", "eigval", "jacobi")
-PEAK_FLOPS = {"tf32": 495e12, "fp32": 67e12}
+PEAK_FLOPS = {"tf32": DATASHEET["tf32"], "fp32": DATASHEET["fp32"]}
 
 
 def ber_band(ref: dict, lanes: int) -> tuple:
@@ -734,6 +755,230 @@ def cli_on_card(card: str, zero_counts) -> tuple:
     if not sum(gemms.values()) or not sum(passes.values()):
         raise AssertionError(f"cli phase: launches {gemms} GEMM, {passes} BCJR")
     return gemms, {k: v for k, v in passes.items() if v}
+
+
+def host_ms(fn, reps: int) -> float:
+    """Mean host-clock time of fn() over reps runs after one warm-up run."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def native_on_host(card: str) -> None:
+    """Phase 8 (a): the native bit library, built from native/bitops.cc into
+    build/, against its plain versions on a 75,376-bit transport block: its
+    CRC-24A and the CRC-24B of its 13 code blocks against crc_bits_plain,
+    pack, unpack and bit_errors against NumPy; equal bits, host times."""
+    from ofdm_lte_tpu_torch import native_ext
+    from ofdm_lte_tpu_torch.coding import crc, segmentation
+    t0 = time.perf_counter()
+    path = native_ext.build()
+    native_ext.library()
+    print(f"native: {path.name} in {time.perf_counter() - t0:.2f} s")
+    tb = np.random.default_rng(12).integers(0, 2, PATHS["harq_75376_awgn"]["kw"]["tb_bits"],
+                                           dtype=np.uint8)
+    blocks, _ = segmentation.segment_code_blocks(crc.attach_crc24a(tb))
+    bodies = [b[:-24] for b in blocks]
+    if len(bodies) != 13 or not all(np.array_equal(crc.crc_bits(b, crc.CRC24B_POLY, 24),
+                                                   blk[-24:]) for b, blk in zip(bodies, blocks)):
+        raise AssertionError(f"segmentation gave {len(bodies)} blocks or a wrong CRC-24B")
+    packed = np.packbits(tb)
+    checks = {
+        "crc24a": (lambda: crc.crc_bits(tb, crc.CRC24A_POLY, 24),
+                   lambda: crc.crc_bits_plain(tb, crc.CRC24A_POLY, 24)),
+        f"crc24b of {len(bodies)} code blocks": (
+            lambda: np.stack([crc.crc_bits(b, crc.CRC24B_POLY, 24) for b in bodies]),
+            lambda: np.stack([crc.crc_bits_plain(b, crc.CRC24B_POLY, 24) for b in bodies])),
+        "pack_bits": (lambda: native_ext.pack_bits(tb), lambda: np.packbits(tb)),
+        "unpack_bits": (lambda: native_ext.unpack_bits(packed, len(tb)),
+                        lambda: np.unpackbits(packed)[:len(tb)]),
+        "bit_errors": (lambda: native_ext.bit_errors(tb, tb[::-1]),
+                       lambda: int(np.count_nonzero(tb != tb[::-1]))),
+    }
+    for name, (native, plain) in checks.items():
+        if not np.array_equal(native(), plain()):
+            raise AssertionError(f"native {name} differs from its plain version")
+        print(f"[{card}] native {name}, {len(tb)} bits: {host_ms(native, 20):.4f} ms on the "
+              f"host, plain {host_ms(plain, 3):.4f} ms, equal")
+
+
+def multiprocess_on_card(card: str, zero_counts, main_ms: float) -> tuple:
+    """Phase 8 (b)-(g): the HBM stream, the N-process sweeps over
+    torch.distributed (a world-1 NCCL group in this process; two fresh
+    interpreters in a gloo group sharing the card), the dry run, the
+    scaling measurement and the flagship step against the cost model.
+    Returns ({path: tf32x3 launches}, {path: turbo_bcjr launches}); raises
+    on any failed check."""
+    import socket
+    import torch.distributed as dist
+    from ofdm_lte_tpu_torch import LTEConfig
+    from ofdm_lte_tpu_torch.parallel import distributed, mp_bench
+    from ofdm_lte_tpu_torch.sim import siso
+    from ofdm_lte_tpu_torch.utils import profiling
+
+    dev = torch.device("cuda", 0)
+    cfg = LTEConfig(20.0, modulation="64-QAM")
+    n_bits = siso.bits_per_frame(cfg, SYMBOLS)
+    gemms, passes = {}, {}
+    t_phase = time.perf_counter()
+
+    # (b) the HBM stream: one 2 GiB device-to-device copy, read and write
+    src = torch.empty(2 ** 29, device=dev)
+    dst = torch.empty_like(src)
+    ms = cuda_ms(lambda: dst.copy_(src), 10)
+    rate = 2 * src.numel() * 4 / (ms / 1e3)
+    print(f"[{card}] HBM stream: copy_ of 2 GiB {ms:.4f} ms, {rate / 1e12:.4f} TB/s read and "
+          f"written; utils.profiling CEILINGS hbm {profiling.CEILINGS['hbm'] / 1e12:.4f} TB/s, "
+          f"DATASHEET {profiling.DATASHEET['hbm'] / 1e12:.4f}")
+    del src, dst
+    torch.cuda.empty_cache()
+
+    wide = {"bandwidth": 20.0, "modulation": "64-QAM", "symbols": SYMBOLS, "pipeline": "siso"}
+
+    def bers_in_band(res):
+        """(ok, BERs): the first point in the flagship's 15 dB band, the
+        last 0."""
+        ber = [e / t for e, t in zip(res["bit_errors"], res["total_bits"])]
+        return ber[-1] == 0.0 and BER_15DB[0] <= ber[0] <= BER_15DB[1], ber
+
+    # (c) a world-1 NCCL group in this process: the flagship sweep with its
+    # counts reduced on the card, equal to the one-device sweep under the
+    # same bits and seams, and drawn under the same generator seed
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    distributed.initialize(f"tcp://127.0.0.1:{port}", 1, 0, "nccl", retries=1, timeout_s=120)
+    try:
+        lay = distributed.layout(1, dev)
+        for name, seams in (("flagship_seams", True), ("flagship", False)):
+            case = {**wide, "snr": [15.0, 60.0], "frames": LANES, "seed": 31, "seams": seams}
+            zero_counts()
+            nccl = mp_bench.run_case(case, lay)
+            gemms[f"nccl1/{name}"] = nccl.pop("launches")["tf32x3"]
+            one = mp_bench.run_case(case, None, dev)
+            ok, ber = bers_in_band(nccl)
+            print(f"[{card}] world-1 {dist.get_backend()} group, {name} at 15 and 60 dB x "
+                  f"{LANES} frames: BER {ber}, counts reduced on the card {nccl['bit_errors']}, "
+                  f"one-device sweep {one['bit_errors']}, launches {gemms[f'nccl1/{name}']}")
+            if dist.get_backend() != "nccl" or nccl != one or not ok \
+                    or gemms[f"nccl1/{name}"] != 3:
+                raise AssertionError(f"world-1 NCCL {name}: {nccl} against {one}")
+    finally:
+        distributed.shutdown()
+    torch.cuda.empty_cache()
+
+    # (d) two fresh interpreters in one gloo group, both ranks on cuda:0
+    harq = PATHS["harq_75376_awgn"]
+    cases = {
+        "flagship": {**wide, "snr": [15.0, 60.0], "frames": LANES // 2, "seed": 41,
+                     "seams": False},
+        "flagship_seams": {**wide, "snr": [15.0, 60.0], "frames": LANES // 2, "seed": 42},
+        "flagship_2d": {**wide, "snr": [15.0, 30.0, 60.0], "frames": LANES // 2, "seed": 43,
+                        "shards": 2},
+        "harq_75376": {"bandwidth": 20.0, "modulation": "64-QAM", "pipeline": "harq",
+                       "snr": [harq["snr"], CODED_CLEAN_SNR], "frames": LANES // 2,
+                       "tb_bits": harq["kw"]["tb_bits"], "rv": list(harq["kw"]["rv_sequence"]),
+                       "seed": 44, "seams": False},
+    }
+    cli_argv = ["sweep", "--bandwidth", "20", "--modulation", "64-QAM", "--snr-min", "15",
+                "--snr-max", "60", "--snr-step", "45", "--frames", str(LANES),
+                "--num-symbols", str(SYMBOLS), "--snr-shards", "2"]
+    names = list(cases) + ["cli_sweep_2shards"]
+    jobs = [{"job": "case", "case": c} for c in cases.values()] + [{"job": "cli",
+                                                                   "argv": cli_argv}]
+    t0 = time.perf_counter()
+    ranks = mp_bench.spawn(2, jobs, "cuda:0", timeout_s=600)
+    print(f"[{card}] 2 processes on cuda:0 (gloo): {len(jobs)} jobs in "
+          f"{time.perf_counter() - t0:.2f} s wall, start-up included")
+    for rank, results in enumerate(ranks):
+        for name, res in zip(names, results):
+            gemms[f"mp2/{name}/rank{rank}"] = res["launches"]["tf32x3"]
+            if res["launches"]["turbo_bcjr"]:
+                passes[f"mp2/{name}/rank{rank}"] = res["launches"]["turbo_bcjr"]
+    for i, (name, case) in enumerate(cases.items()):
+        r0, r1 = ({k: v for k, v in ranks[r][i].items() if k not in ("launches", "share")}
+                  for r in (0, 1))
+        mc = 1 if case.get("shards") == 2 else 2
+        if r0 != r1 or r0["snr_db"] != np.float32(case["snr"]).tolist() \
+                or r0["frames"] != case["frames"] * mc:
+            raise AssertionError(f"2 processes, {name}: rank 0 {r0}, rank 1 {r1}")
+        launched = ranks[0][i]["launches"]
+        if name == "harq_75376":
+            F = r0["frames"]
+            stages = [f / F for f in r0["stage_failures"][0]]
+            ref = JAX_BER["harq_75376_awgn"]["bler"]
+            bands = [bler_band(p, F, JAX_BER["harq_75376_awgn"]["lanes"]) for p in ref]
+            print(f"[{card}] 2 processes, {name}: BLER by stage at {harq['snr']} dB {stages} "
+                  f"(JAX {ref}), failures at {CODED_CLEAN_SNR} dB {r0['stage_failures'][1]}, "
+                  f"{F} TBs a point, launches a rank {launched}")
+            if not all(a <= p <= b for p, (a, b) in zip(stages, bands)) \
+                    or any(r0["stage_failures"][1]) or r0["bit_errors"][1] \
+                    or launched != {"tf32x3": 12, "turbo_bcjr": 68}:
+                raise AssertionError(f"2 processes, {name}: {r0}, launches {launched}")
+        elif case.get("seams", True):
+            # exact against each rank's lanes run as one one-device sweep; the
+            # sweep of all lanes in one call sums its GEMMs in another order
+            # (the kernels' split-K follows M), so decisions on the boundary
+            # may differ: held to MAX_SPLIT_ORDER_FLIPS of the bits
+            shares = mp_bench.sum_of_shares([ranks[0][i], ranks[1][i]], "bit_errors",
+                                            len(case["snr"]))
+            one = mp_bench.run_case({**case, "frames": case["frames"] * mc}, None, dev)
+            flips = max(abs(a - b) / t for a, b, t in zip(r0["bit_errors"], one["bit_errors"],
+                                                         one["total_bits"]))
+            print(f"[{card}] 2 processes, {name}: counts {r0['bit_errors']} over "
+                  f"{r0['frames']} frames a point, the ranks' shares one-device {shares}, all "
+                  f"lanes in one one-device call {one['bit_errors']} ({flips:.3g} of the bits "
+                  f"apart)")
+            if r0["bit_errors"] != shares or flips > MAX_SPLIT_ORDER_FLIPS \
+                    or any(r0[k] != one[k] for k in ("total_bits", "snr_db", "frames")) \
+                    or launched["tf32x3"] != 3:
+                raise AssertionError(f"2 processes, {name}: {r0} against {shares} and {one}")
+        else:
+            ok, ber = bers_in_band(r0)
+            print(f"[{card}] 2 processes, {name}: BER {ber} over {r0['frames']} frames a point")
+            if not ok or launched["tf32x3"] != 3:
+                raise AssertionError(f"2 processes, {name}: BER {ber} outside 0 / {BER_15DB}")
+    out0, out1 = (ranks[r][-1]["stdout"] for r in (0, 1))
+    res = json.loads(out0)
+    print(f"[{card}] 2 processes, cli sweep --snr-shards 2: snr {res['snr_db']} ber {res['ber']} "
+          f"total bits {res['total_bits']}; rank 1 printed {len(out1)} characters")
+    if out1 or res["snr_db"] != [15.0, 60.0] or res["total_bits"] != [LANES * n_bits] * 2 \
+            or not BER_15DB[0] <= res["ber"][0] <= BER_15DB[1] or res["ber"][1] != 0.0:
+        raise AssertionError(f"cli sweep --snr-shards 2: {res}, rank 1 {out1!r}")
+
+    # (e) the JAX package's multi-chip dry run over two processes
+    t0 = time.perf_counter()
+    dry = distributed.dryrun(2)
+    print(f"[{card}] dryrun(2): {dry} in {time.perf_counter() - t0:.2f} s wall")
+
+    # (f) frames/s at 1 and 2 processes sharing the card, LANES frames a
+    # process a step: the device-bound flagship and the host-bound coded link
+    for link in ("flagship", "coded_6000_awgn"):
+        t0 = time.perf_counter()
+        r = mp_bench.measure((1, 2), frames=LANES, n_steps=5, retries=1, link=link)
+        print(f"[{card}] mp_bench {link}, {LANES} frames a process a step: 1 process "
+              f"{r[1]['total']:.1f} frames/s; 2 processes {r[2]['total']:.1f} frames/s in all "
+              f"({', '.join(f'{x:.1f}' for x in r[2]['rates'])}), a process "
+              f"{r[2]['efficiency']:.4f} of 1 alone, in all {r[2]['total'] / r[1]['total']:.4f} "
+              f"({time.perf_counter() - t0:.2f} s wall)")
+        if not all(v["per_process"] > 0 for v in r.values()):
+            raise AssertionError(f"mp_bench {link}: {r}")
+
+    # (g) phase 6's untraced flagship step against the H100 cost model
+    rep = profiling.roofline_report(cfg, SYMBOLS, LANES, main_ms / 1e3)
+    print(f"[{card}] roofline of the flagship step {main_ms:.4f} ms: model "
+          f"{1e3 * rep['roofline_s']:.4f} ms at the ceilings, fraction "
+          f"{rep['roofline_fraction']:.4f} (data sheet "
+          f"{rep['roofline_fraction_datasheet_peaks']:.4f}); {rep['modeled_gflops']:.2f} GFLOP, "
+          f"{rep['modeled_gbytes']:.4f} GB; per stage (us) {rep['per_kernel_us']}")
+    fractions = (rep["roofline_fraction"], rep["roofline_fraction_datasheet_peaks"],
+                 rep["roofline_fraction_excl_floor"])
+    if not all(0.0 < f <= 1.0 for f in fractions) or fractions[1] > fractions[0]:
+        raise AssertionError(f"roofline fractions {fractions}")
+    print(f"[{card}] phase 8: {time.perf_counter() - t_phase:.2f} s wall")
+    return gemms, passes
 
 
 def main() -> None:
@@ -1657,6 +1902,15 @@ def main() -> None:
     launches["tf32x3"] += sum(cli_gemms.values())
     launches_by_path.update({f"cli/{name}": n for name, n in cli_gemms.items()})
     bcjr_launches_by_path.update({f"cli/{name}": n for name, n in cli_passes.items()})
+    clear_link_cache()
+    torch.cuda.empty_cache()
+
+    # -- 8. N processes over torch.distributed, the bit library, the cost model
+    native_on_host(card)
+    mp_gemms, mp_passes = multiprocess_on_card(card, zero_counts, ms_step["tf32x3"])
+    launches["tf32x3"] += sum(mp_gemms.values())
+    launches_by_path.update(mp_gemms)
+    bcjr_launches_by_path.update(mp_passes)
     clear_link_cache()
     torch.cuda.empty_cache()
 

@@ -21,12 +21,22 @@ Every command runs on the CUDA card unless `--device` names another device
 (`--device cpu`); with no card and no `--device` it raises. The flags,
 defaults and JSON keys are the JAX CLI's, with two differences: `--device`
 is added, and `sweep --frame-chunk` (a TPU workaround) is left out.
-`sweep --snr-shards` is accepted at 1 only: the N-process sweep is not
-ported (ROADMAP A19).
+
+`sweep` runs over N processes when launched by `torchrun` (or inside a
+process group that is up already, as parallel.mp_bench's workers are):
+every rank runs its share on the layout of `--snr-shards` SNR shards
+(parallel.distributed.layout; each rank on `cuda:{LOCAL_RANK}`, or on
+`--device`), `--frames` frames a point a rank, as the JAX CLI's
+frames_per_device. Every rank reads the checkpoint; rank 0 alone writes it,
+prints the JSON and saves the plot. In one process `--snr-shards` above 1
+raises, as the JAX CLI's mesh does on one device:
+
+    torchrun --nproc-per-node 2 -m ofdm_lte_tpu_torch.cli sweep --snr-shards 2 --device cpu
 
 Randomness: one `torch.Generator` on the device, seeded for each call from
 the parts the JAX CLI folds into its keys, so that a resumed sweep draws
-new rounds and never redraws the ones it has banked. Bits drawn on the host
+new rounds and never redraws the ones it has banked; over N processes the
+sweep mixes each rank into that seed (distributed.rank_generator). Bits drawn on the host
 come from `np.random.default_rng(seed)`, as in the JAX CLI.
 
 Usage: python -m ofdm_lte_tpu_torch.cli <command> [options]
@@ -41,16 +51,10 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed
 
 from .device import resolve_device
-
-
-def _seed(*parts: int) -> int:
-    """A 63-bit generator seed for a tuple of integers (the port's
-    counterpart of folding them into a JAX key): equal tuples give equal
-    seeds, different ones independent streams."""
-    words = [int(p) % 2 ** 32 for p in parts]
-    return int(np.random.SeedSequence(words).generate_state(1, np.uint64)[0]) >> 1
+from .parallel.distributed import seed_of as _seed
 
 
 def _generator(args, *parts: int) -> torch.Generator:
@@ -148,17 +152,88 @@ def cmd_run(args):
               file=sys.stderr)
 
 
+def _sweep_layout(args):
+    """(layout, brought_up): the process group that torchrun (WORLD_SIZE)
+    or a launcher set up, brought up here if it is not yet (NCCL when each
+    local rank has a card of its own, gloo for CPU ranks or ranks that share
+    a card, as a `--device cuda:N` makes them), and this rank's layout of
+    `--snr-shards` shards on it; one process without. Moves args.device to
+    the rank's device."""
+    from .parallel import distributed
+    world = int(os.environ.get("WORLD_SIZE") or 1)
+    local = int(os.environ.get("LOCAL_WORLD_SIZE") or world)
+    brought_up = distributed.initialize(backend=distributed.backend_for(args.device, local))
+    try:
+        lay = distributed.layout(args.snr_shards, args.device)
+    except ValueError:
+        if brought_up:
+            distributed.shutdown()
+        raise
+    args.device = lay.device
+    return lay, brought_up
+
+
+def _load_state(args, state, done: str, unnamed_ok: bool = True):
+    """The checkpoint's state where it holds this workload and SNR grid (or,
+    with unnamed_ok, names no workload), else `state`; every rank reads it,
+    and none goes on before all have."""
+    if args.checkpoint and os.path.exists(args.checkpoint):
+        with open(args.checkpoint) as f:
+            prev = json.load(f)
+        if (prev.get("snr_db") == state["snr_db"]
+                and prev.get("workload", state["workload"] if unnamed_ok else None)
+                == state["workload"]):
+            state = prev
+            if args.layout.rank == 0:
+                print(f"# resumed from {args.checkpoint} ({done.format(**state)})",
+                      file=sys.stderr)
+        elif args.layout.rank == 0:
+            print(f"# WARNING: checkpoint {args.checkpoint} holds a "
+                  f"different workload/snr grid "
+                  f"({prev.get('workload')!r} vs {state['workload']!r}); "
+                  f"accumulation restarts and the file will be "
+                  f"overwritten", file=sys.stderr)
+    _barrier(args)
+    return state
+
+
+def _save_state(args, state) -> None:
+    """Rank 0 writes the checkpoint, whole or not at all (a temporary file
+    and os.replace); the other ranks hold the same state and go on once it
+    is written, so that a next run on any rank reads it."""
+    if args.checkpoint and args.layout.rank == 0:
+        tmp = f"{args.checkpoint}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
+            json.dump(state, f)
+        os.replace(tmp, args.checkpoint)
+    if args.checkpoint:
+        _barrier(args)
+
+
+def _barrier(args) -> None:
+    if args.layout.world_size > 1:
+        torch.distributed.barrier()
+
+
 def cmd_sweep(args):
+    args.layout, brought_up = _sweep_layout(args)
+    try:
+        _cmd_sweep(args)
+    finally:
+        if brought_up:
+            from .parallel import distributed
+            distributed.shutdown()
+
+
+def _cmd_sweep(args):
     from .parallel import sweep as psweep
 
-    if args.snr_shards != 1:
-        raise ValueError(f"--snr-shards {args.snr_shards}: the sweep runs on one device, "
-                         f"so only 1 is accepted; the N-process sweep is ROADMAP A19")
     cfg = _mk_config(args)
     snrs = np.arange(args.snr_min, args.snr_max + 1e-9, args.snr_step)
     pipeline = getattr(args, "pipeline", "siso")
+    lay = args.layout if args.layout.world_size > 1 else None
     if pipeline == "harq":
-        return _cmd_sweep_harq(args, cfg, snrs)
+        return _cmd_sweep_harq(args, cfg, snrs, lay)
     detector = getattr(args, "detector", "MMSE")
     rank = getattr(args, "rank", None)
     rank = None if rank in (None, "full", "adaptive") else int(rank)
@@ -170,20 +245,7 @@ def cmd_sweep(args):
     state = {"snr_db": list(map(float, snrs)), "errors": [0] * len(snrs),
              "total": [0] * len(snrs), "papr_db": [0.0] * len(snrs),
              "rounds": 0, "workload": workload, "round_bers": []}
-    if args.checkpoint and os.path.exists(args.checkpoint):
-        with open(args.checkpoint) as f:
-            prev = json.load(f)
-        if (prev.get("snr_db") == state["snr_db"]
-                and prev.get("workload", workload) == workload):
-            state = prev
-            print(f"# resumed from {args.checkpoint} "
-                  f"({state['rounds']} rounds done)", file=sys.stderr)
-        else:
-            print(f"# WARNING: checkpoint {args.checkpoint} holds a "
-                  f"different workload/snr grid "
-                  f"({prev.get('workload')!r} vs {workload!r}); "
-                  f"accumulation restarts and the file will be "
-                  f"overwritten", file=sys.stderr)
+    state = _load_state(args, state, "{rounds} rounds done")
 
     rounds_done = state["rounds"]
     for rnd in range(args.rounds):
@@ -198,7 +260,7 @@ def cmd_sweep(args):
                              detector_type=detector, rank=rank,
                              coded_tb_bits=getattr(args, "tb_bits", 6000),
                              generator=_generator(args, args.seed + rounds_done, rnd),
-                             device=args.device)
+                             device=None if lay else args.device, layout=lay)
         for i in range(len(snrs)):
             state["errors"][i] += int(r.bit_errors[i])
             state["total"][i] += int(r.total_bits[i])
@@ -206,9 +268,7 @@ def cmd_sweep(args):
         state.setdefault("round_bers", []).append(
             [float(b) for b in np.asarray(r.ber)])
         state["rounds"] += 1
-        if args.checkpoint:
-            with open(args.checkpoint, "w") as f:
-                json.dump(state, f)
+        _save_state(args, state)
 
     bers = [e / t if t else 0.0 for e, t in zip(state["errors"],
                                                 state["total"])]
@@ -216,6 +276,8 @@ def cmd_sweep(args):
     result = {"snr_db": state["snr_db"], "ber": bers,
               "ber_ci95": ci["half_widths"], "ci_method": ci["method"],
               "total_bits": state["total"], "papr_db": state["papr_db"]}
+    if args.layout.rank:
+        return
     print(json.dumps(result, indent=2))
 
     if args.plot:
@@ -257,7 +319,7 @@ def _sweep_ci(bers, totals, round_bers):
     return {"half_widths": half, "method": "binomial"}
 
 
-def _cmd_sweep_harq(args, cfg, snrs):
+def _cmd_sweep_harq(args, cfg, snrs, lay):
     """HARQ BLER/avg-transmissions-vs-SNR sweep (every (point, frame) a lane
     of one batched HARQ call, sim.coded.CodedLink.harq). Output: residual
     BLER after the full rv schedule, BLER after each combined stage, and
@@ -273,20 +335,7 @@ def _cmd_sweep_harq(args, cfg, snrs):
              "stage_failures": [[0] * T for _ in snrs],
              "tx_sum": [0] * len(snrs), "errors": [0] * len(snrs),
              "frames": 0, "workload": workload}
-    if args.checkpoint and os.path.exists(args.checkpoint):
-        with open(args.checkpoint) as f:
-            prev = json.load(f)
-        if (prev.get("snr_db") == state["snr_db"]
-                and prev.get("workload") == workload):
-            state = prev
-            print(f"# resumed from {args.checkpoint} "
-                  f"({state['frames']} TBs/point done)", file=sys.stderr)
-        else:
-            print(f"# WARNING: checkpoint {args.checkpoint} holds a "
-                  f"different workload/snr grid "
-                  f"({prev.get('workload')!r} vs {workload!r}); "
-                  f"accumulation restarts and the file will be "
-                  f"overwritten", file=sys.stderr)
+    state = _load_state(args, state, "{frames} TBs/point done", unnamed_ok=False)
 
     for rnd in range(args.rounds):
         r = psweep.harq_sweep(
@@ -294,7 +343,7 @@ def _cmd_sweep_harq(args, cfg, snrs):
             rv_sequence=rv_seq, channel_type=args.channel,
             itu_profile=args.itu_profile, velocity_kmh=args.velocity,
             generator=_generator(args, args.seed, 7000 + state["frames"] + rnd),
-            device=args.device)
+            device=None if lay else args.device, layout=lay)
         # lossless accumulation from the sweep's exact integer counters (the
         # float ratios are derived views; round-tripping them could drift by
         # ±1 TB per round under checkpoint resume)
@@ -305,9 +354,7 @@ def _cmd_sweep_harq(args, cfg, snrs):
             state["tx_sum"][i] += int(r.tx_sum[i])
             state["errors"][i] += int(r.bit_errors[i])
         state["frames"] += r.frames
-        if args.checkpoint:
-            with open(args.checkpoint, "w") as f:
-                json.dump(state, f)
+        _save_state(args, state)
 
     n = max(state["frames"], 1)
     result = {
@@ -320,6 +367,8 @@ def _cmd_sweep_harq(args, cfg, snrs):
         "tbs_per_point": state["frames"],
         "rv_sequence": list(rv_seq),
     }
+    if args.layout.rank:
+        return
     print(json.dumps(result, indent=2))
 
     if args.plot:
@@ -740,7 +789,7 @@ def build_parser():
                     help="save RX constellation scatter PNG (siso pipeline)")
     sp.set_defaults(fn=cmd_run)
 
-    sp = sub.add_parser("sweep", help="one-device BER-vs-SNR sweep")
+    sp = sub.add_parser("sweep", help="BER-vs-SNR sweep, one device or N processes")
     common(sp)
     sp.add_argument("--snr-min", type=float, default=0.0, dest="snr_min")
     sp.add_argument("--snr-max", type=float, default=20.0, dest="snr_max")
@@ -770,8 +819,9 @@ def build_parser():
                     help="spatial rank: integer or 'full' "
                          "(= min(num_tx, num_rx))")
     sp.add_argument("--snr-shards", type=int, default=1, dest="snr_shards",
-                    help="accepted at 1 only: the sweep runs on one device "
-                         "(the N-process sweep is ROADMAP A19)")
+                    help="shard SNR points over this many rows of the "
+                         "process group (under torchrun); frames shard over "
+                         "the processes of a row")
     sp.set_defaults(fn=cmd_sweep)
 
     sp = sub.add_parser(

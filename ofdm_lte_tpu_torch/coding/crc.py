@@ -2,7 +2,9 @@
 
 Port of ofdm_lte_tpu/coding/crc.py, with its own copy of the tables:
 
-- host path: a byte-table CRC over packed bits (NumPy), O(n/8) lookups;
+- host path: the byte-table CRC register of the native library
+  (native/bitops.cc through native_ext), with the same table over packed
+  bits in NumPy as its plain version (`crc_bits_plain`);
 - device path: a CRC is GF(2)-linear, so for a fixed message length n the
   checksum is (bits @ M) mod 2 with a constant (n, nbits) 0/1 matrix M.
   `crc_torch` makes that one real fp32 product, exact for n < 2²⁴ (the sums
@@ -52,7 +54,16 @@ def _reg_to_bits(reg: int, nbits: int) -> np.ndarray:
 
 
 def crc_bits(data_bits, poly: int, nbits: int) -> np.ndarray:
-    """CRC of a bit array (MSB first), as nbits bits (uint8)."""
+    """CRC of a bit array (MSB first), as nbits bits (uint8), by the native
+    library's byte-table register (native_ext.crc_register), as the JAX
+    package's crc_bits takes it for megabit transport blocks."""
+    from .. import native_ext
+    return _reg_to_bits(native_ext.crc_register(data_bits, poly, nbits), nbits)
+
+
+def crc_bits_plain(data_bits, poly: int, nbits: int) -> np.ndarray:
+    """crc_bits in NumPy and Python, a byte-table loop over the packed bits:
+    the plain version that the native register is held to."""
     data_bits = np.asarray(data_bits, np.uint8)
     # pad to a byte multiple at the FRONT with zeros: leading zeros do not
     # change the CRC of an MSB-first message

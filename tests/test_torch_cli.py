@@ -101,10 +101,61 @@ def test_parser_matches_jax_but_device_and_frame_chunk():
 
 
 def test_snr_shards_above_one_raises(capsys):
+    """One process cannot hold 2 SNR shards: the message of the JAX CLI's
+    mesh (sweep.make_mesh_2d) on one device."""
     for pipeline in ("siso", "harq"):
-        with pytest.raises(ValueError, match="A19"):
+        with pytest.raises(ValueError, match="1 devices not divisible into 2 SNR shards"):
             _port(capsys, ["sweep", "--bandwidth", "1.25", "--pipeline", pipeline,
                            "--snr-shards", "2"])
+
+
+def test_sweep_over_two_ranks_prints_once_and_resumes(capsys, tmp_path):
+    """`sweep --snr-shards 2` in two gloo ranks (parallel.mp_bench's workers,
+    as torchrun would start them): rank 0 alone prints the JSON, whose keys
+    are the JAX CLI's, and writes a checkpoint that the next run resumes;
+    the HARQ form the same."""
+    from ofdm_lte_tpu_torch.parallel import mp_bench
+    from ofdm_lte_tpu_torch import LTEConfig
+    from ofdm_lte_tpu_torch.sim import siso
+    ckpt, hckpt = str(tmp_path / "s.json"), str(tmp_path / "h.json")
+    harq = ["sweep", "--bandwidth", "1.25", "--pipeline", "harq", "--tb-bits", "104",
+            "--rv-sequence", "0,1", "--snr-min", "0", "--snr-max", "4", "--snr-step", "4",
+            "--frames", "1"]
+    sharded = ["--snr-shards", "2", "--checkpoint"]
+    jobs = [SWEEP + sharded + [ckpt]] * 2 + [harq + sharded + [hckpt]]
+    ranks = mp_bench.spawn(2, [{"job": "cli", "argv": a} for a in jobs], "cpu", timeout_s=300)
+    assert [r["stdout"] for r in ranks[1]] == ["", "", ""]
+    first, resumed, h = (json.loads(r["stdout"]) for r in ranks[0])
+    ref, href = (json.loads(_run(capsys, jcli, a)) for a in (SWEEP, harq))
+    assert list(first) == list(resumed) == list(ref) and list(h) == list(href)
+    assert first["snr_db"] == ref["snr_db"] == [4.0, 8.0]
+    # 2 SNR shards of one process each: a point's frames are one rank's
+    per_round = siso.bits_per_frame(LTEConfig(1.25), 14)
+    assert first["total_bits"] == [per_round] * 2 and resumed["total_bits"] == [2 * per_round] * 2
+    state = json.load(open(ckpt))
+    assert state["rounds"] == 2 and state["round_bers"][0] != state["round_bers"][1]
+    assert resumed["ber"] == [e / t for e, t in zip(state["errors"], state["total"])]
+    assert h["tbs_per_point"] == json.load(open(hckpt))["frames"] == 1
+
+
+@pytest.mark.parametrize("device,want", [("cuda:0", "gloo"), ("cuda", "nccl")])
+def test_sweep_ranks_on_a_named_card_take_gloo(monkeypatch, device, want):
+    """Two torchrun ranks on a host of two cards: `--device cuda:0` puts
+    both on one card, which NCCL refuses, so the group is gloo; `--device
+    cuda` gives each rank its own card and NCCL."""
+    import argparse
+    from ofdm_lte_tpu_torch.parallel import distributed
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.distributed, "is_nccl_available", lambda: True)
+    for name, value in (("WORLD_SIZE", "2"), ("LOCAL_WORLD_SIZE", "2"), ("LOCAL_RANK", "1")):
+        monkeypatch.setenv(name, value)
+    seen = {}
+    monkeypatch.setattr(distributed, "initialize", lambda **kw: seen.update(kw) or False)
+    args = argparse.Namespace(device=torch.device(device), snr_shards=1)
+    lay, brought_up = cli._sweep_layout(args)
+    assert seen["backend"] == want and not brought_up
+    assert args.device == torch.device("cuda", 0 if device == "cuda:0" else 1)
 
 
 SWEEP = ["sweep", "--bandwidth", "1.25", "--snr-min", "4", "--snr-max", "8", "--snr-step",

@@ -709,3 +709,55 @@ def test_cli_papr_on_the_card_equals_the_cpu(cuda_device, capsys):
     for label, row in cpu.items():
         for k, v in row.items():
             assert abs(card[label][k] - v) < 1e-3, (label, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipeline,shards", [("siso", 1), ("spatial", 2), ("harq", 1)])
+def test_two_gloo_ranks_on_the_card_equal_the_one_device_sweep(cuda_device, pipeline, shards):
+    """Two fresh interpreters in one gloo group, both on cuda:0, at 1.25 MHz
+    QPSK under global bits and seams: the reduced counts equal the
+    one-device sweep's, and the ranks agree."""
+    from ofdm_lte_tpu_torch.parallel import mp_bench
+    case = {"bandwidth": 1.25, "modulation": "QPSK", "symbols": 14, "pipeline": pipeline,
+            "snr": [0.0, 6.0, 60.0], "frames": 2, "seed": 5, "shards": shards}
+    if pipeline == "harq":
+        case.update(snr=[-2.0, 30.0], tb_bits=104, rv=[0, 1], iterations=2)
+    ranks = mp_bench.spawn(2, [{"job": "case", "case": case}], "cuda:0", timeout_s=300)
+    r0, r1 = ({k: v for k, v in r[0].items() if k not in ("launches", "share")} for r in ranks)
+    one = mp_bench.run_case({**case, "frames": case["frames"] * 2 // shards}, None, cuda_device)
+    assert r0 == r1
+    for key in one:
+        if key == "papr_db":
+            np.testing.assert_allclose(r0[key], one[key], rtol=1e-5)
+        else:
+            assert r0[key] == one[key], key
+        if key in ("bit_errors", "stage_failures"):
+            assert mp_bench.sum_of_shares([r[0] for r in ranks], key, len(case["snr"])) == r0[key]
+    assert ranks[0][0]["launches"]["tf32x3"] > 0
+
+
+@pytest.mark.cuda
+def test_four_ranks_with_a_card_each_reduce_over_nccl(cuda_device):
+    """Four fresh interpreters, a card each (NCCL), at 1.25 MHz QPSK under
+    global bits and seams, 1-D, on 2 SNR shards and HARQ: the ranks agree,
+    the reduced counts equal the sum of the ranks' lanes run one-device
+    (the one-device sweep of all lanes may round a few GEMM sums
+    otherwise: a rank's fewer rows split K otherwise)."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    from ofdm_lte_tpu_torch.parallel import mp_bench
+    base = {"bandwidth": 1.25, "modulation": "QPSK", "symbols": 14, "pipeline": "siso",
+            "frames": 2, "seed": 9}
+    cases = [{**base, "snr": [0.0, 6.0, 60.0]},
+             {**base, "snr": [0.0, 6.0, 60.0], "shards": 2},
+             {**base, "pipeline": "harq", "snr": [-2.0, 30.0], "tb_bits": 104, "rv": [0, 1],
+              "iterations": 2}]
+    ranks = mp_bench.spawn(4, [{"job": "case", "case": c} for c in cases], None, timeout_s=300)
+    for i, case in enumerate(cases):
+        results = [r[i] for r in ranks]
+        counts = [{k: v for k, v in r.items() if k not in ("launches", "share")}
+                  for r in results]
+        assert all(c == counts[0] for c in counts)
+        key = "stage_failures" if case["pipeline"] == "harq" else "bit_errors"
+        assert mp_bench.sum_of_shares(results, key, len(case["snr"])) == counts[0][key]
+        assert counts[0]["frames"] == case["frames"] * 4 // case.get("shards", 1)
