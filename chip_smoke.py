@@ -14,10 +14,11 @@ extended CRS layout over multipath) and TM6 beamforming with PMI feedback
 with W recomputed every 4 symbols) and the TS 36.212 coded chain (a 6,000-bit
 transport block a lane, one transmission; a 75,376-bit one with HARQ over
 rv 0-3; 8 max-log iterations), see PATHS. Every complex GEMM of every path goes through
-the tensor-core kernel `cmatmul_tf32x3` (`tc`, 4-dot form); the
+the tensor-core kernel `cmatmul_tf32x3` (`tc`, 4-dot form, `highest`); the
 tensor-core Gauss kernel `cmatmul_tf32x3_gauss` and the CUDA-core kernel
 `cmatmul_f32` (`ffma`: 4-dot and Gauss forms) are driven beside it on the
-main path; every half-iteration of the turbo decoder (the a-priori's QPP
+main path, and the kernels of the `high` and `default` precisions on the
+paths of phase 9; every half-iteration of the turbo decoder (the a-priori's QPP
 gather, the BCJR pass, the extrinsic) is one launch of `turbo_bcjr`
 (csrc/turbo_bcjr.cu), 17 a decode. Phases, each of which raises on failure:
 
@@ -125,10 +126,39 @@ gather, the BCJR pass, the extrinsic) is one launch of `turbo_bcjr`
    phase 6 against utils.profiling.roofline_report, every fraction in
    (0, 1].
 
+9. the GEMMs at the JAX package's other two precisions, set in-process
+   through OFDM_LTE_TPU_TORCH_MATMUL_PRECISION for each reading and restored
+   after: `high`, one TF32 product of the operands' TF32 heads
+   (`cmatmul_tf32`, csrc/cmatmul_tc.cu; `cmatmul_tf32_gauss`,
+   csrc/cmatmul_tc_gauss.cu), and `default`, bf16 operands with fp32 sums
+   (`cmatmul_bf16`, `cmatmul_bf16_gauss`, csrc/cmatmul_bf16.cu):
+   (a) the four kernels against the plain versions that round as they do
+   (ops.cmatmul.PLAIN; TOL) at every GEMM shape of phase 3 with its strides,
+   the two ragged shapes and the Jakes products, and against a float64
+   product of the unrounded operands within the bound that their rounding
+   allows (ops.cmatmul.rounding_bound, elementwise); the split-K pilot GEMM
+   twice through each, identical bits; (b) under `default` in the 4-dot
+   form the flagship and every path of PATHS at their clean and working SNR
+   (phase 5's bits, draws and bands; DEFAULT_EXCLUDED names a path left out
+   of its band, none), and under `high` in both forms and `default` in the
+   Gauss form the flagship, `lte_rayleigh_mp` and `coded_6000_awgn`, each
+   with its launches of the one kernel of its precision and form; the
+   flagship at 15 and 60 dB under the same bits and draws at each
+   precision, with the share of bit decisions that differ from `highest`'s
+   (0 at 60 dB); (c) VALIDATION.md's anchors (ANCHORS) at each precision
+   under the same bits and draws, with the BER's move in Monte-Carlo σ
+   (within 4); (d) the flagship step at each precision and form, and each
+   GEMM shape through each of the four kernels beside its bound (TF32 495,
+   bf16 989 TFLOP/s), its plain version and one library call
+   (torch.matmul on complex64 with allow_tf32 for `high`; for `default`
+   under float32 matmul precision "medium", or four real bf16 products
+   where that ran no bf16 kernel: the kernels it ran are printed).
+
 The second-to-last line is a JSON object describing each kernel (its times
 are sums over all timed GEMM shapes, `by_shape` has each; `launches_by_path`
-has the launches of each path, of each CLI command, `cli/<command>`, and of
-each N-process path, `nccl1/<path>` and `mp2/<path>/rank<r>`); the last is
+has the launches of each path, of each CLI command, `cli/<command>`, of
+each N-process path, `nccl1/<path>` and `mp2/<path>/rank<r>`, and of phase
+9's paths, `prec/<precision>/<path>`); the last is
 {"ok": true, "device": {...}}. Needs one card and no network.
 
     python3 chip_smoke.py --profile [PATH[,PATH...]]
@@ -158,6 +188,8 @@ import time
 import numpy as np
 import torch
 
+# the GEMM kernels with the variant, precision and form of each
+from ofdm_lte_tpu_torch.ops.cmatmul import KERNELS as CMATMUL_KERNELS
 # the card's peaks, and what a BCJR pass moves and does a step a block
 from ofdm_lte_tpu_torch.utils.profiling import (BCJR_BYTES_PER_STEP, BCJR_OPS_PER_STEP,
                                                 BCJR_SCRATCH_BYTES_PER_STEP, DATASHEET)
@@ -322,8 +354,17 @@ CLI_RUN_GEMMS = {"siso": 3, "siso-coded": 3, "harq": 3, "simo": 3, "miso": 3, "m
 
 # max|Δ| / max|C| against the plain version of the same form. tc and ffma
 # 4-dot: the same products in another sum order; Gauss (either kernel): one
-# extra rounding and a fold, t3 − t1 − t2, that cancels.
-TOL = {"tf32x3": 1e-5, "tf32x3_gauss": 1e-4, "f32_fma4": 1e-5, "f32_gauss": 1e-4}
+# extra rounding and a fold, t3 − t1 − t2, that cancels. The kernels at
+# `high` (tf32) and `default` (bf16) against the plain versions that round
+# the operands as they do (ops.cmatmul.PLAIN): the same exact products in
+# another sum order, so the same tolerances.
+TOL = {"tf32x3": 1e-5, "tf32x3_gauss": 1e-4, "f32_fma4": 1e-5, "f32_gauss": 1e-4,
+       "tf32": 1e-5, "tf32_gauss": 1e-4, "bf16": 1e-5, "bf16_gauss": 1e-4}
+# the kernels of `highest`, which phases 3, 5 and 6 drive; phase 9 drives the
+# kernels of `high` and `default`
+HIGHEST = ("tf32x3", "tf32x3_gauss", "f32_fma4", "f32_gauss")
+PRECISION_KERNELS = ("tf32", "tf32_gauss", "bf16", "bf16_gauss")
+PRECISION = {kernel: CMATMUL_KERNELS[kernel][1] for kernel in TOL}
 # turbo_bcjr against bcjr_plain under log-MAP, max|Δ| over the largest path
 # metric Σ_k (|L_sys| + |L_par| + |L_apr|)/2 (the metrics are not renormalised;
 # expf/logf and the 8-state sum order differ by ulps). Max-log: equal.
@@ -334,14 +375,22 @@ BCJR_LOGMAP_TOL = 1e-6
 # than those of all rows, so bins on the decision boundary round either way
 # (3 of 21.5 M bits in a first run on the card)
 MAX_SPLIT_ORDER_FLIPS = 1e-6
-GAUSS = {"tf32x3": False, "tf32x3_gauss": True, "f32_fma4": False, "f32_gauss": True}
-TENSOR_CORE = {"tf32x3": True, "tf32x3_gauss": True, "f32_fma4": False, "f32_gauss": False}
+GAUSS = {kernel: CMATMUL_KERNELS[kernel][2] for kernel in TOL}
+TENSOR_CORE = {kernel: CMATMUL_KERNELS[kernel][0] == "tc" for kernel in TOL}
 HBM_BYTES_PER_S = DATASHEET["hbm"]
 # name fragments of cuSOLVER's and MAGMA's Hermitian eigensolver kernels
 # (Jacobi, and the tridiagonal reduction, solve and back-transform of syevd)
 EIGENSOLVER_KERNELS = ("syev", "heev", "sytrd", "hetrd", "steqr", "stedc", "ormtr", "unmtr",
                        "eigh", "eigval", "jacobi")
-PEAK_FLOPS = {"tf32": DATASHEET["tf32"], "fp32": DATASHEET["fp32"]}
+PEAK_FLOPS = {"tf32": DATASHEET["tf32"], "bf16": DATASHEET["bf16"], "fp32": DATASHEET["fp32"]}
+# phase 9: the paths whose BER leaves its band under `default` while its
+# kernels hold their plain versions and the rounding bound; each is still
+# run and printed with its BER and σ, but not held to the band (none)
+DEFAULT_EXCLUDED = ()
+# phase 9 (c): the anchors of VALIDATION.md's precision study, (modulation,
+# bandwidth MHz, SNR dB, symbols)
+ANCHORS = (("QPSK", 5.0, 6.0, 28), ("16-QAM", 5.0, 14.0, 28), ("64-QAM", 5.0, 20.0, 28),
+           ("64-QAM", 20.0, 15.0, 14))
 
 
 def ber_band(ref: dict, lanes: int) -> tuple:
@@ -480,12 +529,84 @@ def crc_gemm_kernels(link, lanes: int) -> int:
 def bound_ms(kernel: str, M: int, K: int, N: int):
     """(ms, which) — the least time the card could take: every plane of A and
     B read once (and the CUDA-core Gauss kernel's `bsum` plane) and C written
-    once, against the operations at their peak."""
+    once, against the operations at their peak: fp32 CUDA cores for `ffma`;
+    on the tensor cores three TF32 products per fp32 product at `highest`,
+    one at `high`, one bf16 product at `default`. The planes are fp32 in
+    device memory at every precision."""
     planes = 2 * M * K + 2 * K * N + 2 * M * N + (K * N if kernel == "f32_gauss" else 0)
     t_bytes = 4 * planes / HBM_BYTES_PER_S
     flops = (6 if GAUSS[kernel] else 8) * M * K * N
-    t_ops = 3 * flops / PEAK_FLOPS["tf32"] if TENSOR_CORE[kernel] else flops / PEAK_FLOPS["fp32"]
+    if not TENSOR_CORE[kernel]:
+        t_ops = flops / PEAK_FLOPS["fp32"]
+    elif PRECISION[kernel] == "default":
+        t_ops = flops / PEAK_FLOPS["bf16"]
+    else:
+        t_ops = (3 if PRECISION[kernel] == "highest" else 1) * flops / PEAK_FLOPS["tf32"]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+@contextlib.contextmanager
+def precision_knobs(precision: str, form=None):
+    """Within the block the complex GEMMs run at `precision`
+    (OFDM_LTE_TPU_TORCH_MATMUL_PRECISION) and, where `form` is given, in that
+    form (OFDM_LTE_TPU_TORCH_CMATMUL: fma4 or gauss); both knobs are what they
+    were when the block ends."""
+    knobs = {"OFDM_LTE_TPU_TORCH_MATMUL_PRECISION": precision}
+    if form is not None:
+        knobs["OFDM_LTE_TPU_TORCH_CMATMUL"] = form
+    saved = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+# phase 9 (d): the kernels that torch.matmul runs for the library calls,
+# traced in a fresh interpreter on the card
+LIBRARY_PROBE = r"""
+import json, sys
+import torch
+from torch.profiler import ProfilerActivity, profile
+M, K, N = map(int, sys.argv[1:4])
+g = torch.Generator(device="cuda").manual_seed(0)
+a = torch.randn((M, K), dtype=torch.complex64, device="cuda", generator=g)
+b = torch.randn((K, N), dtype=torch.complex64, device="cuda", generator=g)
+r = [x.to(torch.bfloat16) for x in (a.real, a.imag, b.real, b.imag)]
+
+
+def names(fn):
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+out = {"complex64 at highest": names(lambda: a @ b)}
+torch.backends.cuda.matmul.allow_tf32 = True
+out["complex64 at high (allow_tf32)"] = names(lambda: a @ b)
+torch.set_float32_matmul_precision("medium")
+out["complex64 at default"] = names(lambda: a @ b)
+out["four real bf16 products"] = names(
+    lambda: [r[i] @ r[j] for i, j in ((0, 2), (1, 3), (0, 3), (1, 2))])
+print(json.dumps(out))
+"""
+
+
+def library_kernel_names(M: int, K: int, N: int) -> dict:
+    """The device kernels of each library call at (M, K) @ (K, N), by setting."""
+    run = subprocess.run([sys.executable, "-c", LIBRARY_PROBE, str(M), str(K), str(N)],
+                         capture_output=True, text=True, timeout=300)
+    if run.returncode != 0:
+        raise RuntimeError(f"the library probe failed:\n{run.stderr[-3000:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])
 
 
 def bcjr_registers(log: str) -> str:
@@ -997,9 +1118,10 @@ def main() -> None:
     from ofdm_lte_tpu_torch.coding import crc, turbo
     from ofdm_lte_tpu_torch.cplx import C
     from ofdm_lte_tpu_torch.ops import bcjr, ofdm, qam
-    from ofdm_lte_tpu_torch.ops.cmatmul import (cmatmul, cmatmul_plain,
+    from ofdm_lte_tpu_torch.ops.cmatmul import (PLAIN, _kernel_for, cmatmul, cmatmul_plain,
                                                 cmatmul_plain_gauss_tf32x3,
-                                                cmatmul_plain_tf32x3, default_variant)
+                                                cmatmul_plain_tf32x3, default_variant,
+                                                rounding_bound)
     from ofdm_lte_tpu_torch.rx import alamouti
     from ofdm_lte_tpu_torch.rx.estimation import SLOT_SIZE
     from ofdm_lte_tpu_torch.sim import beamforming, coded, diversity, siso, spatial
@@ -1203,8 +1325,10 @@ def main() -> None:
 
     def run_kernel(kernel, a, b, bsum):
         # only the CUDA-core Gauss kernel reads the tables' bsum plane
-        return cmatmul(a, b, gauss=GAUSS[kernel], bsum=bsum if kernel == "f32_gauss" else None,
-                       variant="tc" if TENSOR_CORE[kernel] else "ffma")
+        with precision_knobs(PRECISION[kernel]):
+            return cmatmul(a, b, gauss=GAUSS[kernel],
+                           bsum=bsum if kernel == "f32_gauss" else None,
+                           variant="tc" if TENSOR_CORE[kernel] else "ffma")
 
     def mkn(a, b):
         return int(np.prod(a.shape[:-1])), b.shape[0], b.shape[1]
@@ -1220,7 +1344,7 @@ def main() -> None:
         # each kernel once at the whole shape, the operand with the strides the
         # path gives it; the plain versions and the float64 product follow in
         # blocks of rows, so that the largest outputs (8 GB) fit beside them
-        outs = {kernel: run_kernel(kernel, a, b, bsum).reshape(M, N) for kernel in TOL}
+        outs = {kernel: run_kernel(kernel, a, b, bsum).reshape(M, N) for kernel in HIGHEST}
         torch.cuda.synchronize()
         rows = max(1, min(M, (1 << 27) // N))
         errs, ref_max, err64, scale = {}, {}, {}, 0.0
@@ -1231,7 +1355,7 @@ def main() -> None:
             scale = max(scale, exact.abs().max().item())
             err64["plain"] = max(err64.get("plain", 0.0),
                                  (c128(plain[False]) - exact).abs().max().item())
-            for kernel in TOL:
+            for kernel in HIGHEST:
                 out = C(outs[kernel].re[r0:r0 + rows], outs[kernel].im[r0:r0 + rows])
                 refs = {"plain": plain[GAUSS[kernel]]}
                 if kernel == "tf32x3":
@@ -1486,7 +1610,7 @@ def main() -> None:
 
     launches = {}
     launches_by_path = {}
-    for kernel in TOL:
+    for kernel in HIGHEST:
         with main_path_through(kernel):
             zero_counts()
             bers = {}
@@ -1715,8 +1839,8 @@ def main() -> None:
     # pass that brings the card from the CPU comparisons back to its clocks;
     # each time is the mean of its two passes
     cuda_ms(step, STEPS)
-    passes = {kernel: [] for kernel in TOL}
-    for kernel in list(TOL) + list(reversed(TOL)):
+    passes = {kernel: [] for kernel in HIGHEST}
+    for kernel in HIGHEST + HIGHEST[::-1]:
         with main_path_through(kernel):
             passes[kernel].append(cuda_ms(step, STEPS))
     os.environ["OFDM_LTE_TPU_TORCH_CMATMUL"] = "fma4"
@@ -1929,14 +2053,14 @@ def main() -> None:
         runs = {"plain": lambda: cmatmul_plain(a, b),
                 "plain_gauss": lambda: cmatmul_plain(a, b, gauss=True),
                 "library": lambda: torch.matmul(ac, bc)}
-        for kernel in TOL:
+        for kernel in HIGHEST:
             runs[kernel] = (lambda kernel=kernel: run_kernel(kernel, a, b, bsum))
         # one interleaved sequence, there and back; each time is its mean
         t = dict.fromkeys(runs, 0.0)
         for which in list(runs) + list(reversed(runs)):
             t[which] += cuda_ms(runs[which], 10, run_ahead=True) / 2
         library_ms += t["library"]
-        for kernel in TOL:
+        for kernel in HIGHEST:
             plain = t["plain_gauss" if GAUSS[kernel] else "plain"]
             bound, by = bound_ms(kernel, M, K, N)
             ms[kernel] += t[kernel]
@@ -1954,10 +2078,302 @@ def main() -> None:
         del ac, bc
         torch.cuda.empty_cache()
 
+    # -- 9. the `high` (TF32) and `default` (bf16) precisions ---------------
+    t_phase = time.perf_counter()
+    print(f"phase 9: the GEMMs at `high` ({', '.join(PRECISION_KERNELS[:2])}) and `default` "
+          f"({', '.join(PRECISION_KERNELS[2:])})")
+    launches.update(dict.fromkeys(PRECISION_KERNELS, 0))
+    prec_launches = {kernel: {} for kernel in ("tf32x3",) + PRECISION_KERNELS}
+
+    # (a) each kernel against the plain version that rounds as it does, and
+    # against the exact product of the unrounded operands within the bound
+    # that its rounding allows (ops.cmatmul.rounding_bound, elementwise)
+    bound_share = dict.fromkeys(PRECISION_KERNELS, 0.0)
+    for name, (a, b, _) in {**gemms, **new_gemms, **coded_gemms, **ragged}.items():
+        M, K, N = mkn(a, b)
+        a2 = C(a.re.reshape(M, K), a.im.reshape(M, K))
+        zero_counts()
+        outs = {kernel: run_kernel(kernel, a, b, None).reshape(M, N)
+                for kernel in PRECISION_KERNELS}
+        torch.cuda.synchronize()
+        if [cmatmul.launches_by_kernel[k] for k in PRECISION_KERNELS] != [1] * 4 \
+                or cmatmul.launches != 4 or cmatmul.copies:
+            raise AssertionError(f"phase 9 at {name}: launches {cmatmul.launches_by_kernel}, "
+                                 f"copies {cmatmul.copies}")
+        rows = max(1, min(M, (1 << 26) // N))
+        err, ref_max, err64, share = ({k: 0.0 for k in PRECISION_KERNELS} for _ in range(4))
+        scale = 0.0
+        for r0 in range(0, M, rows):
+            ab = C(a2.re[r0:r0 + rows], a2.im[r0:r0 + rows])
+            exact = c128(ab) @ c128(b)
+            mag = (ab.re.abs() + ab.im.abs()).double() @ (b.re.abs() + b.im.abs()).double()
+            scale = max(scale, exact.abs().max().item())
+            for kernel in PRECISION_KERNELS:
+                out = C(outs[kernel].re[r0:r0 + rows], outs[kernel].im[r0:r0 + rows])
+                ref = PLAIN[kernel](ab, b)
+                err[kernel] = max(err[kernel], max_diff(out, ref))
+                ref_max[kernel] = max(ref_max[kernel], plane_max(ref))
+                d = torch.maximum((out.re.double() - exact.real).abs(),
+                                  (out.im.double() - exact.imag).abs())
+                err64[kernel] = max(err64[kernel], d.max().item())
+                bound = rounding_bound(PRECISION[kernel], GAUSS[kernel], K) * mag
+                share[kernel] = max(share[kernel], (d / bound.clamp_min(1e-300)).max().item())
+                del out, ref, d, bound
+            del exact, mag
+        print(f"check {name} (M={M}, K={K}, N={N}, a strides {tuple(a.re.stride())}): " +
+              "; ".join(f"{k} vs plain max|d|/max|C| {err[k] / ref_max[k]:.3e} (tol "
+                        f"{TOL[k]:.0e}), vs float64 {err64[k] / scale:.3e}, |d| over its "
+                        f"rounding bound ({rounding_bound(PRECISION[k], GAUSS[k], K):.3e}·"
+                        f"(|Ar|+|Ai|)(|Br|+|Bi|)) at most {share[k]:.3f}"
+                        for k in PRECISION_KERNELS))
+        for kernel in PRECISION_KERNELS:
+            max_err[kernel] = max(max_err[kernel], err[kernel])
+            bound_share[kernel] = max(bound_share[kernel], share[kernel])
+            if not err[kernel] <= TOL[kernel] * ref_max[kernel] or not share[kernel] <= 1.0:
+                raise AssertionError(f"kernel {kernel} at {name}: max|d|/max|C| "
+                                     f"{err[kernel] / ref_max[kernel]:.3e} against its plain "
+                                     f"version (tol {TOL[kernel]:.0e}), {share[kernel]:.3f} of "
+                                     f"its rounding bound against float64")
+        del outs
+        torch.cuda.empty_cache()
+    print("phase 9 (a): the largest |d| against float64 over its rounding bound, every shape: " +
+          ", ".join(f"{k} {v:.4f}" for k, v in bound_share.items()))
+    a, b, _ = gemms["rx_pilot"]
+    M, K, N = mkn(a, b)
+    for kernel in PRECISION_KERNELS:
+        splits = getattr(_build.library(), f"cmatmul_{kernel}_splits")(
+            M, N, K, torch.cuda.get_device_properties(dev).multi_processor_count)
+        first, second = run_kernel(kernel, a, b, None), run_kernel(kernel, a, b, None)
+        torch.cuda.synchronize()
+        same = torch.equal(first.re, second.re) and torch.equal(first.im, second.im)
+        print(f"determinism rx_pilot {kernel}: K split {splits} ways, two runs identical: "
+              f"{same}")
+        if splits < 2 or not same:
+            raise AssertionError(f"the split-K pilot GEMM through {kernel} is not split or "
+                                 f"not reproducible")
+
+    # (b) the paths: every path and the flagship under `default` in the 4-dot
+    # form; the flagship, the multipath link and the coded link under `high`
+    # in both forms and `default` in the Gauss form. Phase 5's bits and draws.
+    main_spec = dict(kind="siso", kw={}, snr=15.0, ber60=0.0, launches=3)
+
+    def prec_path(name: str, plink, precision: str, form: str) -> None:
+        spec = main_spec if name == "main" else PATHS[name]
+        kernel = _kernel_for(form == "gauss", "tc", precision)
+        is_coded = spec["kind"] == "coded"
+        clean = CODED_CLEAN_SNR if is_coded else 60.0
+        nb = n_bits if name == "main" else path_bits(name)
+        zero_counts()
+        bers, blers = {}, {}
+        with precision_knobs(precision, form):
+            for step, snr in enumerate((clean, spec["snr"])):
+                bits = random_bits(LANES, 300 + step, nb)
+                gen.manual_seed(400 + step)
+                r = (plink(bits, snr, generator=gen) if name == "main"
+                     else run_path(plink, name, bits, snr))
+                if r.bits_rx.shape != bits.shape or r.ber.shape != (LANES,) \
+                        or not torch.isfinite(r.ber).all():
+                    raise AssertionError(f"{name} at {precision}/{form}: bits_rx "
+                                         f"{r.bits_rx.shape}, ber {r.ber.shape}")
+                bers[snr] = r.ber.mean().item()
+                if is_coded:
+                    passed = (r.crc_pass_stage if hasattr(r, "crc_pass_stage")
+                              else r.crc_pass[:, None])
+                    blers[snr] = (1.0 - passed.float().mean(dim=0)).tolist()
+        counts = dict(cmatmul.launches_by_kernel)
+        n_bcjr, copies = bcjr.bcjr_half.launches, cmatmul.copies
+        launches[kernel] += counts[kernel]
+        prec_launches[kernel][f"prec/{precision}/{name}"] = counts[kernel]
+        lo, hi = BER_15DB if name == "main" else ber_band(JAX_BER[name], LANES)
+        sigma = (hi - lo) / 8 if name == "main" else \
+            JAX_BER[name]["lane_std"] * np.sqrt(1 / JAX_BER[name]["lanes"] + 1 / LANES)
+        excluded = precision == "default" and name in DEFAULT_EXCLUDED
+        ber = bers[spec["snr"]]
+        extra = ""
+        if is_coded:
+            bands = [bler_band(q, LANES, JAX_BER[name]["lanes"]) for q in JAX_BER[name]["bler"]]
+            extra = (f", BLER@{clean:g}dB {blers[clean]}, BLER@{spec['snr']:g}dB by stage "
+                     f"{[round(q, 6) for q in blers[spec['snr']]]} (bands "
+                     f"{[(round(float(x), 4), round(float(y), 4)) for x, y in bands]}), BCJR "
+                     f"launches {n_bcjr}")
+            if any(blers[clean]) or bers[clean] != 0.0 or n_bcjr != 2 * spec["bcjr"] \
+                    or len(bands) != len(blers[spec["snr"]]) or not all(
+                        x <= q <= y for q, (x, y) in zip(blers[spec["snr"]], bands)):
+                raise AssertionError(f"{name} at {precision}/{form}: BLER {blers}, "
+                                     f"BER {bers}, {n_bcjr} BCJR launches")
+        print(f"path {name} at {precision}/{form}: BER@{clean:g}dB {bers[clean]:.6g} (at most "
+              f"{spec['ber60']}), BER@{spec['snr']:g}dB {ber:.6g} (band [{lo:.6g}, {hi:.6g}], "
+              f"sigma {sigma:.4g}, {(ber - (lo + hi) / 2) / sigma:+.2f} sigma from its centre)"
+              f"{' EXCLUDED from the band (DEFAULT_EXCLUDED)' if excluded else ''}{extra}, "
+              f"launches {kernel} {counts[kernel]}, copies {copies}")
+        if spec["ber60"] is not None and not bers[clean] <= spec["ber60"]:
+            raise AssertionError(f"{name} at {precision}/{form}: BER {bers[clean]} at {clean} "
+                                 f"dB, over {spec['ber60']}")
+        if not excluded and not lo <= ber <= hi:
+            raise AssertionError(f"{name} at {precision}/{form}: BER {ber} outside [{lo}, {hi}]")
+        if counts[kernel] != 2 * spec["launches"] \
+                or sum(counts.values()) != counts[kernel] or copies != 2 * spec.get("copies", 0):
+            raise AssertionError(f"{name} at {precision}/{form}: launches {counts}, copies "
+                                 f"{copies}; expected {2 * spec['launches']} of {kernel} alone")
+
+    repeated = ("main", "lte_rayleigh_mp", "coded_6000_awgn")
+    combos = (("default", "fma4"), ("high", "fma4"), ("high", "gauss"), ("default", "gauss"))
+    for name in ("main", *PATHS):
+        plink = link if name == "main" else path_link(name)
+        for precision, form in (combos if name in repeated else combos[:1]):
+            prec_path(name, plink, precision, form)
+        del plink
+        torch.cuda.empty_cache()
+
+    # the flagship's decisions at `high` and `default` against `highest`'s,
+    # under the same bits and draws
+    for snr, seed in ((15.0, 900), (60.0, 901)):
+        bits = random_bits(LANES, seed)
+        decided = {}
+        for precision in ("highest", "high", "default"):
+            gen.manual_seed(seed + 50)
+            zero_counts()
+            with precision_knobs(precision, "fma4"):
+                decided[precision] = link(bits, snr, generator=gen).bits_rx
+            kernel = _kernel_for(False, "tc", precision)
+            launches[kernel] += cmatmul.launches_by_kernel[kernel]
+            prec_launches[kernel][f"prec/{precision}/main_{snr:g}dB"] = \
+                cmatmul.launches_by_kernel[kernel]
+            if cmatmul.launches_by_kernel[kernel] != 3 or cmatmul.launches != 3:
+                raise AssertionError(f"the flagship at {precision}: launches "
+                                     f"{cmatmul.launches_by_kernel}")
+        shares = {p: (decided[p] != decided["highest"]).float().mean().item()
+                  for p in ("high", "default")}
+        print(f"flagship at {snr:g} dB, {LANES} lanes, same bits and draws: share of bit "
+              f"decisions that differ from `highest`: " +
+              ", ".join(f"{p} {v:.3e}" for p, v in shares.items()))
+        if snr == 60.0 and any(shares.values()):
+            raise AssertionError(f"the flagship at 60 dB decides otherwise than at `highest`: "
+                                 f"{shares}")
+
+    # (c) VALIDATION.md's anchors at each precision, same bits and draws
+    for mod, bw, snr, n_sym in ANCHORS:
+        cfg_a = LTEConfig(bw, modulation=mod)
+        link_a = siso.SisoLink(cfg_a, device=dev)
+        nb = siso.bits_per_frame(cfg_a, n_sym)
+        bits = random_bits(LANES, 950, nb)
+        total = LANES * nb
+        ber = {}
+        for precision in ("highest", "high", "default"):
+            gen.manual_seed(951)
+            with precision_knobs(precision, "fma4"):
+                ber[precision] = link_a(bits, snr, generator=gen).bit_errors.sum().item() / total
+        sigma = float(np.sqrt(ber["highest"] * (1 - ber["highest"]) / total))
+        deltas = {p: (ber[p] - ber["highest"]) / sigma for p in ("high", "default")}
+        print(f"anchor {mod} {bw:g} MHz {snr:g} dB, {n_sym} symbols x {LANES} lanes "
+              f"({total} bits): BER highest {ber['highest']:.6g}, high {ber['high']:.6g} "
+              f"({deltas['high']:+.3f} sigma), default {ber['default']:.6g} "
+              f"({deltas['default']:+.3f} sigma); sigma {sigma:.3e}")
+        if any(abs(v) > 4.0 for v in deltas.values()):
+            raise AssertionError(f"anchor {mod} {bw:g} MHz {snr:g} dB: BER moves {deltas} "
+                                 f"sigma from `highest` under the same bits and draws")
+        del link_a
+    clear_link_cache()
+    torch.cuda.empty_cache()
+
+    # (d) times: the flagship step at each precision and form, in turns there
+    # and back; each GEMM shape through each kernel beside its bound, its
+    # plain version and the library call of the same precision
+    pool = [random_bits(LANES, 1000 + i) for i in range(STEPS)]
+    settings = [(p, f) for p in ("highest", "high", "default") for f in ("fma4", "gauss")]
+    cuda_ms(step, STEPS)
+    passes = {c: [] for c in settings}
+    for c in settings + settings[::-1]:
+        with precision_knobs(*c):
+            passes[c].append(cuda_ms(step, STEPS))
+    step_ms = {c: sum(ts) / len(ts) for c, ts in passes.items()}
+    for (p, f), t in step_ms.items():
+        print(f"[{card}] main path 20 MHz 64-QAM at {p}/{f}, {LANES} lanes: {t:.4f} ms/step "
+              f"(passes {passes[p, f][0]:.4f}, {passes[p, f][1]:.4f}), "
+              f"{LANES / (t / 1e3):.1f} frames/s, {t / step_ms['highest', 'fma4']:.4f} of "
+              f"highest/fma4's")
+    del pool
+
+    @contextlib.contextmanager
+    def library_precision(precision: str):
+        """torch.matmul's own knobs for one library call at `precision`."""
+        saved = torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision()
+        if precision == "high":
+            torch.backends.cuda.matmul.allow_tf32 = True
+        else:
+            torch.set_float32_matmul_precision("medium")
+        try:
+            yield
+        finally:
+            torch.set_float32_matmul_precision(saved[1])
+            torch.backends.cuda.matmul.allow_tf32 = saved[0]
+
+    # which cuBLAS kernels the library calls run at the TX shape, traced in a
+    # fresh interpreter (in this one, after the earlier phases, the trace
+    # recorded no kernel); a complex64 product that runs no bf16 kernel is no
+    # `default` yardstick, and four real bf16 products then take its place
+    M, K, N = mkn(*gemms["tx"][:2])
+    lib_names = library_kernel_names(M, K, N)
+    for setting, names in lib_names.items():
+        print(f"library kernels at ({M}x{K})@({K}x{N}), {setting}: {names or 'none traced'}")
+    complex_bf16 = any("bf16" in n.lower() for n in lib_names["complex64 at default"])
+    yardstick = ("the complex64 product under float32 matmul precision medium" if complex_bf16
+                 else "four real bf16 torch.matmuls (bf16 out), since the complex64 product "
+                      "under float32 matmul precision medium ran no bf16 kernel")
+    print(f"library at default: {yardstick}")
+    library_ms_at = {"high": 0.0, "default": 0.0}
+    for name, (a, b, _) in {**gemms, **new_gemms, **coded_gemms}.items():
+        M, K, N = mkn(a, b)
+        ac = torch.complex(a.re, a.im).reshape(M, K).contiguous()
+        bc = torch.complex(b.re, b.im).contiguous()
+        ab16 = None if complex_bf16 else [
+            x.to(torch.bfloat16) for x in (a.re.reshape(M, K), a.im.reshape(M, K), b.re, b.im)]
+
+        def library_high():
+            with library_precision("high"):
+                return torch.matmul(ac, bc)
+
+        def library_default():
+            if ab16 is not None:
+                return [ab16[i] @ ab16[j] for i, j in ((0, 2), (1, 3), (0, 3), (1, 2))]
+            with library_precision("default"):
+                return torch.matmul(ac, bc)
+
+        runs = {"library_high": library_high, "library_default": library_default}
+        for kernel in PRECISION_KERNELS:
+            runs[kernel] = lambda kernel=kernel: run_kernel(kernel, a, b, None)
+            runs["plain_" + kernel] = lambda kernel=kernel: PLAIN[kernel](a, b)
+        t = dict.fromkeys(runs, 0.0)
+        for which in list(runs) + list(reversed(runs)):
+            t[which] += cuda_ms(runs[which], 5, run_ahead=True) / 2
+        for precision in library_ms_at:
+            library_ms_at[precision] += t["library_" + precision]
+        for kernel in PRECISION_KERNELS:
+            lib = t["library_" + PRECISION[kernel]]
+            bound, by = bound_ms(kernel, M, K, N)
+            ms[kernel] += t[kernel]
+            plain_ms[kernel] += t["plain_" + kernel]
+            bounds[kernel] += bound
+            bound_by[kernel][by] += bound
+            by_shape[kernel].append({"gemm": name, "M": M, "K": K, "N": N, "ms": t[kernel],
+                                     "plain_ms": t["plain_" + kernel], "bound_ms": bound,
+                                     "bound_by": by, "library_ms": lib})
+            print(f"[{card}] gemm {name} {kernel} ({M}x{K})@({K}x{N}): kernel "
+                  f"{t[kernel]:.4f} ms, plain {t['plain_' + kernel]:.4f} ms, library "
+                  f"{lib:.4f} ms, bound {bound:.4f} ms by {by} (share reached "
+                  f"{bound / t[kernel]:.3f})")
+        del ac, bc, ab16
+        torch.cuda.empty_cache()
+    print(f"[{card}] phase 9: {time.perf_counter() - t_phase:.2f} s wall")
+
     sources = {"tf32x3": ("cmatmul_tf32x3", "cmatmul_tc.cu", "41"),
                "tf32x3_gauss": ("cmatmul_tf32x3_gauss", "cmatmul_tc_gauss.cu", "56"),
                "f32_fma4": ("cmatmul_f32 (fma4)", "cmatmul.cu", "41"),
-               "f32_gauss": ("cmatmul_f32 (gauss)", "cmatmul.cu", "56")}
+               "f32_gauss": ("cmatmul_f32 (gauss)", "cmatmul.cu", "56"),
+               "tf32": ("cmatmul_tf32", "cmatmul_tc.cu", "41"),
+               "tf32_gauss": ("cmatmul_tf32_gauss", "cmatmul_tc_gauss.cu", "56"),
+               "bf16": ("cmatmul_bf16", "cmatmul_bf16.cu", "41"),
+               "bf16_gauss": ("cmatmul_bf16_gauss", "cmatmul_bf16.cu", "56")}
     kernels = [{
         "name": sources[kernel][0],
         "route": "cuda",
@@ -1970,10 +2386,17 @@ def main() -> None:
         "bound_ms": bounds[kernel],
         # of the summed bound, the kind that makes up more of it
         "bound_by": max(bound_by[kernel], key=bound_by[kernel].get),
-        "library_ms": library_ms,
-        "launches_by_path": {p: n for p, n in launches_by_path.items()
-                             if p == f"main/{kernel}"
-                             or (kernel == "tf32x3" and not p.startswith("main/"))},
+        "library_ms": library_ms if PRECISION[kernel] == "highest"
+        else library_ms_at[PRECISION[kernel]],
+        "launches_by_path": {**{p: n for p, n in launches_by_path.items()
+                                if p == f"main/{kernel}"
+                                or (kernel == "tf32x3" and not p.startswith("main/"))},
+                             **prec_launches.get(kernel, {})},
+        "precision": PRECISION[kernel],
+        # phase 9's flagship step at the kernel's precision and form
+        "main_step_ms": {f"{p}/{f}": t for (p, f), t in step_ms.items()
+                         if TENSOR_CORE[kernel] and p == PRECISION[kernel]
+                         and (f == "gauss") == GAUSS[kernel]},
         "by_shape": by_shape[kernel],
     } for kernel in TOL]
     ext_rows = [row for row in bcjr_rows if row["mode"] == "extrinsic"]

@@ -29,6 +29,11 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# the tensor-core complex GEMMs, each exported as cmatmul_<name> and
+# cmatmul_<name>_splits with one C signature: highest (3xTF32), high (TF32)
+# and default (bf16), each in the 4-dot and the Gauss form
+TC_KERNELS = ("tf32x3", "tf32x3_gauss", "tf32", "tf32_gauss", "bf16", "bf16_gauss")
+
 _lib = None
 build_log = ""          # compiler output of the library's build (kept beside it)
 build_seconds = 0.0     # 0.0 when the library was already built
@@ -103,10 +108,11 @@ def library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.cmatmul_f32.argtypes = [p, p, i, p, p, p, i, p, p, i, i, i, i, i, p]
         lib.cmatmul_f32.restype = i
-        for fn in (lib.cmatmul_tf32x3, lib.cmatmul_tf32x3_gauss):
+        for name in TC_KERNELS:
+            fn = getattr(lib, "cmatmul_" + name)
             fn.argtypes = [p, p, i, p, p, i, p, p, i, i, i, i, p, i, p]
             fn.restype = i
-        for fn in (lib.cmatmul_tf32x3_splits, lib.cmatmul_tf32x3_gauss_splits):
+            fn = getattr(lib, f"cmatmul_{name}_splits")
             fn.argtypes = [i, i, i, i]
             fn.restype = i
         lib.turbo_bcjr.argtypes = [p, p, p, p, i, p, p, i, i, i, i, p]

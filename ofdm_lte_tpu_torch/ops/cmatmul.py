@@ -3,29 +3,38 @@ plain versions.
 
 Counterpart of ofdm_lte_tpu/ops/pallas_kernels.py. `cmatmul` computes
 (..., M0, K) @ (K, N) on (re, im) float32 planes, with the leading batch
-dimensions flattened into M, in the 4-dot form or the 3-dot Gauss form:
+dimensions flattened into M, in the 4-dot form or the 3-dot Gauss form, at
+the precision that OFDM_LTE_TPU_TORCH_MATMUL_PRECISION names
+(ofdm_lte_tpu_torch/precision.py):
 
 - on a CPU tensor it runs `cmatmul_plain`, the same products through
-  torch.matmul in true fp32 (the form the CPU tests compare with the JAX
-  package);
+  torch.matmul in true fp32 under every precision (the form the CPU tests
+  compare with the JAX package, whose knob is inert on the CPU too);
 - on a CUDA tensor it launches a hand-written kernel, built on first use
-  (see _build.py), or raises. It never falls back to a plain version or to
-  another kernel. Which kernel serves a call is the rule in `_kernel_for`:
-  `variant="tc"`, the default, goes to the tensor cores (mma.sync, three
-  TF32 products per real product, as accurate as fp32): the 4-dot form to
-  csrc/cmatmul_tc.cu (`cmatmul_tf32x3`), the Gauss form to
-  csrc/cmatmul_tc_gauss.cu (`cmatmul_tf32x3_gauss`); `variant="ffma"` goes
-  to the fp32 CUDA-core kernel csrc/cmatmul.cu (`cmatmul_f32`, either
-  form). Each call that launches adds one to
-  `cmatmul.launches` and to its kernel's entry in
+  (see _build.py), or raises. It never falls back to a plain version, to a
+  library GEMM or to another precision's kernel. Which kernel serves a call
+  is the rule in `_kernel_for`. `variant="tc"`, the default, goes to the
+  tensor cores (mma.sync): at `highest` three TF32 products per real
+  product, as accurate as fp32 (`tf32x3`: csrc/cmatmul_tc.cu, and
+  `tf32x3_gauss`: csrc/cmatmul_tc_gauss.cu); at `high` one TF32 product of
+  the operands' TF32 heads (`tf32`, `tf32_gauss`: the same two sources); at
+  `default` bf16 operands with fp32 sums (`bf16`, `bf16_gauss`:
+  csrc/cmatmul_bf16.cu). `variant="ffma"` goes to the fp32 CUDA-core kernel
+  csrc/cmatmul.cu (`cmatmul_f32`, either form), at `highest` only: the
+  CUDA cores have no TF32 or bf16 product. Each call that launches adds one
+  to `cmatmul.launches` and to its kernel's entry in
   `cmatmul.launches_by_kernel` (a split-K call counts once), and each
   operand plane whose leading axes do not fold into one row stride, which
   `reshape` then copies, adds one to `cmatmul.copies` (see `fold_rows`).
 
-`cmatmul_plain_tf32x3` and `cmatmul_plain_gauss_tf32x3` repeat the two
-tensor-core kernels' arithmetic (the TF32 head/tail split and the twelve or
-nine products) in plain PyTorch; the tests and chip_smoke.py hold the
-kernels against them.
+`PLAIN[kernel]` is the plain PyTorch version that repeats a kernel's own
+arithmetic: `cmatmul_plain_tf32x3` and `cmatmul_plain_gauss_tf32x3` (the
+TF32 head/tail split and the twelve or nine products),
+`cmatmul_plain_tf32`, `cmatmul_plain_gauss_tf32` (the TF32 heads),
+`cmatmul_plain_bf16` and `cmatmul_plain_gauss_bf16` (planes rounded to
+bf16), each multiplied in true fp32; the tests and chip_smoke.py hold the
+kernels against them, and a product at `high` or `default` against the
+exact one within `rounding_bound`.
 """
 from __future__ import annotations
 
@@ -56,11 +65,21 @@ def default_variant(variant: str):
         _default_variant = saved
 
 
-def _kernel_for(gauss: bool, variant: str) -> str:
+# every kernel: (variant, precision, gauss) of the calls it serves
+KERNELS = {"tf32x3": ("tc", "highest", False), "tf32x3_gauss": ("tc", "highest", True),
+           "tf32": ("tc", "high", False), "tf32_gauss": ("tc", "high", True),
+           "bf16": ("tc", "default", False), "bf16_gauss": ("tc", "default", True),
+           "f32_fma4": ("ffma", "highest", False), "f32_gauss": ("ffma", "highest", True)}
+_KERNEL_OF = {call: kernel for kernel, call in KERNELS.items()}
+
+
+def _kernel_for(gauss: bool, variant: str, precision: str = "highest") -> str:
     """The one rule that says which kernel serves a CUDA call."""
-    if variant == "tc":
-        return "tf32x3_gauss" if gauss else "tf32x3"
-    return "f32_gauss" if gauss else "f32_fma4"
+    if (variant, precision, gauss) not in _KERNEL_OF:
+        raise ValueError(f"cmatmul: variant {variant!r} has no kernel at precision "
+                         f"{precision!r}: the CUDA cores (ffma) multiply in fp32 alone; "
+                         f"`high` and `default` run on the tensor cores (tc)")
+    return _KERNEL_OF[variant, precision, bool(gauss)]
 
 
 @contextlib.contextmanager
@@ -133,6 +152,85 @@ def cmatmul_plain_gauss_tf32x3(a: C, b: C) -> C:
     return C(t1 - t2, t3 - t1 - t2)
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 as the kernels at `high` round it: tf32_split's head."""
+    return tf32_split(x)[0]
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (to nearest even, as cvt.rn.bf16x2.f32), in float32."""
+    return x.to(torch.bfloat16).float()
+
+
+def _plain_rounded(a: C, b: C, gauss: bool, rnd) -> C:
+    """The planes (and, in the Gauss form, Ar+Ai and Br+Bi formed in fp32)
+    rounded by `rnd`, then multiplied in true fp32. A product of two TF32 or
+    two bf16 values is exact in fp32, so this differs from the kernel only in
+    the order of the sums."""
+    with true_fp32_products(a.re.is_cuda):
+        if gauss:
+            t1 = rnd(a.re) @ rnd(b.re)
+            t2 = rnd(a.im) @ rnd(b.im)
+            t3 = rnd(a.re + a.im) @ rnd(b.re + b.im)
+            return C(t1 - t2, t3 - t1 - t2)
+        ar, ai, br, bi = (rnd(x) for x in (a.re, a.im, b.re, b.im))
+        return C(ar @ br - ai @ bi, ar @ bi + ai @ br)
+
+
+def cmatmul_plain_tf32(a: C, b: C) -> C:
+    """The 4-dot kernel at `high` in plain PyTorch: the TF32 heads multiplied."""
+    return _plain_rounded(a, b, False, tf32_round)
+
+
+def cmatmul_plain_gauss_tf32(a: C, b: C) -> C:
+    """The Gauss kernel at `high` in plain PyTorch: Ar+Ai and Br+Bi formed in
+    fp32, the heads of the six planes multiplied, then the fold."""
+    return _plain_rounded(a, b, True, tf32_round)
+
+
+def cmatmul_plain_bf16(a: C, b: C) -> C:
+    """The 4-dot kernel at `default` in plain PyTorch: the planes rounded to
+    bf16, multiplied in fp32."""
+    return _plain_rounded(a, b, False, bf16_round)
+
+
+def cmatmul_plain_gauss_bf16(a: C, b: C) -> C:
+    """The Gauss kernel at `default` in plain PyTorch: Ar+Ai and Br+Bi formed
+    in fp32, the six planes rounded to bf16, multiplied in fp32, the fold."""
+    return _plain_rounded(a, b, True, bf16_round)
+
+
+# the plain version that repeats each kernel's arithmetic
+PLAIN = {"tf32x3": cmatmul_plain_tf32x3, "tf32x3_gauss": cmatmul_plain_gauss_tf32x3,
+         "tf32": cmatmul_plain_tf32, "tf32_gauss": cmatmul_plain_gauss_tf32,
+         "bf16": cmatmul_plain_bf16, "bf16_gauss": cmatmul_plain_gauss_bf16,
+         "f32_fma4": lambda a, b: cmatmul_plain(a, b),
+         "f32_gauss": lambda a, b: cmatmul_plain(a, b, gauss=True)}
+
+# unit roundoff of an operand rounded to TF32 (10 stored mantissa bits) or bf16 (7)
+UNIT_ROUNDOFF = {"high": 2.0 ** -11, "default": 2.0 ** -9}
+
+
+def rounding_bound(precision: str, gauss: bool, K: int) -> float:
+    """c such that, elementwise, a product at `precision` (`high` or
+    `default`) of fp32 operands lies within c·(|Ar|+|Ai|)·(|Br|+|Bi|) of the
+    exact product of those operands.
+
+    Each operand is rounded with unit roundoff u (TF32 2⁻¹¹, bf16 2⁻⁹), so a
+    product of two is within 2u + u² of the exact one, and the fp32 sums of
+    K terms add at most one ulp, 2⁻²³, of the terms' magnitude an add (the
+    tensor cores' adder truncates). The Gauss form rounds Ar+Ai and Br+Bi
+    after an fp32 add (u + 2⁻²⁴ an operand), and its imaginary part,
+    t3 − t1 − t2, carries the errors of three products whose magnitudes sum
+    to at most twice (|Ar|+|Ai|)(|Br|+|Bi|), and two more adds: twice the
+    bound."""
+    u = UNIT_ROUNDOFF[precision]
+    if not gauss:
+        return 2 * u + u * u + K * 2.0 ** -23
+    u += 2.0 ** -24 * (1 + u)
+    return 2 * (2 * u + u * u + (K + 2) * 2.0 ** -23)
+
+
 def fold_rows(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, bool]:
     """x (..., k) as (M, k) rows for the kernel, and whether that took a copy.
 
@@ -166,23 +264,22 @@ def cmatmul(a: C, b: C, gauss: bool = False, bsum: torch.Tensor = None,
     """Complex matmul a (..., M0, K) @ b (K, N) -> (..., M0, N).
 
     gauss=True selects the 3-dot Gauss form. `variant` picks the CUDA
-    kernel: "tc" (tensor cores, 3xTF32; the default) or "ffma" (CUDA cores).
-    `bsum` is b.re + b.im, precomputed by a caller whose B is a constant: only
-    the CUDA-core Gauss kernel reads it (formed here if None); the
-    tensor-core one adds the planes in registers. A CPU tensor ignores both."""
+    kernel: "tc" (tensor cores; the default) or "ffma" (CUDA cores, at
+    `highest` only: ValueError under `high` or `default`, on any device).
+    The precision is OFDM_LTE_TPU_TORCH_MATMUL_PRECISION's, read at each
+    call. `bsum` is b.re + b.im, precomputed by a caller whose B is a
+    constant: only the CUDA-core Gauss kernel reads it (formed here if
+    None); the tensor-core ones add the planes in registers. A CPU tensor
+    ignores both, and the precision: it multiplies in true fp32."""
     variant = _default_variant if variant is None else variant
     if variant not in VARIANTS:
         raise ValueError(f"cmatmul: variant {variant!r}; pick from {VARIANTS}")
+    kernel = _kernel_for(gauss, variant, matmul_precision_name())
     dev = a.re.device
     if dev.type == "cpu":
         return cmatmul_plain(a, b, gauss)
     if dev.type != "cuda":
         raise ValueError(f"cmatmul: no kernel for device {dev}")
-    name = matmul_precision_name()
-    if name != "highest":
-        raise NotImplementedError(
-            f"cmatmul: the CUDA kernels implement precision 'highest' only, got "
-            f"{name!r}; TF32 'high' and bf16 'default' are ROADMAP item B5")
 
     K = a.shape[-1]
     if a.re.shape != a.im.shape or b.re.shape != b.im.shape or b.re.ndim != 2 \
@@ -197,7 +294,6 @@ def cmatmul(a: C, b: C, gauss: bool = False, bsum: torch.Tensor = None,
     br, bi = _plane_2d(b.re, N, "b.re"), _plane_2d(b.im, N, "b.im")
     if _ld(ar) != _ld(ai) or _ld(br) != _ld(bi):
         raise ValueError("cmatmul: the re and im planes need the same strides")
-    kernel = _kernel_for(gauss, variant)
     if kernel == "f32_gauss":
         bsum = (b.re + b.im) if bsum is None else bsum
         if bsum.shape != b.re.shape or bsum.device != dev:
@@ -246,4 +342,4 @@ def cmatmul(a: C, b: C, gauss: bool = False, bsum: torch.Tensor = None,
 
 cmatmul.launches = 0
 cmatmul.copies = 0      # operand planes that did not fold into rows and were copied
-cmatmul.launches_by_kernel = {"tf32x3": 0, "tf32x3_gauss": 0, "f32_fma4": 0, "f32_gauss": 0}
+cmatmul.launches_by_kernel = dict.fromkeys(KERNELS, 0)

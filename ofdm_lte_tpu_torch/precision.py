@@ -4,16 +4,19 @@ Selected by the environment variable
 
     OFDM_LTE_TPU_TORCH_MATMUL_PRECISION = highest | high | default
 
-and read at each call. `highest` is a product as accurate as fp32 with
-fp32 accumulation (true fp32 products on the CUDA cores, or three TF32
-products per fp32 product on the tensor cores); `high` (one TF32 product)
-and `default` (bf16 operands, fp32 accumulation) name the cheaper
-tensor-core forms. The complex-GEMM kernels (ops/cmatmul.py) implement
-`highest` only and raise NotImplementedError for the other two on a CUDA
-tensor. On the CPU the knob is inert, as in the JAX package.
+and read at each call. The names are the JAX package's, and each is what it
+is on this card: `highest` is a product as accurate as fp32 with fp32
+accumulation (true fp32 products on the CUDA cores, or three TF32 products
+per fp32 product on the tensor cores); `high` is one TF32 product of the
+operands rounded to TF32; `default` is bf16 operands with fp32
+accumulation. The complex-GEMM kernels (ops/cmatmul.py) implement all
+three on the tensor cores, in both forms; the CUDA-core kernel `highest`
+alone. On the CPU the knob is inert, as in the JAX package: a CPU product
+is true fp32 at every level.
 
-The port's default is `highest` until a BER study on the H100 picks
-another; the JAX package's TPU precision study does not carry over.
+The port's default is `highest` until the H100 benchmark's cells (ROADMAP
+A8) pick another; the JAX package's TPU precision study does not carry
+over.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Time design variants of the two tensor-core complex GEMMs (4-dot and
-Gauss) against each other, and measure the card's mma.sync TF32 rate, on
-one CUDA card.
+Gauss) against each other, and measure the card's mma.sync TF32 and bf16
+rates, on one CUDA card.
 
     python3 -m ofdm_lte_tpu_torch.tools.tune_cmatmul_tc [VARIANT ...]
 
@@ -21,8 +21,10 @@ back, beside the plain versions, the CUDA-core kernels and the library
 call (torch.matmul on complex64). For each it prints registers and spills
 (-Xptxas -v), the time, and the error against a float64 product.
 
-The probe is a loop of independent mma.sync.m16n8k8 TF32 instructions on
-every SM: the rate the instruction reaches with nothing else in its way.
+The probe is a loop of independent mma.sync.m16n8k8 TF32 instructions, and
+one of mma.sync.m16n8k16 bf16 instructions (what csrc/cmatmul_bf16.cu
+issues), on every SM: the rate each instruction reaches with nothing else
+in its way. utils/profiling.CEILINGS keeps the highest reading of each.
 """
 from __future__ import annotations
 
@@ -49,7 +51,8 @@ PROBE_CU = r"""
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <stdio.h>
-template <int NACC>
+// BF16 = 0: mma.sync.m16n8k8 tf32 (2048 flops); 1: m16n8k16 bf16 (4096)
+template <int BF16, int NACC>
 __global__ void __launch_bounds__(256, 1) probe(float* out, int iters) {
   float d[NACC][4];
   uint32_t a[4] = {threadIdx.x, threadIdx.x + 1, threadIdx.x + 2, threadIdx.x + 3};
@@ -58,36 +61,50 @@ __global__ void __launch_bounds__(256, 1) probe(float* out, int iters) {
   for (int i = 0; i < NACC; ++i) for (int v = 0; v < 4; ++v) d[i][v] = 0.f;
   for (int it = 0; it < iters; ++it) {
 #pragma unroll
-    for (int i = 0; i < NACC; ++i)
-      asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-                   "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-          : "+f"(d[i][0]), "+f"(d[i][1]), "+f"(d[i][2]), "+f"(d[i][3])
-          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+    for (int i = 0; i < NACC; ++i) {
+      if (BF16)
+        asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+                     "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+            : "+f"(d[i][0]), "+f"(d[i][1]), "+f"(d[i][2]), "+f"(d[i][3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      else
+        asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+                     "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+            : "+f"(d[i][0]), "+f"(d[i][1]), "+f"(d[i][2]), "+f"(d[i][3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+    }
   }
   float s = 0.f;
 #pragma unroll
   for (int i = 0; i < NACC; ++i) for (int v = 0; v < 4; ++v) s += d[i][v];
   out[blockIdx.x * blockDim.x + threadIdx.x] = s;
 }
-template <int NACC>
+template <int BF16, int NACC>
 void run(int threads, int sms) {
   float* out; cudaMalloc(&out, sms * 256 * sizeof(float));
   const int iters = 20000;
   cudaEvent_t e0, e1; cudaEventCreate(&e0); cudaEventCreate(&e1);
-  probe<NACC><<<sms, threads>>>(out, 100);
+  probe<BF16, NACC><<<sms, threads>>>(out, 100);
   cudaEventRecord(e0);
-  probe<NACC><<<sms, threads>>>(out, iters);
+  probe<BF16, NACC><<<sms, threads>>>(out, iters);
   cudaEventRecord(e1); cudaEventSynchronize(e1);
   float ms; cudaEventElapsedTime(&ms, e0, e1);
   const double mmas = (double)sms * (threads / 32) * NACC * iters;
-  printf("probe mma.sync m16n8k8 tf32: %d warps an SM, %d independent accumulators a warp: "
+  printf("probe mma.sync %s: %d warps an SM, %d independent accumulators a warp: "
          "%.1f TFLOP/s, %.2f ns an MMA per SM quarter\n",
-         threads / 32, NACC, mmas * 2048 / ms / 1e9, ms * 1e6 / (mmas / sms / 4));
+         BF16 ? "m16n8k16 bf16" : "m16n8k8 tf32", threads / 32, NACC,
+         mmas * (BF16 ? 4096 : 2048) / ms / 1e9, ms * 1e6 / (mmas / sms / 4));
   cudaFree(out);
+}
+template <int BF16>
+void run_all(int sms) {
+  run<BF16, 1>(128, sms); run<BF16, 4>(128, sms); run<BF16, 8>(128, sms);
+  run<BF16, 8>(256, sms); run<BF16, 16>(256, sms);
 }
 int main() {
   int sms; cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0);
-  run<1>(128, sms); run<4>(128, sms); run<8>(128, sms); run<8>(256, sms); run<16>(256, sms);
+  run_all<0>(sms);
+  run_all<1>(sms);
   return 0;
 }
 """

@@ -13,22 +13,27 @@ Port of ofdm_lte_tpu/utils/profiling.py:
 Every stage is charged at max(operations / its unit's rate, bytes / HBM
 rate). The units are the card's:
 
-- "tc_highest": a complex GEMM through csrc/cmatmul_tc.cu, the `highest`
-  precision the port runs on a card: three TF32 tensor-core products per
-  fp32 product, so a third of the TF32 rate, in the 8·m·k·n convention;
+- "tc_highest", "tc_high", "tc_default": a complex GEMM through the
+  tensor-core kernels at each precision (ops/cmatmul.py), in the 8·m·k·n
+  convention: `highest` three TF32 products per fp32 product, so a third
+  of the TF32 rate; `high` one TF32 product, the TF32 rate; `default` one
+  bf16 product, the bf16 rate. The operands stay fp32 in device memory at
+  every precision (the kernels round them as they load them), so a GEMM's
+  bytes do not depend on it;
 - "fp32": the CUDA cores (elementwise passes, the RNG, demapping, the BCJR
   pass);
 - "hbm": device memory.
 
 Two tables of rates. DATASHEET: NVIDIA's for the H100 SXM at 700 W (TF32
-tensor cores 495 TFLOP/s, fp32 67 TFLOP/s, HBM 3.35 TB/s); chip_smoke.py's
-bounds read these. CEILINGS: the best the card was seen to reach, on an
-NVIDIA H100 80GB HBM3 at 700.00 W: `mma.sync` TF32 324–328 TFLOP/s (the
-probe of ofdm_lte_tpu_torch/tools/tune_cmatmul_tc.py), HBM 3.0488 TB/s
-read and written by one 2 GiB device-to-device copy (the highest of
-chip_smoke.py phase 8's readings, 3.0273–3.0488); fp32 is not measured
-and stays the data sheet's. A fraction against CEILINGS is the primary
-one; against DATASHEET a lower bound of it.
+tensor cores 495 TFLOP/s, bf16 989 TFLOP/s dense, fp32 67 TFLOP/s, HBM
+3.35 TB/s); chip_smoke.py's bounds read these. CEILINGS: the best the card
+was seen to reach, on an NVIDIA H100 80GB HBM3 at 700.00 W: `mma.sync`
+TF32 324–328 TFLOP/s and `mma.sync` m16n8k16 bf16 645.4 TFLOP/s (the
+probes of ofdm_lte_tpu_torch/tools/tune_cmatmul_tc.py), HBM 3.0488 TB/s read and
+written by one 2 GiB device-to-device copy (the highest of chip_smoke.py
+phase 8's readings, 3.0273–3.0488); fp32 is not measured and stays the
+data sheet's. A fraction against CEILINGS is the primary one; against
+DATASHEET a lower bound of it.
 
 Nothing is hoisted: the port's timed steps change the bits and the seed
 every step, so every stage is paid every step and `hoisted_stages` is
@@ -49,13 +54,15 @@ from .._build import BUILD_DIR
 from ..config import LTEConfig
 from ..grid import grid_for
 
-DATASHEET = {"tf32": 495e12, "fp32": 67e12, "hbm": 3.35e12}
-# the best seen on an NVIDIA H100 80GB HBM3 at 700.00 W: tf32 by
-# tools/tune_cmatmul_tc.py's mma.sync probe, hbm by chip_smoke.py phase 8 (a
+DATASHEET = {"tf32": 495e12, "bf16": 989e12, "fp32": 67e12, "hbm": 3.35e12}
+# the best seen on an NVIDIA H100 80GB HBM3 at 700.00 W: tf32 and bf16 by
+# tools/tune_cmatmul_tc.py's mma.sync probes, hbm by chip_smoke.py phase 8 (a
 # 2 GiB copy_, read and write counted: the highest reading); fp32 not measured
-CEILINGS = {"tf32": 328e12, "fp32": 67e12, "hbm": 3.0488e12}
+CEILINGS = {"tf32": 328e12, "bf16": 645.4e12, "fp32": 67e12, "hbm": 3.0488e12}
 CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
-UNITS = ("tc_highest", "fp32")
+# a complex GEMM's unit at each precision
+GEMM_UNITS = {"highest": "tc_highest", "high": "tc_high", "default": "tc_default"}
+UNITS = (*GEMM_UNITS.values(), "fp32")
 
 # what a BCJR pass must move and do a step a code block: 3 LLRs in (in the
 # extrinsic mode the third is the other decoder's extrinsic, gathered through
@@ -74,16 +81,19 @@ def unit_rate(unit: str, peaks: Dict[str, float] = CEILINGS) -> float:
     """Operations a second of a unit under a table of peaks."""
     if unit == "tc_highest":
         return peaks["tf32"] / 3.0
+    if unit == "tc_high":
+        return peaks["tf32"]
+    if unit == "tc_default":
+        return peaks["bf16"]
     if unit == "fp32":
         return peaks["fp32"]
     raise ValueError(f"unknown unit {unit!r}; the card's are {UNITS}")
 
 
 def _gemm_unit(precision: str) -> str:
-    if precision != "highest":
-        raise ValueError(f"precision {precision!r}: on a card the port runs 'highest' alone "
-                         f"(its tensor-core `high` and `default` are ROADMAP B5)")
-    return "tc_highest"
+    if precision not in GEMM_UNITS:
+        raise ValueError(f"precision {precision!r}; pick from {list(GEMM_UNITS)}")
+    return GEMM_UNITS[precision]
 
 
 @dataclass

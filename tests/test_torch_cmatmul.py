@@ -138,7 +138,8 @@ def test_kernel_rule():
     assert cm._kernel_for(True, "tc") == "tf32x3_gauss"
     assert cm._kernel_for(True, "ffma") == "f32_gauss"
     assert set(cm.cmatmul.launches_by_kernel) == {"tf32x3", "tf32x3_gauss", "f32_fma4",
-                                                  "f32_gauss"}
+                                                  "f32_gauss", "tf32", "tf32_gauss", "bf16",
+                                                  "bf16_gauss"}
 
 
 def test_cpu_dispatch_flattens_batch_and_launches_nothing(rng):

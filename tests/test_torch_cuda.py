@@ -109,19 +109,93 @@ def test_default_variant_context_reaches_ffma(cuda_device):
     cm.cmatmul(a, b)
     cm.cmatmul(a, b, gauss=True)
     after = cm.cmatmul.launches_by_kernel
-    assert all(after[kernel] == before[kernel] + 1 for kernel in after)
+    # the four kernels of `highest`, once each; those of `high` and `default` not at all
+    served = {"tf32x3", "tf32x3_gauss", "f32_fma4", "f32_gauss"}
+    assert all(after[kernel] == before[kernel] + (kernel in served) for kernel in after)
+
+
+# the kernels at `high` (TF32) and `default` (bf16): (precision, gauss) -> kernel
+PRECISION_KERNELS = {("high", False): "tf32", ("high", True): "tf32_gauss",
+                     ("default", False): "bf16", ("default", True): "bf16_gauss"}
+PRECISION_IDS = ["tf32", "tf32_gauss", "bf16", "bf16_gauss"]
+
+
+def _within_rounding_bound(out, a, b, precision, gauss):
+    """|out − A·B| against rounding_bound, elementwise, A·B exact (float64)."""
+    def c128(x):
+        return torch.complex(x.re.double(), x.im.double())
+
+    exact = c128(a) @ c128(b)
+    mag = (a.re.abs() + a.im.abs()).double() @ (b.re.abs() + b.im.abs()).double()
+    bound = cm.rounding_bound(precision, gauss, a.shape[-1]) * mag
+    out = c128(out)
+    return bool(((out.real - exact.real).abs() <= bound).all()
+                and ((out.imag - exact.imag).abs() <= bound).all())
 
 
 @pytest.mark.cuda
-def test_kernel_rejects_other_precisions(cuda_device, monkeypatch):
-    a = C(torch.zeros(2, 3, device=cuda_device), torch.zeros(2, 3, device=cuda_device))
-    b = C(torch.zeros(3, 4, device=cuda_device), torch.zeros(3, 4, device=cuda_device))
-    for precision in ("high", "default"):
-        monkeypatch.setenv("OFDM_LTE_TPU_TORCH_MATMUL_PRECISION", precision)
-        for variant in cm.VARIANTS:
-            for gauss in (False, True):
-                with pytest.raises(NotImplementedError):
-                    cm.cmatmul(a, b, gauss=gauss, variant=variant)
+@pytest.mark.parametrize("precision,gauss", list(PRECISION_KERNELS), ids=PRECISION_IDS)
+@pytest.mark.parametrize("M,K,N", SHAPES + [(96, 16, 30688)])
+def test_precision_kernel_matches_plain(M, K, N, precision, gauss, cuda_device, monkeypatch):
+    """The four kernels at `high` and `default` against the plain versions
+    that repeat their arithmetic (the same exact products, summed in another
+    order: 1e-5 of max|C|, 1e-4 for Gauss), and against the exact product
+    within the rounding's bound; ragged shapes and the Jakes product."""
+    monkeypatch.setenv("OFDM_LTE_TPU_TORCH_MATMUL_PRECISION", precision)
+    kernel = PRECISION_KERNELS[precision, gauss]
+    a, b = _operands(M, K, N, cuda_device)
+    before = dict(cm.cmatmul.launches_by_kernel)
+    out = cm.cmatmul(a, b, gauss=gauss)
+    after = cm.cmatmul.launches_by_kernel
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {kernel: 1}
+    torch.cuda.synchronize()
+    assert _rel_diff(out, cm.PLAIN[kernel](a, b)) <= (1e-4 if gauss else 1e-5)
+    assert _within_rounding_bound(out, a, b, precision, gauss)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,gauss", list(PRECISION_KERNELS), ids=PRECISION_IDS)
+def test_precision_kernel_reads_strided_view(precision, gauss, cuda_device, monkeypatch):
+    monkeypatch.setenv("OFDM_LTE_TPU_TORCH_MATMUL_PRECISION", precision)
+    y = C(torch.randn(64, 2192, device=cuda_device), torch.randn(64, 2192, device=cuda_device))
+    b = C(torch.randn(2048, 200, device=cuda_device), torch.randn(2048, 200, device=cuda_device))
+    view = y[::14, 144:]
+    before = cm.cmatmul.copies
+    out = cm.cmatmul(view, b, gauss=gauss)
+    assert cm.cmatmul.copies == before
+    dense = C(view.re.contiguous(), view.im.contiguous())
+    torch.cuda.synchronize()
+    kernel = PRECISION_KERNELS[precision, gauss]
+    assert _rel_diff(out, cm.PLAIN[kernel](dense, b)) <= (1e-4 if gauss else 1e-5)
+    assert _within_rounding_bound(out, dense, b, precision, gauss)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,gauss", list(PRECISION_KERNELS), ids=PRECISION_IDS)
+def test_precision_split_k_is_bit_identical(precision, gauss, cuda_device, monkeypatch):
+    monkeypatch.setenv("OFDM_LTE_TPU_TORCH_MATMUL_PRECISION", precision)
+    from ofdm_lte_tpu_torch._build import library
+    kernel = PRECISION_KERNELS[precision, gauss]
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert getattr(library(), f"cmatmul_{kernel}_splits")(256, 200, 2048, sms) > 1
+    a, b = _operands(256, 2048, 200, cuda_device)
+    runs = [cm.cmatmul(a, b, gauss=gauss) for _ in range(3)]
+    torch.cuda.synchronize()
+    for out in runs[1:]:
+        assert torch.equal(out.re, runs[0].re) and torch.equal(out.im, runs[0].im)
+    assert _rel_diff(runs[0], cm.PLAIN[kernel](a, b)) <= (1e-4 if gauss else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_ffma_has_no_high_or_default(precision, cuda_device, monkeypatch):
+    monkeypatch.setenv("OFDM_LTE_TPU_TORCH_MATMUL_PRECISION", precision)
+    a, b = _operands(8, 16, 8, cuda_device)
+    before = cm.cmatmul.launches
+    for gauss in (False, True):
+        with pytest.raises(ValueError, match="ffma"):
+            cm.cmatmul(a, b, gauss=gauss, variant="ffma")
+    assert cm.cmatmul.launches == before
 
 
 @pytest.mark.cuda

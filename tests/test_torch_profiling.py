@@ -30,6 +30,31 @@ MODELS = {
 }
 
 
+# the same models at the other two precisions (the GEMMs' unit changes; their
+# operations and bytes, and every other stage, do not)
+MODELS_AT = {
+    "siso_freq": lambda m, c, p: m.siso_frame_cost(c, 14, 256, p, 1, "freq"),
+    "spatial_time": lambda m, c, p: m.spatial_frame_cost(c, 14, 256, 4, 4, 4, p,
+                                                         channel_impl="time"),
+    "simo": lambda m, c, p: m.simo_frame_cost(c, 14, 256, num_rx=2, precision=p),
+    "sfbc": lambda m, c, p: m.sfbc_frame_cost(c, 14, 256, num_rx=2, precision=p),
+}
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("model", list(MODELS_AT))
+def test_every_stage_equals_the_jax_model_at_high_and_default(model, precision):
+    cfg = LTEConfig(20.0, modulation="64-QAM")
+    ours = MODELS_AT[model](pr, cfg, precision)
+    ref = MODELS_AT[model](jpr, JConfig(bandwidth=20.0, modulation="64-QAM"), precision)
+    assert list(ours) == list(ref)
+    for name, cost in ref.items():
+        assert (ours[name].name, ours[name].flops, ours[name].bytes) == \
+            (cost.name, cost.flops, cost.bytes), name
+        gemm = name in ("tx_idft", "rx_dft_data", "rx_dft_pilot", "rx_dft", "jakes_matmul")
+        assert ours[name].unit == (pr.GEMM_UNITS[precision] if gemm else "fp32"), name
+
+
 @pytest.mark.parametrize("model", list(MODELS))
 @pytest.mark.parametrize("config", list(CONFIGS))
 def test_every_stage_equals_the_jax_model(model, config):
@@ -44,8 +69,9 @@ def test_every_stage_equals_the_jax_model(model, config):
 
 
 def test_units_and_peaks_are_the_cards():
-    assert pr.DATASHEET == {"tf32": 495e12, "fp32": 67e12, "hbm": 3.35e12}
+    assert pr.DATASHEET == {"tf32": 495e12, "bf16": 989e12, "fp32": 67e12, "hbm": 3.35e12}
     assert 324e12 <= pr.CEILINGS["tf32"] <= 328e12
+    assert 0 < pr.CEILINGS["bf16"] <= pr.DATASHEET["bf16"]
     assert pr.CEILINGS["fp32"] == pr.DATASHEET["fp32"]
     assert 0 < pr.CEILINGS["hbm"] <= pr.DATASHEET["hbm"]
     assert "H100" in pr.CARD
@@ -55,10 +81,17 @@ def test_units_and_peaks_are_the_cards():
             assert cost.unit in pr.UNITS
             gemm = name in ("tx_idft", "rx_dft_data", "rx_dft_pilot", "rx_dft", "jakes_matmul")
             assert (cost.unit == "tc_highest") == gemm, name
-    # the `tc` kernel: three TF32 products per fp32 product
+    # the `tc` kernels: three TF32 products per fp32 product at `highest`,
+    # one at `high`, one bf16 product at `default`
     assert pr.unit_rate("tc_highest", pr.DATASHEET) == 495e12 / 3
-    with pytest.raises(ValueError, match="B5"):
-        pr.siso_frame_cost(cfg, precision="default")
+    assert pr.unit_rate("tc_high", pr.DATASHEET) == 495e12
+    assert pr.unit_rate("tc_default", pr.DATASHEET) == 989e12
+    assert pr.unit_rate("tc_default") == pr.CEILINGS["bf16"]
+    for precision, unit in (("high", "tc_high"), ("default", "tc_default")):
+        costs = pr.siso_frame_cost(cfg, 14, 256, precision)
+        assert costs["tx_idft"].unit == unit and costs["awgn_sigma"].unit == "fp32"
+    with pytest.raises(ValueError, match="precision"):
+        pr.siso_frame_cost(cfg, precision="bf17")
 
 
 def test_no_tpu_figure_and_nothing_read_from_results():
@@ -103,7 +136,7 @@ def test_chip_smoke_bounds_are_unchanged():
     before: 3.35 TB/s, TF32 495 and fp32 67 TFLOP/s; so every bound in
     PERF.md stands."""
     assert chip_smoke.HBM_BYTES_PER_S == 3.35e12
-    assert chip_smoke.PEAK_FLOPS == {"tf32": 495e12, "fp32": 67e12}
+    assert chip_smoke.PEAK_FLOPS == {"tf32": 495e12, "bf16": 989e12, "fp32": 67e12}
     assert (chip_smoke.BCJR_BYTES_PER_STEP, chip_smoke.BCJR_SCRATCH_BYTES_PER_STEP) == (16, 64)
     assert chip_smoke.BCJR_OPS_PER_STEP == {"app": 107, "extrinsic": 109}
     expected = {("tf32x3", 3584, 999, 2192): (0.3805, "operations"),
@@ -111,7 +144,13 @@ def test_chip_smoke_bounds_are_unchanged():
                 ("f32_fma4", 3584, 999, 2192): (0.9371, "operations"),
                 ("f32_gauss", 3584, 999, 2192): (0.7028, "operations"),
                 ("tf32x3", 1024, 999, 2192): (0.1087, "operations"),
-                ("tf32x3", 16384, 16, 30688): (1.2025, "bytes")}
+                ("tf32x3", 16384, 16, 30688): (1.2025, "bytes"),
+                # `high`: one TF32 product; `default`: one bf16 product
+                ("tf32", 3584, 999, 2192): (0.1268, "operations"),
+                ("tf32_gauss", 3584, 999, 2192): (0.0951, "operations"),
+                ("bf16", 3584, 999, 2192): (0.0635, "operations"),
+                ("bf16_gauss", 3584, 999, 2192): (0.0476, "operations"),
+                ("bf16", 256, 2048, 200): (0.0024, "bytes")}
     for (kernel, M, K, N), (ms, by) in expected.items():
         got, got_by = chip_smoke.bound_ms(kernel, M, K, N)
         assert (round(got, 4), got_by) == (ms, by), kernel
