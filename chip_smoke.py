@@ -28,7 +28,8 @@ gather, the BCJR pass, the extrinsic) is one launch of `turbo_bcjr`
    off) at every GEMM shape of every path, with the strided operands the
    paths make (CP-stripped and slot-start views, a leading antenna axis),
    (the coded paths' TX, RX data and RX pilot products too) and at two
-   small ragged shapes: `tc` against `cmatmul_plain` and
+   small ragged shapes and one whose A starts 4 bytes off 16-byte
+   alignment: `tc` against `cmatmul_plain` and
    `cmatmul_plain_tf32x3`, the tensor-core Gauss kernel against
    `cmatmul_plain(gauss=True)` and `cmatmul_plain_gauss_tf32x3`, `ffma`
    4-dot and Gauss against `cmatmul_plain` of the same form. Print each
@@ -129,15 +130,18 @@ gather, the BCJR pass, the extrinsic) is one launch of `turbo_bcjr`
 9. the GEMMs at the JAX package's other two precisions, set in-process
    through OFDM_LTE_TPU_TORCH_MATMUL_PRECISION for each reading and restored
    after: `high`, one TF32 product of the operands' TF32 heads
-   (`cmatmul_tf32`, csrc/cmatmul_tc.cu; `cmatmul_tf32_gauss`,
-   csrc/cmatmul_tc_gauss.cu), and `default`, bf16 operands with fp32 sums
+   (`cmatmul_tf32`, `cmatmul_tf32_gauss`: csrc/cmatmul_wgmma_tf32.cu, wgmma
+   and TMA, their registers and spills from the build log and their shared
+   memory printed), and `default`, bf16 operands with fp32 sums
    (`cmatmul_bf16`, `cmatmul_bf16_gauss`, csrc/cmatmul_bf16.cu):
    (a) the four kernels against the plain versions that round as they do
    (ops.cmatmul.PLAIN; TOL) at every GEMM shape of phase 3 with its strides,
-   the two ragged shapes and the Jakes products, and against a float64
+   the ragged shapes and the Jakes products, and against a float64
    product of the unrounded operands within the bound that their rounding
    allows (ops.cmatmul.rounding_bound, elementwise); the split-K pilot GEMM
-   twice through each, identical bits; (b) under `default` in the 4-dot
+   twice through each, identical bits; the `high` kernels' workspace query
+   against ops.cmatmul.wgmma_workspace_floats at every shape; (b) under
+   `default` in the 4-dot
    form the flagship and every path of PATHS at their clean and working SNR
    (phase 5's bits, draws and bands; DEFAULT_EXCLUDED names a path left out
    of its band, none), and under `high` in both forms and `default` in the
@@ -609,18 +613,31 @@ def library_kernel_names(M: int, K: int, N: int) -> dict:
     return json.loads(run.stdout.strip().splitlines()[-1])
 
 
-def bcjr_registers(log: str) -> str:
-    """Registers and spill of each turbo_bcjr instantiation (max-log or
-    log-MAP, mode 0 APP, 1 extrinsic, 2 hard) from nvcc's -Xptxas -v log."""
+def kernel_registers(log: str, pattern: str, label) -> str:
+    """Registers and spill of each instantiation of a kernel whose mangled name
+    matches `pattern`, from nvcc's -Xptxas -v log; label(match) names one."""
     import re
     lines, found = log.splitlines(), []
     for i, line in enumerate(lines):
-        m = re.search(r"bcjr_kernelILb([01])ELi([0-2])E", line)
+        m = re.search(pattern, line)
         if "Compiling entry function" in line and m:
             info = " ".join(x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
                             if "Used" in x or "spill" in x)
-            found.append(f"{'max-log' if m[1] == '1' else 'log-MAP'} mode {m[2]}: {info}")
+            found.append(f"{label(m)}: {info}")
     return "; ".join(found) or "not in the build log"
+
+
+def bcjr_registers(log: str) -> str:
+    """turbo_bcjr's instantiations: max-log or log-MAP, mode 0 APP, 1
+    extrinsic, 2 hard."""
+    return kernel_registers(log, r"bcjr_kernelILb([01])ELi([0-2])E",
+                            lambda m: f"{'max-log' if m[1] == '1' else 'log-MAP'} mode {m[2]}")
+
+
+def wgmma_registers(log: str) -> str:
+    """The `high` kernel's two instantiations, 4-dot and Gauss."""
+    return kernel_registers(log, r"cmatmul_wgmma_tf32_kernelILb([01])E",
+                            lambda m: "gauss" if m[1] == "1" else "4-dot")
 
 
 def profile_targets() -> set:
@@ -1118,10 +1135,11 @@ def main() -> None:
     from ofdm_lte_tpu_torch.coding import crc, turbo
     from ofdm_lte_tpu_torch.cplx import C
     from ofdm_lte_tpu_torch.ops import bcjr, ofdm, qam
-    from ofdm_lte_tpu_torch.ops.cmatmul import (PLAIN, _kernel_for, cmatmul, cmatmul_plain,
+    from ofdm_lte_tpu_torch.ops.cmatmul import (PLAIN, _kernel_for, _ld, cmatmul, cmatmul_plain,
                                                 cmatmul_plain_gauss_tf32x3,
                                                 cmatmul_plain_tf32x3, default_variant,
-                                                rounding_bound)
+                                                rounding_bound, wgmma_a_needs_copy,
+                                                wgmma_workspace_floats)
     from ofdm_lte_tpu_torch.rx import alamouti
     from ofdm_lte_tpu_torch.rx.estimation import SLOT_SIZE
     from ofdm_lte_tpu_torch.sim import beamforming, coded, diversity, siso, spatial
@@ -1293,8 +1311,11 @@ def main() -> None:
         return C(torch.randn(shape, generator=g, device=dev),
                  torch.randn(shape, generator=g, device=dev))
 
+    unaligned = randc(28, 999)          # A 4 bytes past a 16-byte boundary, lda 999
     ragged = {"ragged_28x999x300": (randc(28, 999), randc(999, 300), None),
-              "ragged_5x7x3": (randc(5, 7), randc(7, 3), None)}
+              "ragged_5x7x3": (randc(5, 7), randc(7, 3), None),
+              "unaligned_28x998x300": (C(unaligned.re[:, 1:], unaligned.im[:, 1:]),
+                                       randc(998, 300), None)}
 
     # the coded paths' call sites: TX over the frame of S symbols the
     # transport block fills, RX data on the CP-stripped view and RX pilot on
@@ -2084,6 +2105,12 @@ def main() -> None:
           f"({', '.join(PRECISION_KERNELS[2:])})")
     launches.update(dict.fromkeys(PRECISION_KERNELS, 0))
     prec_launches = {kernel: {} for kernel in ("tf32x3",) + PRECISION_KERNELS}
+    kernel_lib = _build.library()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"`high` kernels (csrc/cmatmul_wgmma_tf32.cu) registers and spill (ptxas): "
+          f"{wgmma_registers(_build.build_log)}; dynamic shared memory a block: 4-dot "
+          f"{kernel_lib.cmatmul_tf32_smem_bytes(0)} B, Gauss "
+          f"{kernel_lib.cmatmul_tf32_smem_bytes(1)} B")
 
     # (a) each kernel against the plain version that rounds as it does, and
     # against the exact product of the unrounded operands within the bound
@@ -2092,6 +2119,17 @@ def main() -> None:
     for name, (a, b, _) in {**gemms, **new_gemms, **coded_gemms, **ragged}.items():
         M, K, N = mkn(a, b)
         a2 = C(a.re.reshape(M, K), a.im.reshape(M, K))
+        # the workspace that the `high` kernels ask for, against its formula
+        lda = _ld(a2.re)
+        for kernel in PRECISION_KERNELS[:2]:
+            splits = getattr(kernel_lib, f"cmatmul_{kernel}_splits")(M, N, K, sms)
+            got = getattr(kernel_lib, f"cmatmul_{kernel}_workspace")(
+                a2.re.data_ptr(), a2.im.data_ptr(), lda, M, N, K, splits)
+            want = wgmma_workspace_floats(M, N, K, GAUSS[kernel],
+                                          wgmma_a_needs_copy(a2.re, a2.im, lda), splits)
+            if got != want:
+                raise AssertionError(f"{kernel} at {name}: workspace {got} floats, the "
+                                     f"formula {want}")
         zero_counts()
         outs = {kernel: run_kernel(kernel, a, b, None).reshape(M, N)
                 for kernel in PRECISION_KERNELS}
@@ -2370,8 +2408,8 @@ def main() -> None:
                "tf32x3_gauss": ("cmatmul_tf32x3_gauss", "cmatmul_tc_gauss.cu", "56"),
                "f32_fma4": ("cmatmul_f32 (fma4)", "cmatmul.cu", "41"),
                "f32_gauss": ("cmatmul_f32 (gauss)", "cmatmul.cu", "56"),
-               "tf32": ("cmatmul_tf32", "cmatmul_tc.cu", "41"),
-               "tf32_gauss": ("cmatmul_tf32_gauss", "cmatmul_tc_gauss.cu", "56"),
+               "tf32": ("cmatmul_tf32", "cmatmul_wgmma_tf32.cu", "41"),
+               "tf32_gauss": ("cmatmul_tf32_gauss", "cmatmul_wgmma_tf32.cu", "56"),
                "bf16": ("cmatmul_bf16", "cmatmul_bf16.cu", "41"),
                "bf16_gauss": ("cmatmul_bf16_gauss", "cmatmul_bf16.cu", "56")}
     kernels = [{

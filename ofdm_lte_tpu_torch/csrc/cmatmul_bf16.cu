@@ -14,9 +14,9 @@
 // every operand rounded to bf16 (round to nearest even, what
 // Tensor.to(torch.bfloat16) does), the products exact, the sums in fp32. In
 // the Gauss form Ar+Ai and Br+Bi are added in fp32 and then rounded like the
-// other planes. The `highest` and `high` precisions are cmatmul_tc.cu and
+// other planes. The `highest` precision is cmatmul_tc.cu and
 // cmatmul_tc_gauss.cu, whose tile, staging and split-K this file shares
-// through cmatmul_tc.cuh.
+// through cmatmul_tc.cuh; `high` is cmatmul_wgmma_tf32.cu.
 //
 // What bounds it here: operations, on the tensor cores at the bf16 rate
 // (989 TFLOP/s dense, twice TF32's): 8·M·K·N (4-dot) or 6·M·K·N (Gauss)

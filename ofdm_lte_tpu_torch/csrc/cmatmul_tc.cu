@@ -1,7 +1,5 @@
-// Planar complex GEMM for Hopper (sm_90a) on the tensor cores, in two
-// precisions: as accurate as fp32, three TF32 products per real product
-// (3xTF32, `cmatmul_tf32x3`), or one TF32 product of the operands' TF32
-// heads (`cmatmul_tf32`).
+// Planar complex GEMM for Hopper (sm_90a) on the tensor cores, as accurate
+// as fp32: three TF32 products per real product (3xTF32, `cmatmul_tf32x3`).
 //
 //   C = A @ B with A (M, K), B (K, N), C (M, N), each a pair of float32
 //   planes (re, im), row-major, unit inner stride, row strides lda/ldb/ldc.
@@ -10,18 +8,11 @@
 //
 // Replaces the TPU kernel ofdm_lte_tpu/ops/pallas_kernels.py:_cmatmul_kernel
 // (driven by cmatmul_pallas_2d), in its 4-dot form at its `highest`
-// precision (3xTF32) and its `high` precision (1xTF32: the template
-// parameter P, products per real product, is 1). The Gauss form of the same
-// TPU kernel is cmatmul_tc_gauss.cu, which shares cmatmul_tc.cuh with this
-// file; its `default` precision (bf16) is cmatmul_bf16.cu; the fp32
-// CUDA-core kernel of cmatmul.cu stays beside them as their yardstick.
-//
-// At P = 1 each k step issues the hi·hi MMAs alone, the first of a chain
-// from zero. hi is split_tf32's head, x rounded to nearest (ties away from
-// zero): not the tensor core's own cut of a raw fp32 value, so
-// TC_SPLIT_TRUNC does not apply there. Everything else (the short chain,
-// the tiles, the staging, split-K) is the 3xTF32 kernel's, and the bound is
-// one third of its operations.
+// precision. The Gauss form of the same TPU kernel is cmatmul_tc_gauss.cu,
+// which shares cmatmul_tc.cuh with this file; its `high` precision (one TF32
+// product of operands rounded to TF32, both forms) is cmatmul_wgmma_tf32.cu
+// and its `default` precision (bf16) cmatmul_bf16.cu; the fp32 CUDA-core
+// kernel of cmatmul.cu stays beside them as their yardstick.
 //
 // What bounds it here: operations, on the tensor cores. At the modem's
 // shapes the operands are reused hundreds of times, so device memory is
@@ -98,9 +89,8 @@ constexpr int STAGE_FLOATS = T::STAGE_FLOATS;
 // One block computes a BM x BN tile of C over the K slabs
 // [blockIdx.z * slabs_per_split, ...). With gridDim.z > 1 the tile is a
 // partial sum and goes to split blockIdx.z of the scratch planes
-// (cr + z * split_stride, same for ci). P: TF32 products per real product,
-// 3 (hi·lo, lo·hi, hi·hi) or 1 (hi·hi).
-template <int P, bool AVEC, bool BVEC>
+// (cr + z * split_stride, same for ci).
+template <bool AVEC, bool BVEC>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 cmatmul_tc_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
                   int64_t lda,
@@ -210,17 +200,12 @@ cmatmul_tc_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
             }
           }
         };
-        // Cr = Ar·Br + Ai·(−Bi), Ci = Ar·Bi + Ai·Br: hi·lo, lo·hi, then hi·hi;
-        // at P = 1 hi·hi alone, whose first MMA starts the chain
-        if constexpr (P == 3) {
-          term(chain_starts, a_hi, 0, 0, b_lo, 0, 1);
-          term(false, a_lo, 0, 0, b_hi, 0, 1);
-          term(false, a_hi, 1, 1, b_lo, 2, 0);
-          term(false, a_lo, 1, 1, b_hi, 2, 0);
-          term(false, a_hi, 0, 0, b_hi, 0, 1);
-        } else {
-          term(chain_starts, a_hi, 0, 0, b_hi, 0, 1);
-        }
+        // Cr = Ar·Br + Ai·(−Bi), Ci = Ar·Bi + Ai·Br: hi·lo, lo·hi, then hi·hi
+        term(chain_starts, a_hi, 0, 0, b_lo, 0, 1);
+        term(false, a_lo, 0, 0, b_hi, 0, 1);
+        term(false, a_hi, 1, 1, b_lo, 2, 0);
+        term(false, a_lo, 1, 1, b_hi, 2, 0);
+        term(false, a_hi, 0, 0, b_hi, 0, 1);
         term(false, a_hi, 1, 1, b_hi, 2, 0);
         if (chain_ends) {
 #pragma unroll
@@ -253,9 +238,8 @@ cmatmul_tc_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
       }
 }
 
-template <int P>
-const TileKernel KERNELS[4] = {cmatmul_tc_kernel<P, false, false>, cmatmul_tc_kernel<P, false, true>,
-                               cmatmul_tc_kernel<P, true, false>, cmatmul_tc_kernel<P, true, true>};
+const TileKernel KERNELS[4] = {cmatmul_tc_kernel<false, false>, cmatmul_tc_kernel<false, true>,
+                               cmatmul_tc_kernel<true, false>, cmatmul_tc_kernel<true, true>};
 
 }  // namespace
 
@@ -271,20 +255,6 @@ extern "C" int cmatmul_tf32x3(const float* ar, const float* ai, int lda,
                               float* cr, float* ci, int ldc,
                               int M, int N, int K,
                               float* scratch, int splits, void* stream) {
-  return run_gemm<T>(KERNELS<3>, ar, ai, lda, br, bi, ldb, cr, ci, ldc, M, N, K,
-                     scratch, splits, stream);
-}
-
-// The same at `high`: one TF32 product of the heads per real product.
-extern "C" int cmatmul_tf32_splits(int M, int N, int K, int sms) {
-  return splits_for<T>(M, N, K, sms);
-}
-
-extern "C" int cmatmul_tf32(const float* ar, const float* ai, int lda,
-                            const float* br, const float* bi, int ldb,
-                            float* cr, float* ci, int ldc,
-                            int M, int N, int K,
-                            float* scratch, int splits, void* stream) {
-  return run_gemm<T>(KERNELS<1>, ar, ai, lda, br, bi, ldb, cr, ci, ldc, M, N, K,
+  return run_gemm<T>(KERNELS, ar, ai, lda, br, bi, ldb, cr, ci, ldc, M, N, K,
                      scratch, splits, stream);
 }

@@ -1,6 +1,5 @@
 // Planar complex GEMM for Hopper (sm_90a) on the tensor cores in the
-// 3-product Gauss form: as accurate as fp32 (3xTF32, `cmatmul_tf32x3_gauss`),
-// or one TF32 product of the heads per real product (`cmatmul_tf32_gauss`).
+// 3-product Gauss form, as accurate as fp32 (3xTF32, `cmatmul_tf32x3_gauss`).
 //
 //   C = A @ B with A (M, K), B (K, N), C (M, N), each a pair of float32
 //   planes (re, im), row-major, unit inner stride, row strides lda/ldb/ldc.
@@ -10,15 +9,12 @@
 //
 // Replaces the TPU kernel ofdm_lte_tpu/ops/pallas_kernels.py:_cmatmul_kernel
 // (driven by cmatmul_pallas_2d) in its Gauss form (`gauss=True`) at its
-// `highest` precision and, with the template parameter P (TF32 products per
-// real product) at 1, at its `high` precision: there each of the three real
-// products is the hi·hi MMA alone, the first of a chain from zero, on
-// split_tf32's rounded heads of Ar, Ai, Ar+Ai and Br, Bi, Br+Bi (the sums
-// formed in fp32 before the rounding). cmatmul_tc.cu is the 4-dot form of
-// the same kernel and shares cmatmul_tc.cuh with this file (staging, TF32
-// split, MMA wrappers, split-K); the `default` (bf16) Gauss kernel is in
-// cmatmul_bf16.cu; the fp32 CUDA-core Gauss kernel of cmatmul.cu
-// (`cmatmul_f32<true>`) stays as `variant="ffma"` and as the yardstick.
+// `highest` precision. cmatmul_tc.cu is the 4-dot form of the same kernel and
+// shares cmatmul_tc.cuh with this file (staging, TF32 split, MMA wrappers,
+// split-K); the `high` (TF32) Gauss kernel is in cmatmul_wgmma_tf32.cu, the
+// `default` (bf16) one in cmatmul_bf16.cu; the fp32 CUDA-core Gauss kernel of
+// cmatmul.cu (`cmatmul_f32<true>`) stays as `variant="ffma"` and as the
+// yardstick.
 //
 // What bounds it here: operations, on the tensor cores: three real products
 // of three TF32 MMAs each (hi·lo, lo·hi, hi·hi), so 3 x 6·M·K·N over the
@@ -102,7 +98,7 @@ constexpr int NACC = TCG_ACC3 ? 3 : 2;
 static_assert(NF % COLS == 0, "TCG_COLS divides TCG_NF");
 static_assert(CHAIN == 1 || CHAIN == 2 || CHAIN == 4, "TCG_CHAIN is 1, 2 or 4");
 
-template <int P, bool AVEC, bool BVEC>
+template <bool AVEC, bool BVEC>
 __global__ void __launch_bounds__(T::THREADS, T::BLOCKS_PER_SM)
 cmatmul_tc_gauss_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
                         int64_t lda,
@@ -202,35 +198,23 @@ cmatmul_tc_gauss_kernel(const float* __restrict__ ar, const float* __restrict__ 
               split_tf32(xi, b_hi[1][v], b_lo[1][v]);
               split_tf32(__fadd_rn(xr, xi), b_hi[2][v], b_lo[2][v]);
             }
-            if constexpr (P == 3) {
 #pragma unroll
-              for (int p = 0; p < 3; ++p)
+            for (int p = 0; p < 3; ++p)
 #pragma unroll
-                for (int i = 0; i < MF; ++i) {
-                  if (q == 0)
-                    mma_tf32_from_zero(chain[p][i][jj], a_hi[p][i], b_lo[p]);
-                  else
-                    mma_tf32(chain[p][i][jj], a_hi[p][i], b_lo[p]);
-                }
+              for (int i = 0; i < MF; ++i) {
+                if (q == 0)
+                  mma_tf32_from_zero(chain[p][i][jj], a_hi[p][i], b_lo[p]);
+                else
+                  mma_tf32(chain[p][i][jj], a_hi[p][i], b_lo[p]);
+              }
 #pragma unroll
-              for (int p = 0; p < 3; ++p)
+            for (int p = 0; p < 3; ++p)
 #pragma unroll
-                for (int i = 0; i < MF; ++i) mma_tf32(chain[p][i][jj], a_lo[p][i], b_hi[p]);
+              for (int i = 0; i < MF; ++i) mma_tf32(chain[p][i][jj], a_lo[p][i], b_hi[p]);
 #pragma unroll
-              for (int p = 0; p < 3; ++p)
+            for (int p = 0; p < 3; ++p)
 #pragma unroll
-                for (int i = 0; i < MF; ++i) mma_tf32(chain[p][i][jj], a_hi[p][i], b_hi[p]);
-            } else {
-#pragma unroll
-              for (int p = 0; p < 3; ++p)
-#pragma unroll
-                for (int i = 0; i < MF; ++i) {
-                  if (q == 0)
-                    mma_tf32_from_zero(chain[p][i][jj], a_hi[p][i], b_hi[p]);
-                  else
-                    mma_tf32(chain[p][i][jj], a_hi[p][i], b_hi[p]);
-                }
-            }
+              for (int i = 0; i < MF; ++i) mma_tf32(chain[p][i][jj], a_hi[p][i], b_hi[p]);
           }
         }
 #pragma unroll
@@ -278,10 +262,9 @@ cmatmul_tc_gauss_kernel(const float* __restrict__ ar, const float* __restrict__ 
       }
 }
 
-template <int P>
 const TileKernel KERNELS[4] = {
-    cmatmul_tc_gauss_kernel<P, false, false>, cmatmul_tc_gauss_kernel<P, false, true>,
-    cmatmul_tc_gauss_kernel<P, true, false>, cmatmul_tc_gauss_kernel<P, true, true>};
+    cmatmul_tc_gauss_kernel<false, false>, cmatmul_tc_gauss_kernel<false, true>,
+    cmatmul_tc_gauss_kernel<true, false>, cmatmul_tc_gauss_kernel<true, true>};
 
 }  // namespace
 
@@ -297,20 +280,6 @@ extern "C" int cmatmul_tf32x3_gauss(const float* ar, const float* ai, int lda,
                                     float* cr, float* ci, int ldc,
                                     int M, int N, int K,
                                     float* scratch, int splits, void* stream) {
-  return run_gemm<T>(KERNELS<3>, ar, ai, lda, br, bi, ldb, cr, ci, ldc, M, N, K,
-                     scratch, splits, stream);
-}
-
-// The same at `high`: one TF32 product of the heads per real product.
-extern "C" int cmatmul_tf32_gauss_splits(int M, int N, int K, int sms) {
-  return splits_for<T>(M, N, K, sms);
-}
-
-extern "C" int cmatmul_tf32_gauss(const float* ar, const float* ai, int lda,
-                                  const float* br, const float* bi, int ldb,
-                                  float* cr, float* ci, int ldc,
-                                  int M, int N, int K,
-                                  float* scratch, int splits, void* stream) {
-  return run_gemm<T>(KERNELS<1>, ar, ai, lda, br, bi, ldb, cr, ci, ldc, M, N, K,
+  return run_gemm<T>(KERNELS, ar, ai, lda, br, bi, ldb, cr, ci, ldc, M, N, K,
                      scratch, splits, stream);
 }

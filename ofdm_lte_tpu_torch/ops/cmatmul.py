@@ -14,12 +14,14 @@ the precision that OFDM_LTE_TPU_TORCH_MATMUL_PRECISION names
   (see _build.py), or raises. It never falls back to a plain version, to a
   library GEMM or to another precision's kernel. Which kernel serves a call
   is the rule in `_kernel_for`. `variant="tc"`, the default, goes to the
-  tensor cores (mma.sync): at `highest` three TF32 products per real
-  product, as accurate as fp32 (`tf32x3`: csrc/cmatmul_tc.cu, and
+  tensor cores: at `highest` three TF32 products per real product, as
+  accurate as fp32 (mma.sync; `tf32x3`: csrc/cmatmul_tc.cu, and
   `tf32x3_gauss`: csrc/cmatmul_tc_gauss.cu); at `high` one TF32 product of
-  the operands' TF32 heads (`tf32`, `tf32_gauss`: the same two sources); at
-  `default` bf16 operands with fp32 sums (`bf16`, `bf16_gauss`:
-  csrc/cmatmul_bf16.cu). `variant="ffma"` goes to the fp32 CUDA-core kernel
+  the operands rounded to TF32 (wgmma with TMA; `tf32`, `tf32_gauss`:
+  csrc/cmatmul_wgmma_tf32.cu, which prepares B per call in a workspace that
+  this wrapper allocates, see `wgmma_prep_b`); at `default` bf16 operands
+  with fp32 sums (mma.sync; `bf16`, `bf16_gauss`: csrc/cmatmul_bf16.cu).
+  `variant="ffma"` goes to the fp32 CUDA-core kernel
   csrc/cmatmul.cu (`cmatmul_f32`, either form), at `highest` only: the
   CUDA cores have no TF32 or bf16 product. Each call that launches adds one
   to `cmatmul.launches` and to its kernel's entry in
@@ -207,6 +209,94 @@ PLAIN = {"tf32x3": cmatmul_plain_tf32x3, "tf32x3_gauss": cmatmul_plain_gauss_tf3
          "f32_fma4": lambda a, b: cmatmul_plain(a, b),
          "f32_gauss": lambda a, b: cmatmul_plain(a, b, gauss=True)}
 
+# The `high` kernels (csrc/cmatmul_wgmma_tf32.cu) read operands in the layout
+# that TMA and wgmma accept. Their plain twins below are what the CPU tests
+# hold that layout and the kernels' slab-by-slab sums to. The two constants
+# are the source's BK and CHAIN, which a test reads there.
+WGMMA_BK = 32           # depth of a slab: 32 fp32 values, 128 bytes
+WGMMA_CHAIN = 4         # slabs a chain of wgmmas sums from zero (128 deep)
+
+
+def wgmma_padded_k(K: int) -> int:
+    """K rounded up to a whole slab: the pitch of the prepared planes."""
+    return -(-K // WGMMA_BK) * WGMMA_BK
+
+
+def wgmma_a_needs_copy(ar: torch.Tensor, ai: torch.Tensor, lda: int) -> bool:
+    """Whether TMA cannot read A's planes in place (a base that is not 16-byte
+    aligned, or a row pitch that is not a multiple of 16 bytes), so that the
+    kernel copies them first (`wgmma_copy_a`)."""
+    return bool(ar.data_ptr() % 16 or ai.data_ptr() % 16 or lda % 4)
+
+
+def wgmma_workspace_floats(M: int, N: int, K: int, gauss: bool, a_copy: bool,
+                           splits: int) -> int:
+    """The floats of workspace one call of a `high` kernel takes (what its C
+    query cmatmul_tf32[_gauss]_workspace returns): B prepared, (N, Kp) a plane,
+    two planes or three (Gauss); A copied, (M, Kp) a plane, where TMA cannot
+    read it; the two partial planes of each K split."""
+    if M <= 0 or N <= 0 or K <= 0:
+        return 0
+    kp = wgmma_padded_k(K)
+    return ((3 if gauss else 2) * N * kp + (2 * M * kp if a_copy else 0)
+            + (2 * splits * M * N if splits > 1 else 0))
+
+
+def wgmma_prep_b(b: C, gauss: bool) -> torch.Tensor:
+    """B as the `high` kernels prepare it (prep_b_kernel): (planes, N, Kp),
+    K-major, each plane rounded to TF32 (`tf32_round`), zero past K; the
+    planes Br, Bi and, for the Gauss form, Br + Bi formed in fp32."""
+    K, N = b.re.shape
+    planes = [b.re, b.im] + ([b.re + b.im] if gauss else [])
+    out = torch.zeros((len(planes), N, wgmma_padded_k(K)), dtype=torch.float32,
+                      device=b.re.device)
+    for p, x in enumerate(planes):
+        out[p, :, :K] = tf32_round(x).t()
+    return out
+
+
+def wgmma_copy_a(a: C) -> torch.Tensor:
+    """A (M, K) as the `high` kernels copy it where TMA cannot read it in place
+    (copy_a_kernel): (2, M, Kp), the raw planes, zero past K. The kernel rounds
+    A in registers, after forming Ar + Ai for the Gauss form."""
+    M, K = a.re.shape
+    out = torch.zeros((2, M, wgmma_padded_k(K)), dtype=torch.float32, device=a.re.device)
+    out[0, :, :K] = a.re
+    out[1, :, :K] = a.im
+    return out
+
+
+def cmatmul_plain_tf32_slabs(a: C, b: C, gauss: bool) -> C:
+    """The `high` kernels' sums in plain PyTorch, from the prepared operands:
+    A rounded as the kernel rounds it (Ar + Ai formed in fp32 first, for
+    Gauss), the products of each chain of WGMMA_CHAIN slabs (128 of K) summed
+    from zero in true fp32 (the kernel sums them in the tensor cores) and
+    added to fp32 running sums, the Gauss form folded after each chain
+    (Cr += t1 − t2, Ci += t3 − t1 − t2)."""
+    M = a.re.shape[0]
+    bt = wgmma_prep_b(b, gauss)
+    at = wgmma_copy_a(a)
+    ar, ai = tf32_round(at[0]), tf32_round(at[1])
+    a_planes = [ar, ai, tf32_round(at[0] + at[1])] if gauss else [ar, ai]
+    N = b.re.shape[1]
+    cr = torch.zeros((M, N), dtype=torch.float32, device=a.re.device)
+    ci = torch.zeros_like(cr)
+    with true_fp32_products(a.re.is_cuda):
+        for k0 in range(0, bt.shape[2], WGMMA_BK * WGMMA_CHAIN):
+            sl = slice(k0, k0 + WGMMA_BK * WGMMA_CHAIN)
+            xs = [x[:, sl] for x in a_planes]
+            ys = [y[:, sl].t() for y in bt]
+            if gauss:
+                t1, t2, t3 = (x @ y for x, y in zip(xs, ys))
+                cr += t1 - t2
+                ci += t3 - t1 - t2
+            else:
+                (xr, xi), (yr, yi) = xs, ys
+                cr += xr @ yr - xi @ yi
+                ci += xr @ yi + xi @ yr
+    return C(cr, ci)
+
+
 # unit roundoff of an operand rounded to TF32 (10 stored mantissa bits) or bf16 (7)
 UNIT_ROUNDOFF = {"high": 2.0 ** -11, "default": 2.0 ** -9}
 
@@ -311,21 +401,27 @@ def cmatmul(a: C, b: C, gauss: bool = False, bsum: torch.Tensor = None,
     ci = torch.empty((M, N), dtype=torch.float32, device=dev)
     if M == 0 or N == 0:
         return C(cr.reshape(lead + (N,)), ci.reshape(lead + (N,)))
-    from .._build import library
+    from .._build import WORKSPACE_KERNELS, library
     lib = library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if variant == "tc":
             # a tile grid smaller than the card is split along K into partial
-            # sums, which the kernel's second pass adds in a fixed order
+            # sums, which the kernel's second pass adds in a fixed order; the
+            # `high` kernels' scratch is a workspace that also holds B prepared
+            # and, where TMA cannot read it in place, A copied
             run = getattr(lib, "cmatmul_" + kernel)
             sms = torch.cuda.get_device_properties(dev).multi_processor_count
             splits = getattr(lib, f"cmatmul_{kernel}_splits")(M, N, K, sms)
-            scratch = (torch.empty((2 * splits, M, N), dtype=torch.float32, device=dev)
-                       if splits > 1 else None)
+            if kernel in WORKSPACE_KERNELS:
+                floats = getattr(lib, f"cmatmul_{kernel}_workspace")(
+                    ar.data_ptr(), ai.data_ptr(), lda, M, N, K, splits)
+            else:
+                floats = 2 * splits * M * N if splits > 1 else 0
+            scratch = torch.empty(floats, dtype=torch.float32, device=dev) if floats else None
             rc = run(ar.data_ptr(), ai.data_ptr(), lda, br.data_ptr(), bi.data_ptr(), ldb,
                      cr.data_ptr(), ci.data_ptr(), N, M, N, K,
-                     scratch.data_ptr() if splits > 1 else None, splits, stream)
+                     scratch.data_ptr() if floats else None, splits, stream)
         else:
             rc = lib.cmatmul_f32(ar.data_ptr(), ai.data_ptr(), lda,
                                  br.data_ptr(), bi.data_ptr(),

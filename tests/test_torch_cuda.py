@@ -135,7 +135,8 @@ def _within_rounding_bound(out, a, b, precision, gauss):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision,gauss", list(PRECISION_KERNELS), ids=PRECISION_IDS)
-@pytest.mark.parametrize("M,K,N", SHAPES + [(96, 16, 30688)])
+@pytest.mark.parametrize("M,K,N", SHAPES + [(96, 16, 30688), (40, 16, 300), (40, 25, 130),
+                                   (70, 999, 999), (1, 999, 999), (300, 2048, 999)])
 def test_precision_kernel_matches_plain(M, K, N, precision, gauss, cuda_device, monkeypatch):
     """The four kernels at `high` and `default` against the plain versions
     that repeat their arithmetic (the same exact products, summed in another
@@ -153,13 +154,21 @@ def test_precision_kernel_matches_plain(M, K, N, precision, gauss, cuda_device, 
     assert _within_rounding_bound(out, a, b, precision, gauss)
 
 
+# A read in place: the slot-start view (a pitch of 14 rows), a base 4 bytes
+# off 16-byte alignment, an odd row pitch (the `high` kernels copy the last two
+# into their workspace, since TMA cannot read them)
+VIEWS = {"slot_start": lambda y: y[::14, 144:], "unaligned_base": lambda y: y[:, 1:2049],
+         "odd_pitch": lambda y: y[:, :2191].reshape(-1)[:61 * 2191].reshape(61, 2191)[:, :2048]}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("view", list(VIEWS))
 @pytest.mark.parametrize("precision,gauss", list(PRECISION_KERNELS), ids=PRECISION_IDS)
-def test_precision_kernel_reads_strided_view(precision, gauss, cuda_device, monkeypatch):
+def test_precision_kernel_reads_strided_view(precision, gauss, view, cuda_device, monkeypatch):
     monkeypatch.setenv("OFDM_LTE_TPU_TORCH_MATMUL_PRECISION", precision)
     y = C(torch.randn(64, 2192, device=cuda_device), torch.randn(64, 2192, device=cuda_device))
     b = C(torch.randn(2048, 200, device=cuda_device), torch.randn(2048, 200, device=cuda_device))
-    view = y[::14, 144:]
+    view = VIEWS[view](y)
     before = cm.cmatmul.copies
     out = cm.cmatmul(view, b, gauss=gauss)
     assert cm.cmatmul.copies == before
@@ -171,19 +180,104 @@ def test_precision_kernel_reads_strided_view(precision, gauss, cuda_device, monk
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,offset", [(256, 2048, 200, 0), (256, 999, 999, 0),
+                                          (256, 2048, 200, 1)])
 @pytest.mark.parametrize("precision,gauss", list(PRECISION_KERNELS), ids=PRECISION_IDS)
-def test_precision_split_k_is_bit_identical(precision, gauss, cuda_device, monkeypatch):
+def test_precision_split_k_is_bit_identical(precision, gauss, M, K, N, offset, cuda_device,
+                                            monkeypatch):
+    """The pilot GEMM's shape, K = 999 with N = 999, and A at a base 4 bytes off
+    16-byte alignment: split along K, the same bits every run."""
     monkeypatch.setenv("OFDM_LTE_TPU_TORCH_MATMUL_PRECISION", precision)
     from ofdm_lte_tpu_torch._build import library
     kernel = PRECISION_KERNELS[precision, gauss]
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    assert getattr(library(), f"cmatmul_{kernel}_splits")(256, 200, 2048, sms) > 1
-    a, b = _operands(256, 2048, 200, cuda_device)
+    assert getattr(library(), f"cmatmul_{kernel}_splits")(M, N, K, sms) > 1
+    a, b = _operands(M, K + offset, N, cuda_device)
+    a, b = C(a.re[:, offset:], a.im[:, offset:]), C(b.re[offset:], b.im[offset:])
     runs = [cm.cmatmul(a, b, gauss=gauss) for _ in range(3)]
     torch.cuda.synchronize()
     for out in runs[1:]:
         assert torch.equal(out.re, runs[0].re) and torch.equal(out.im, runs[0].im)
     assert _rel_diff(runs[0], cm.PLAIN[kernel](a, b)) <= (1e-4 if gauss else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gauss", [False, True], ids=["tf32", "tf32_gauss"])
+def test_high_runs_the_wgmma_source(gauss, cuda_device, monkeypatch):
+    """A call at `high` launches cmatmul_wgmma_tf32.cu's kernel (its launch
+    count, its entry in the build log, its workspace query, which agrees with
+    the plain formula for an A that TMA reads in place and one it copies)."""
+    monkeypatch.setenv("OFDM_LTE_TPU_TORCH_MATMUL_PRECISION", "high")
+    from ofdm_lte_tpu_torch import _build
+    lib = _build.library()
+    assert "cmatmul_wgmma_tf32_kernel" in _build.build_log
+    kernel = "tf32_gauss" if gauss else "tf32"
+    query = getattr(lib, f"cmatmul_{kernel}_workspace")
+    y = torch.empty(64, 2192, device=cuda_device)
+    for view, lda in ((y[:, 144:], 2192), (y[:, 1:], 2192), (y[:, :999], 999)):
+        for M, N, K, splits in ((64, 999, 2048, 1), (64, 200, 999, 4), (64, 300, 16, 1),
+                                (64, 300, 32, 1), (64, 300, 33, 1)):
+            want = cm.wgmma_workspace_floats(M, N, K, gauss,
+                                             cm.wgmma_a_needs_copy(view, view, lda), splits)
+            assert query(view.data_ptr(), view.data_ptr(), lda, M, N, K, splits) == want
+    a, b = _operands(64, 999, 130, cuda_device)
+    before = dict(cm.cmatmul.launches_by_kernel)
+    out = cm.cmatmul(a, b, gauss=gauss)
+    after = cm.cmatmul.launches_by_kernel
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {kernel: 1}
+    torch.cuda.synchronize()
+    assert _rel_diff(out, cm.PLAIN[kernel](a, b)) <= (1e-4 if gauss else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(64, 999, 130), (40, 2048, 70), (40, 25, 130),
+                                   (40, 16, 300)])
+@pytest.mark.parametrize("gauss", [False, True], ids=["tf32", "tf32_gauss"])
+def test_high_workspace_holds_the_twins_layout(M, K, N, gauss, cuda_device):
+    """What the `high` kernels write into their workspace, read back after a
+    call: B prepared (prep_b_kernel) and A copied (copy_a_kernel, where TMA
+    cannot read it: K = 999 and 25 here) equal their plain twins
+    wgmma_prep_b and wgmma_copy_a bit for bit."""
+    from ofdm_lte_tpu_torch._build import library
+    lib = library()
+    kernel = "tf32_gauss" if gauss else "tf32"
+    a, b = _operands(M, K, N, cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    splits = getattr(lib, f"cmatmul_{kernel}_splits")(M, N, K, sms)
+    a_copy = cm.wgmma_a_needs_copy(a.re, a.im, K)
+    floats = cm.wgmma_workspace_floats(M, N, K, gauss, a_copy, splits)
+    ws = torch.full((floats + 1,), float("nan"), device=cuda_device)
+    cr, ci = (torch.empty(M, N, device=cuda_device) for _ in range(2))
+    rc = getattr(lib, "cmatmul_" + kernel)(
+        a.re.data_ptr(), a.im.data_ptr(), K, b.re.data_ptr(), b.im.data_ptr(), N,
+        cr.data_ptr(), ci.data_ptr(), N, M, N, K, ws.data_ptr(), splits,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    want = [cm.wgmma_prep_b(b, gauss).reshape(-1)]
+    if a_copy:
+        want.append(cm.wgmma_copy_a(a).reshape(-1))
+    want = torch.cat(want)
+    assert torch.equal(ws[:want.numel()].view(torch.int32), want.view(torch.int32))
+    assert torch.isnan(ws[-1])                    # nothing written past the workspace
+    assert _rel_diff(C(cr, ci), cm.PLAIN[kernel](a, b)) <= (1e-4 if gauss else 1e-5)
+
+
+@pytest.mark.cuda
+def test_high_raises_when_the_library_fails_to_build(cuda_device, monkeypatch, tmp_path):
+    """A build that fails raises from the call at `high`: nothing falls back to
+    another kernel, a plain version or the library."""
+    monkeypatch.setenv("OFDM_LTE_TPU_TORCH_MATMUL_PRECISION", "high")
+    from ofdm_lte_tpu_torch import _build
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("--no-such-nvcc-flag",))
+    a, b = _operands(8, 16, 8, cuda_device)
+    before = cm.cmatmul.launches
+    for gauss in (False, True):
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            cm.cmatmul(a, b, gauss=gauss)
+    assert cm.cmatmul.launches == before
 
 
 @pytest.mark.cuda
