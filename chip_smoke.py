@@ -130,17 +130,20 @@ gather, the BCJR pass, the extrinsic) is one launch of `turbo_bcjr`
 9. the GEMMs at the JAX package's other two precisions, set in-process
    through OFDM_LTE_TPU_TORCH_MATMUL_PRECISION for each reading and restored
    after: `high`, one TF32 product of the operands' TF32 heads
-   (`cmatmul_tf32`, `cmatmul_tf32_gauss`: csrc/cmatmul_wgmma_tf32.cu, wgmma
-   and TMA, their registers and spills from the build log and their shared
-   memory printed), and `default`, bf16 operands with fp32 sums
-   (`cmatmul_bf16`, `cmatmul_bf16_gauss`, csrc/cmatmul_bf16.cu):
+   (`cmatmul_tf32`, `cmatmul_tf32_gauss`: csrc/cmatmul_wgmma_tf32.cu), and
+   `default`, bf16 operands with fp32 sums (`cmatmul_bf16`,
+   `cmatmul_bf16_gauss`, csrc/cmatmul_bf16.cu), all four on wgmma fed by TMA
+   (csrc/wgmma_cmatmul.cuh; their registers and spills from the build log
+   and their shared memory printed):
    (a) the four kernels against the plain versions that round as they do
    (ops.cmatmul.PLAIN; TOL) at every GEMM shape of phase 3 with its strides,
    the ragged shapes and the Jakes products, and against a float64
    product of the unrounded operands within the bound that their rounding
    allows (ops.cmatmul.rounding_bound, elementwise); the split-K pilot GEMM
-   twice through each, identical bits; the `high` kernels' workspace query
-   against ops.cmatmul.wgmma_workspace_floats at every shape; (b) under
+   twice through each, identical bits; each kernel's workspace query
+   against ops.cmatmul.wgmma_workspace_floats at every shape; each kernel
+   against its plain version at the flagship's own TX and RX data operands
+   over 8 draws of its bits (draw_errors, within TOL); (b) under
    `default` in the 4-dot
    form the flagship and every path of PATHS at their clean and working SNR
    (phase 5's bits, draws and bands; DEFAULT_EXCLUDED names a path left out
@@ -155,8 +158,10 @@ gather, the BCJR pass, the extrinsic) is one launch of `turbo_bcjr`
    GEMM shape through each of the four kernels beside its bound (TF32 495,
    bf16 989 TFLOP/s), its plain version and one library call
    (torch.matmul on complex64 with allow_tf32 for `high`; for `default`
-   under float32 matmul precision "medium", or four real bf16 products
-   where that ran no bf16 kernel: the kernels it ran are printed).
+   under float32 matmul precision "medium", or, where that ran no bf16
+   kernel, the faster of two bf16 stand-ins with bf16 out, four real
+   products and one product of the real block form (bf16_stand_ins): the
+   kernels they ran are printed).
 
 The second-to-last line is a JSON object describing each kernel (its times
 are sums over all timed GEMM shapes, `by_shape` has each; `launches_by_path`
@@ -570,6 +575,48 @@ def precision_knobs(precision: str, form=None):
                 os.environ[k] = v
 
 
+def draw_errors(kernels, seeds: int, card: str, dev) -> dict:
+    """Each kernel of `kernels` (at its own precision) against its plain
+    version at the flagship's TX and RX data GEMMs (20 MHz 64-QAM, 256 lanes
+    of 14 symbols: K = 999 and 2048, the largest K of any path; the modem's own
+    tables and signals), each of `seeds` draws of the bits a seed. Prints the
+    largest max|d|/max|C| of each (GEMM, kernel) beside its tolerance and
+    returns them."""
+    from ofdm_lte_tpu_torch.config import LTEConfig
+    from ofdm_lte_tpu_torch.ops import cmatmul as cm
+    from ofdm_lte_tpu_torch.ops import ofdm, qam
+    from ofdm_lte_tpu_torch.sim import siso
+    cfg = LTEConfig(20.0, modulation="64-QAM")
+    link = siso.SisoLink(cfg, device=dev)
+    gen = torch.Generator(device=dev)
+    errs = {(name, kernel): [] for name in ("tx", "rx_data") for kernel in kernels}
+    shapes = {}
+    for seed in range(seeds):
+        gen.manual_seed(100 + seed)
+        bits = torch.randint(0, 2, (256, siso.bits_per_frame(cfg, 14)), generator=gen,
+                             device=dev, dtype=torch.int8)
+        y = ofdm.frame_stream(link.transmit(bits), cfg)
+        gemms = {"tx": (qam.modulate(bits, cfg.modulation).reshape(256, 14, -1),
+                        link.mod_tables.b),
+                 "rx_data": (y[..., cfg.cp_length:], link.rx_tables.data.g)}
+        for name, (a, b) in gemms.items():
+            shapes[name] = (a.re.numel() // a.shape[-1], a.shape[-1], b.re.shape[1])
+            for kernel in kernels:
+                with precision_knobs(PRECISION[kernel]):
+                    out = cm.cmatmul(a, b, gauss=GAUSS[kernel])
+                ref = cm.PLAIN[kernel](a, b)
+                scale = max(ref.re.abs().max().item(), ref.im.abs().max().item())
+                errs[name, kernel].append(max((out.re - ref.re).abs().max().item(),
+                                              (out.im - ref.im).abs().max().item()) / scale)
+    for (name, kernel), e in errs.items():
+        M, K, N = shapes[name]
+        print(f"[{card}] {name} ({M}x{K})@({K}x{N}) {kernel} vs plain over {seeds} draws of "
+              f"bits: max {max(e):.3e}, mean {sum(e) / len(e):.3e}, tolerance "
+              f"{TOL[kernel]:.0e}, margin {TOL[kernel] / max(e):.2f}x "
+              f"({', '.join(f'{x:.3e}' for x in e)})")
+    return {key: max(e) for key, e in errs.items()}
+
+
 # phase 9 (d): the kernels that torch.matmul runs for the library calls,
 # traced in a fresh interpreter on the card
 LIBRARY_PROBE = r"""
@@ -600,8 +647,31 @@ torch.set_float32_matmul_precision("medium")
 out["complex64 at default"] = names(lambda: a @ b)
 out["four real bf16 products"] = names(
     lambda: [r[i] @ r[j] for i, j in ((0, 2), (1, 3), (0, 3), (1, 2))])
+kp, np_ = -(-K // 8) * 8, -(-N // 8) * 8
+ab = torch.zeros((M, 2 * kp), dtype=torch.bfloat16, device="cuda")
+bb = torch.zeros((2 * kp, 2 * np_), dtype=torch.bfloat16, device="cuda")
+out["one bf16 product of the real block form"] = names(lambda: ab @ bb)
 print(json.dumps(out))
 """
+
+
+def bf16_stand_ins(a, b) -> dict:
+    """The library's bf16 products of a (M, K) @ b (K, N), bf16 out, their
+    operands made here, outside any timed window: four real products of the
+    rounded planes (library_four), and one product of the real block form
+    [Ar | Ai] (M, 2K') @ [[Br, Bi], [-Bi, Br]] (2K', 2N') with K and N padded
+    to K', N', multiples of 8, with zeros (library_block), which cuBLAS can
+    run on its aligned kernels."""
+    (M, K), N = a.re.shape, b.re.shape[1]
+    kp, np_ = -(-K // 8) * 8, -(-N // 8) * 8
+    r = [x.to(torch.bfloat16) for x in (a.re, a.im, b.re, b.im)]
+    ab = torch.zeros((M, 2 * kp), dtype=torch.bfloat16, device=a.re.device)
+    ab[:, :K], ab[:, kp:kp + K] = r[0], r[1]
+    bb = torch.zeros((2 * kp, 2 * np_), dtype=torch.bfloat16, device=a.re.device)
+    bb[:K, :N], bb[:K, np_:np_ + N] = r[2], r[3]
+    bb[kp:kp + K, :N], bb[kp:kp + K, np_:np_ + N] = -r[3], r[2]
+    return {"library_four": lambda: [r[i] @ r[j] for i, j in ((0, 2), (1, 3), (0, 3), (1, 2))],
+            "library_block": lambda: ab @ bb}
 
 
 def library_kernel_names(M: int, K: int, N: int) -> dict:
@@ -634,9 +704,15 @@ def bcjr_registers(log: str) -> str:
                             lambda m: f"{'max-log' if m[1] == '1' else 'log-MAP'} mode {m[2]}")
 
 
-def wgmma_registers(log: str) -> str:
-    """The `high` kernel's two instantiations, 4-dot and Gauss."""
-    return kernel_registers(log, r"cmatmul_wgmma_tf32_kernelILb([01])E",
+# the wgmma kernels of each precision: their source and their name in the build log
+WGMMA_SOURCES = {"high": ("cmatmul_wgmma_tf32.cu", "cmatmul_wgmma_tf32_kernel"),
+                 "default": ("cmatmul_bf16.cu", "cmatmul_wgmma_bf16_kernel")}
+
+
+def wgmma_registers(log: str, precision: str) -> str:
+    """The two instantiations, 4-dot and Gauss, of the wgmma kernel of
+    `precision` (`high` or `default`)."""
+    return kernel_registers(log, WGMMA_SOURCES[precision][1] + r"ILb([01])E",
                             lambda m: "gauss" if m[1] == "1" else "4-dot")
 
 
@@ -2107,10 +2183,11 @@ def main() -> None:
     prec_launches = {kernel: {} for kernel in ("tf32x3",) + PRECISION_KERNELS}
     kernel_lib = _build.library()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    print(f"`high` kernels (csrc/cmatmul_wgmma_tf32.cu) registers and spill (ptxas): "
-          f"{wgmma_registers(_build.build_log)}; dynamic shared memory a block: 4-dot "
-          f"{kernel_lib.cmatmul_tf32_smem_bytes(0)} B, Gauss "
-          f"{kernel_lib.cmatmul_tf32_smem_bytes(1)} B")
+    for precision, (source, _) in WGMMA_SOURCES.items():
+        smem = getattr(kernel_lib, f"cmatmul_{_kernel_for(False, 'tc', precision)}_smem_bytes")
+        print(f"`{precision}` kernels (csrc/{source}) registers and spill (ptxas): "
+              f"{wgmma_registers(_build.build_log, precision)}; dynamic shared memory a block: "
+              f"4-dot {smem(0)} B, Gauss {smem(1)} B")
 
     # (a) each kernel against the plain version that rounds as it does, and
     # against the exact product of the unrounded operands within the bound
@@ -2119,14 +2196,15 @@ def main() -> None:
     for name, (a, b, _) in {**gemms, **new_gemms, **coded_gemms, **ragged}.items():
         M, K, N = mkn(a, b)
         a2 = C(a.re.reshape(M, K), a.im.reshape(M, K))
-        # the workspace that the `high` kernels ask for, against its formula
+        # the workspace that the wgmma kernels ask for, against its formula
         lda = _ld(a2.re)
-        for kernel in PRECISION_KERNELS[:2]:
+        for kernel in PRECISION_KERNELS:
             splits = getattr(kernel_lib, f"cmatmul_{kernel}_splits")(M, N, K, sms)
             got = getattr(kernel_lib, f"cmatmul_{kernel}_workspace")(
                 a2.re.data_ptr(), a2.im.data_ptr(), lda, M, N, K, splits)
             want = wgmma_workspace_floats(M, N, K, GAUSS[kernel],
-                                          wgmma_a_needs_copy(a2.re, a2.im, lda), splits)
+                                          wgmma_a_needs_copy(a2.re, a2.im, lda), splits,
+                                          PRECISION[kernel])
             if got != want:
                 raise AssertionError(f"{kernel} at {name}: workspace {got} floats, the "
                                      f"formula {want}")
@@ -2176,6 +2254,11 @@ def main() -> None:
         torch.cuda.empty_cache()
     print("phase 9 (a): the largest |d| against float64 over its rounding bound, every shape: " +
           ", ".join(f"{k} {v:.4f}" for k, v in bound_share.items()))
+    # the flagship's own TX and RX data operands over 8 draws of its bits
+    for (name, kernel), e in draw_errors(PRECISION_KERNELS, 8, card, dev).items():
+        if not e <= TOL[kernel]:
+            raise AssertionError(f"{kernel} at the flagship's {name}: max|d|/max|C| {e:.3e} "
+                                 f"over 8 draws, against its tolerance {TOL[kernel]:.0e}")
     a, b, _ = gemms["rx_pilot"]
     M, K, N = mkn(a, b)
     for kernel in PRECISION_KERNELS:
@@ -2349,41 +2432,53 @@ def main() -> None:
     # which cuBLAS kernels the library calls run at the TX shape, traced in a
     # fresh interpreter (in this one, after the earlier phases, the trace
     # recorded no kernel); a complex64 product that runs no bf16 kernel is no
-    # `default` yardstick, and four real bf16 products then take its place
+    # `default` yardstick, and two bf16 stand-ins (bf16 out) take its place:
+    # four real products of the rounded planes, and one product of the real
+    # block form [Ar | Ai] (M, 2K') @ [[Br, Bi], [-Bi, Br]] (2K', 2N'), K and N
+    # padded to multiples of 8 with zeros (built outside the timed window);
+    # at each shape the faster is the yardstick
     M, K, N = mkn(*gemms["tx"][:2])
     lib_names = library_kernel_names(M, K, N)
     for setting, names in lib_names.items():
         print(f"library kernels at ({M}x{K})@({K}x{N}), {setting}: {names or 'none traced'}")
     complex_bf16 = any("bf16" in n.lower() for n in lib_names["complex64 at default"])
-    yardstick = ("the complex64 product under float32 matmul precision medium" if complex_bf16
-                 else "four real bf16 torch.matmuls (bf16 out), since the complex64 product "
-                      "under float32 matmul precision medium ran no bf16 kernel")
-    print(f"library at default: {yardstick}")
+    print("library at default: " + (
+        "the complex64 product under float32 matmul precision medium" if complex_bf16
+        else "the faster of four real bf16 torch.matmuls and one of the real block form (bf16 "
+             "out), since the complex64 product under float32 matmul precision medium ran no "
+             "bf16 kernel"))
     library_ms_at = {"high": 0.0, "default": 0.0}
+    library_default_by_shape = []
     for name, (a, b, _) in {**gemms, **new_gemms, **coded_gemms}.items():
         M, K, N = mkn(a, b)
         ac = torch.complex(a.re, a.im).reshape(M, K).contiguous()
         bc = torch.complex(b.re, b.im).contiguous()
-        ab16 = None if complex_bf16 else [
-            x.to(torch.bfloat16) for x in (a.re.reshape(M, K), a.im.reshape(M, K), b.re, b.im)]
 
         def library_high():
             with library_precision("high"):
                 return torch.matmul(ac, bc)
 
-        def library_default():
-            if ab16 is not None:
-                return [ab16[i] @ ab16[j] for i, j in ((0, 2), (1, 3), (0, 3), (1, 2))]
-            with library_precision("default"):
-                return torch.matmul(ac, bc)
-
-        runs = {"library_high": library_high, "library_default": library_default}
+        runs = {"library_high": library_high}
+        if complex_bf16:
+            def library_complex():
+                with library_precision("default"):
+                    return torch.matmul(ac, bc)
+            runs["library_complex"] = library_complex
+        else:
+            runs.update(bf16_stand_ins(C(a.re.reshape(M, K), a.im.reshape(M, K)), b))
+        stand_ins = [which for which in runs if which != "library_high"]
         for kernel in PRECISION_KERNELS:
             runs[kernel] = lambda kernel=kernel: run_kernel(kernel, a, b, None)
             runs["plain_" + kernel] = lambda kernel=kernel: PLAIN[kernel](a, b)
         t = dict.fromkeys(runs, 0.0)
         for which in list(runs) + list(reversed(runs)):
             t[which] += cuda_ms(runs[which], 5, run_ahead=True) / 2
+        faster = min(stand_ins, key=t.get)
+        t["library_default"] = t[faster]
+        library_default_by_shape.append({"gemm": name, **{w: t[w] for w in stand_ins},
+                                         "yardstick": faster})
+        print(f"[{card}] gemm {name} library at default: " +
+              ", ".join(f"{w} {t[w]:.4f} ms" for w in stand_ins) + f"; the yardstick: {faster}")
         for precision in library_ms_at:
             library_ms_at[precision] += t["library_" + precision]
         for kernel in PRECISION_KERNELS:
@@ -2400,7 +2495,7 @@ def main() -> None:
                   f"{t[kernel]:.4f} ms, plain {t['plain_' + kernel]:.4f} ms, library "
                   f"{lib:.4f} ms, bound {bound:.4f} ms by {by} (share reached "
                   f"{bound / t[kernel]:.3f})")
-        del ac, bc, ab16
+        del ac, bc, runs
         torch.cuda.empty_cache()
     print(f"[{card}] phase 9: {time.perf_counter() - t_phase:.2f} s wall")
 
@@ -2426,6 +2521,8 @@ def main() -> None:
         "bound_by": max(bound_by[kernel], key=bound_by[kernel].get),
         "library_ms": library_ms if PRECISION[kernel] == "highest"
         else library_ms_at[PRECISION[kernel]],
+        **({"library_default_by_shape": library_default_by_shape}
+           if PRECISION[kernel] == "default" else {}),
         "launches_by_path": {**{p: n for p, n in launches_by_path.items()
                                 if p == f"main/{kernel}"
                                 or (kernel == "tf32x3" and not p.startswith("main/"))},

@@ -32,13 +32,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # the tensor-core complex GEMMs, each exported as cmatmul_<name> and
 # cmatmul_<name>_splits with one C signature: highest (3xTF32, mma.sync:
 # csrc/cmatmul_tc.cu, cmatmul_tc_gauss.cu), high (TF32, wgmma and TMA:
-# csrc/cmatmul_wgmma_tf32.cu) and default (bf16, mma.sync: csrc/cmatmul_bf16.cu),
-# each in the 4-dot and the Gauss form
+# csrc/cmatmul_wgmma_tf32.cu) and default (bf16, wgmma and TMA:
+# csrc/cmatmul_bf16.cu), each in the 4-dot and the Gauss form
 TC_KERNELS = ("tf32x3", "tf32x3_gauss", "tf32", "tf32_gauss", "bf16", "bf16_gauss")
 # those whose `scratch` argument is a workspace of the size that
 # cmatmul_<name>_workspace(ar, ai, lda, M, N, K, splits) returns, in floats
 # (the others take 2·splits·M·N floats of partial planes when splits > 1)
-WORKSPACE_KERNELS = ("tf32", "tf32_gauss")
+WORKSPACE_KERNELS = ("tf32", "tf32_gauss", "bf16", "bf16_gauss")
 
 _lib = None
 build_log = ""          # compiler output of the library's build (kept beside it)
@@ -125,8 +125,10 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, f"cmatmul_{name}_workspace")
             fn.argtypes = [p, p, i, i, i, i, i]
             fn.restype = ctypes.c_longlong
-        lib.cmatmul_tf32_smem_bytes.argtypes = [i]
-        lib.cmatmul_tf32_smem_bytes.restype = i
+        for name in ("tf32", "bf16"):          # the wgmma kernels' shared memory a block
+            fn = getattr(lib, f"cmatmul_{name}_smem_bytes")
+            fn.argtypes = [i]
+            fn.restype = i
         lib.turbo_bcjr.argtypes = [p, p, p, p, i, p, p, i, i, i, i, p]
         lib.turbo_bcjr.restype = i
         _lib = lib

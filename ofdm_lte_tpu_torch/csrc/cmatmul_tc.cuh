@@ -1,7 +1,8 @@
-// What the tensor-core complex GEMMs share: cmatmul_tc.cu (4-dot form),
-// cmatmul_tc_gauss.cu (3-product Gauss form) and cmatmul_bf16.cu include
-// this header, each into its own translation unit (everything here is in an
-// unnamed namespace); cmatmul_wgmma_tf32.cu takes its split-K pieces alone.
+// What the tensor-core complex GEMMs share: cmatmul_tc.cu (4-dot form) and
+// cmatmul_tc_gauss.cu (3-product Gauss form) include this header, each into
+// its own translation unit (everything here is in an unnamed namespace); the
+// wgmma kernels (cmatmul_wgmma_tf32.cu, cmatmul_bf16.cu) take its split-K
+// pieces alone, through wgmma_cmatmul.cuh.
 //
 //   - the tile geometry (Tile) and the staging of one K slab of the four
 //     planes [Ar | Ai | Br | Bi] into shared memory with cp.async, 4 or 16

@@ -18,9 +18,11 @@ the precision that OFDM_LTE_TPU_TORCH_MATMUL_PRECISION names
   accurate as fp32 (mma.sync; `tf32x3`: csrc/cmatmul_tc.cu, and
   `tf32x3_gauss`: csrc/cmatmul_tc_gauss.cu); at `high` one TF32 product of
   the operands rounded to TF32 (wgmma with TMA; `tf32`, `tf32_gauss`:
-  csrc/cmatmul_wgmma_tf32.cu, which prepares B per call in a workspace that
-  this wrapper allocates, see `wgmma_prep_b`); at `default` bf16 operands
-  with fp32 sums (mma.sync; `bf16`, `bf16_gauss`: csrc/cmatmul_bf16.cu).
+  csrc/cmatmul_wgmma_tf32.cu); at `default` bf16 operands with fp32 sums
+  (wgmma with TMA; `bf16`, `bf16_gauss`: csrc/cmatmul_bf16.cu). Both pairs
+  share their main loop (csrc/wgmma_cmatmul.cuh) and prepare B (and, at
+  `default`, A) per call in a workspace that this wrapper allocates (see
+  `wgmma_prep_b`, `wgmma_prep_a`).
   `variant="ffma"` goes to the fp32 CUDA-core kernel
   csrc/cmatmul.cu (`cmatmul_f32`, either form), at `highest` only: the
   CUDA cores have no TF32 or bf16 product. Each call that launches adds one
@@ -209,56 +211,83 @@ PLAIN = {"tf32x3": cmatmul_plain_tf32x3, "tf32x3_gauss": cmatmul_plain_gauss_tf3
          "f32_fma4": lambda a, b: cmatmul_plain(a, b),
          "f32_gauss": lambda a, b: cmatmul_plain(a, b, gauss=True)}
 
-# The `high` kernels (csrc/cmatmul_wgmma_tf32.cu) read operands in the layout
-# that TMA and wgmma accept. Their plain twins below are what the CPU tests
-# hold that layout and the kernels' slab-by-slab sums to. The two constants
-# are the source's BK and CHAIN, which a test reads there.
-WGMMA_BK = 32           # depth of a slab: 32 fp32 values, 128 bytes
-WGMMA_CHAIN = 4         # slabs a chain of wgmmas sums from zero (128 deep)
+# The wgmma kernels of `high` (csrc/cmatmul_wgmma_tf32.cu) and `default`
+# (csrc/cmatmul_bf16.cu) read operands in the layout that TMA and wgmma
+# accept. Their plain twins below, each taking the precision, are what the CPU
+# tests hold that layout and the kernels' chain-by-chain sums to. The
+# constants are each source's BK and CHAIN, which a test reads there.
+WGMMA_BK = {"high": 32, "default": 64}     # depth of a slab: one 128-byte row of A
+WGMMA_CHAIN = {"high": 4, "default": 2}    # slabs a chain sums from zero (128 of K)
+# how each precision's kernels round an operand, and the type of a prepared
+# value (TF32 in fp32 words, bf16)
+WGMMA_ROUND = {"high": tf32_round, "default": bf16_round}
+WGMMA_DTYPE = {"high": torch.float32, "default": torch.bfloat16}
 
 
-def wgmma_padded_k(K: int) -> int:
+def wgmma_padded_k(K: int, precision: str = "high") -> int:
     """K rounded up to a whole slab: the pitch of the prepared planes."""
-    return -(-K // WGMMA_BK) * WGMMA_BK
+    return -(-K // WGMMA_BK[precision]) * WGMMA_BK[precision]
 
 
 def wgmma_a_needs_copy(ar: torch.Tensor, ai: torch.Tensor, lda: int) -> bool:
     """Whether TMA cannot read A's planes in place (a base that is not 16-byte
-    aligned, or a row pitch that is not a multiple of 16 bytes), so that the
-    kernel copies them first (`wgmma_copy_a`)."""
+    aligned, or a row pitch that is not a multiple of 16 bytes), so that a
+    `high` kernel copies them first (`wgmma_copy_a`). The `default` kernels
+    prepare A at every call (`wgmma_prep_a`)."""
     return bool(ar.data_ptr() % 16 or ai.data_ptr() % 16 or lda % 4)
 
 
 def wgmma_workspace_floats(M: int, N: int, K: int, gauss: bool, a_copy: bool,
-                           splits: int) -> int:
-    """The floats of workspace one call of a `high` kernel takes (what its C
-    query cmatmul_tf32[_gauss]_workspace returns): B prepared, (N, Kp) a plane,
-    two planes or three (Gauss); A copied, (M, Kp) a plane, where TMA cannot
-    read it; the two partial planes of each K split."""
+                           splits: int, precision: str = "high") -> int:
+    """The floats of workspace one call of a wgmma kernel takes (what its C
+    query cmatmul_<kernel>_workspace returns): B prepared, (N, Kp) a plane,
+    two planes or three (Gauss); A prepared at `default`, (M, Kp) a plane, two
+    or three, else A copied, two fp32 (M, Kp) planes, where TMA cannot read it
+    (`a_copy`, read at `high` alone); the two partial planes of each K split.
+    A value of a prepared plane takes 4 bytes at `high`, 2 at `default`."""
     if M <= 0 or N <= 0 or K <= 0:
         return 0
-    kp = wgmma_padded_k(K)
-    return ((3 if gauss else 2) * N * kp + (2 * M * kp if a_copy else 0)
-            + (2 * splits * M * N if splits > 1 else 0))
+    kp, nb = wgmma_padded_k(K, precision), WGMMA_DTYPE[precision].itemsize
+    planes = 3 if gauss else 2
+    if precision == "default":
+        a_floats = planes * M * kp * nb // 4
+    else:
+        a_floats = 2 * M * kp if a_copy else 0
+    return planes * N * kp * nb // 4 + a_floats + (2 * splits * M * N if splits > 1 else 0)
 
 
-def wgmma_prep_b(b: C, gauss: bool) -> torch.Tensor:
-    """B as the `high` kernels prepare it (prep_b_kernel): (planes, N, Kp),
-    K-major, each plane rounded to TF32 (`tf32_round`), zero past K; the
-    planes Br, Bi and, for the Gauss form, Br + Bi formed in fp32."""
-    K, N = b.re.shape
-    planes = [b.re, b.im] + ([b.re + b.im] if gauss else [])
-    out = torch.zeros((len(planes), N, wgmma_padded_k(K)), dtype=torch.float32,
-                      device=b.re.device)
+def _prepared(planes, precision: str) -> torch.Tensor:
+    """The planes (rows, K) rounded as the precision rounds, (planes, rows, Kp),
+    zero past K, in the precision's prepared dtype."""
+    rows, K = planes[0].shape
+    out = torch.zeros((len(planes), rows, wgmma_padded_k(K, precision)),
+                      dtype=WGMMA_DTYPE[precision], device=planes[0].device)
     for p, x in enumerate(planes):
-        out[p, :, :K] = tf32_round(x).t()
+        out[p, :, :K] = WGMMA_ROUND[precision](x)
     return out
+
+
+def wgmma_prep_b(b: C, gauss: bool, precision: str = "high") -> torch.Tensor:
+    """B as the wgmma kernels prepare it (prep_b_kernel): (planes, N, Kp),
+    K-major, each plane rounded as the precision rounds (`WGMMA_ROUND`),
+    zero past K; the planes Br, Bi and, for the Gauss form, Br + Bi formed in
+    fp32. float32 at `high`, bfloat16 at `default`."""
+    planes = [b.re, b.im] + ([b.re + b.im] if gauss else [])
+    return _prepared([x.t() for x in planes], precision)
+
+
+def wgmma_prep_a(a: C, gauss: bool) -> torch.Tensor:
+    """A as the `default` kernels prepare it at every call (prep_a_kernel):
+    (planes, M, Kp) bfloat16, each plane rounded to nearest even, zero past
+    K; the planes Ar, Ai and, for the Gauss form, Ar + Ai formed in fp32."""
+    planes = [a.re, a.im] + ([a.re + a.im] if gauss else [])
+    return _prepared(planes, "default")
 
 
 def wgmma_copy_a(a: C) -> torch.Tensor:
     """A (M, K) as the `high` kernels copy it where TMA cannot read it in place
-    (copy_a_kernel): (2, M, Kp), the raw planes, zero past K. The kernel rounds
-    A in registers, after forming Ar + Ai for the Gauss form."""
+    (copy_a_kernel): (2, M, Kp), the raw fp32 planes, zero past K. Those
+    kernels round A in registers, after forming Ar + Ai for the Gauss form."""
     M, K = a.re.shape
     out = torch.zeros((2, M, wgmma_padded_k(K)), dtype=torch.float32, device=a.re.device)
     out[0, :, :K] = a.re
@@ -266,24 +295,28 @@ def wgmma_copy_a(a: C) -> torch.Tensor:
     return out
 
 
-def cmatmul_plain_tf32_slabs(a: C, b: C, gauss: bool) -> C:
-    """The `high` kernels' sums in plain PyTorch, from the prepared operands:
-    A rounded as the kernel rounds it (Ar + Ai formed in fp32 first, for
-    Gauss), the products of each chain of WGMMA_CHAIN slabs (128 of K) summed
+def cmatmul_plain_wgmma_slabs(a: C, b: C, gauss: bool, precision: str = "high") -> C:
+    """The wgmma kernels' sums in plain PyTorch, from the prepared operands:
+    A rounded as the kernel rounds it (at `high` in registers, from the raw
+    planes; at `default` by its prep), Ar + Ai formed in fp32 first for
+    Gauss; the products of each chain of WGMMA_CHAIN slabs (128 of K) summed
     from zero in true fp32 (the kernel sums them in the tensor cores) and
     added to fp32 running sums, the Gauss form folded after each chain
     (Cr += t1 − t2, Ci += t3 − t1 − t2)."""
-    M = a.re.shape[0]
-    bt = wgmma_prep_b(b, gauss)
-    at = wgmma_copy_a(a)
-    ar, ai = tf32_round(at[0]), tf32_round(at[1])
-    a_planes = [ar, ai, tf32_round(at[0] + at[1])] if gauss else [ar, ai]
-    N = b.re.shape[1]
+    M, N = a.re.shape[0], b.re.shape[1]
+    bt = wgmma_prep_b(b, gauss, precision).float()
+    if precision == "default":
+        a_planes = list(wgmma_prep_a(a, gauss).float())
+    else:
+        at = wgmma_copy_a(a)
+        a_planes = [tf32_round(at[0]), tf32_round(at[1])]
+        a_planes += [tf32_round(at[0] + at[1])] if gauss else []
     cr = torch.zeros((M, N), dtype=torch.float32, device=a.re.device)
     ci = torch.zeros_like(cr)
+    depth = WGMMA_BK[precision] * WGMMA_CHAIN[precision]
     with true_fp32_products(a.re.is_cuda):
-        for k0 in range(0, bt.shape[2], WGMMA_BK * WGMMA_CHAIN):
-            sl = slice(k0, k0 + WGMMA_BK * WGMMA_CHAIN)
+        for k0 in range(0, bt.shape[2], depth):
+            sl = slice(k0, k0 + depth)
             xs = [x[:, sl] for x in a_planes]
             ys = [y[:, sl].t() for y in bt]
             if gauss:

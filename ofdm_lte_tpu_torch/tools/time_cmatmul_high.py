@@ -1,35 +1,43 @@
-"""Time the `high` (TF32) complex GEMMs against another tree's and the library,
-in turns, on one CUDA card.
+"""Time the wgmma complex GEMMs of `high` (TF32) or `default` (bf16) against
+other trees' and the library, in turns, on one CUDA card.
 
-    python3 -m ofdm_lte_tpu_torch.tools.time_cmatmul_high [--parent DIR] [--reps N] [--split]
-        [--step] [--seeds N]
+    python3 -m ofdm_lte_tpu_torch.tools.time_cmatmul_high [--precision high|default]
+        [--parent DIR ...] [--reps N] [--split] [--step] [--seeds N]
 
 At the modem's shapes (20 MHz, 256 lanes: TX, RX data on the CP-stripped
 view, RX pilot on the slot-start view, SC-FDM, the Jakes product at K = 16,
 the beamforming Jakes path's 14x16x2048 product and the extended CRS
 layout's K = 25 tap-basis product; random operands with the paths' strides)
-it times `cmatmul_tf32` and `cmatmul_tf32_gauss` of this tree through
-ops.cmatmul (workspace and all), the same two kernels of the tree at DIR (a
-checkout of another commit, e.g. from `git archive`), built there by that
-tree's own _build and called through their C interface, and the library's
-TF32 complex GEMM (torch.matmul on complex64 with allow_tf32), in the order
-there, here, here, there (CUDA events, 3 warm-up runs, the device parked
-first so that the host runs ahead). Each time is printed beside the bound
-(chip_smoke.bound_ms's rule: the larger of the planes' bytes over 3.35 TB/s
-and one TF32 product's operations over 495 TFLOP/s) and each kernel's
-largest error against its plain version (max|d|/max|C|). With --split, a
-torch.profiler trace of 10 calls of each of this tree's kernels splits its
-device time by launch: B's prep, A's copy, the GEMM, the split-K sum.
---step times two paths' steps at `high` in both forms, in a fresh
-interpreter for each tree, in the order there, here, here, there: the
-flagship (sim.siso.SisoLink, 20 MHz 64-QAM, 256 lanes of 14 symbols at 15
-dB) and bf_8x1_tm6_jakes_30kmh (sim.beamforming.BeamformingLink, 8x1, Jakes
-at 30 km/h, 256 lanes, whose one GEMM a step is the 14x16x2048 product);
-20 steps by CUDA events after 3 warm-ups, bits and seed changed every step,
-chip_smoke.py's phase 6 loop. --seeds N holds this tree's kernels to their
-plain versions at the flagship's TX and RX data GEMMs (K = 999 and 2048, the
-largest K of any path; the modem's own tables and signals) over N draws of
-the bits and prints each error beside its tolerance (chip_smoke.TOL). The card's name and power limit come first.
+it times the precision's two kernels of this tree (`cmatmul_tf32[_gauss]`
+or `cmatmul_bf16[_gauss]`) through ops.cmatmul (workspace and all), the same
+two kernels of each tree given by --parent (a checkout of another commit,
+e.g. from `git archive`; the flag repeats, each tree named by its
+directory), built there by that tree's own _build and called through their
+C interface, and the library, in the order there, here, here, there (CUDA
+events, 3 warm-up runs, the device parked first so that the host runs
+ahead). The library at `high` is the TF32 complex GEMM (torch.matmul on
+complex64 with allow_tf32); at `default` two bf16 stand-ins with bf16 out,
+their operands made outside the timed window: four real torch.matmuls of
+the rounded planes, and one of the real block form [Ar | Ai] (M, 2K') @
+[[Br, Bi], [-Bi, Br]] (2K', 2N') with K and N padded to K', N', multiples of
+8, with zeros (chip_smoke.bf16_stand_ins); the faster is the yardstick.
+Each time is printed beside the bound (chip_smoke.bound_ms's rule: the
+larger of the fp32 planes' bytes over 3.35 TB/s and one product's operations
+over 495 TFLOP/s at TF32 or 989 at bf16) and each kernel's largest error
+against its plain version (max|d|/max|C|). With --split, a torch.profiler
+trace of 10 calls of each of this tree's kernels splits its device time by
+launch: B's prep, A's prep (`default`) or copy (`high`), the GEMM, the
+split-K sum. --step times two paths' steps at the precision in both
+forms, in a fresh interpreter for each tree, in the order there, here, here,
+there: the flagship (sim.siso.SisoLink, 20 MHz 64-QAM, 256 lanes of 14
+symbols at 15 dB) and bf_8x1_tm6_jakes_30kmh (sim.beamforming.BeamformingLink,
+8x1, Jakes at 30 km/h, 256 lanes, whose one GEMM a step is the 14x16x2048
+product); 20 steps by CUDA events after 3 warm-ups, bits and seed changed
+every step, chip_smoke.py's phase 6 loop. --seeds N holds this tree's kernels
+to their plain versions at the flagship's TX and RX data GEMMs (K = 999 and
+2048, the largest K of any path; the modem's own tables and signals) over N
+draws of the bits and prints each error beside its tolerance
+(chip_smoke.draw_errors). The card's name and power limit come first.
 """
 from __future__ import annotations
 
@@ -47,7 +55,9 @@ from ..cplx import C
 from ..ops import cmatmul as cm
 from ..utils.profiling import DATASHEET
 
-KERNELS = ("tf32", "tf32_gauss")
+# each precision's two wgmma kernels
+KERNELS = {"high": ("tf32", "tf32_gauss"), "default": ("bf16", "bf16_gauss")}
+RATE = {"high": "tf32", "default": "bf16"}
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -63,15 +73,15 @@ def _cuda_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def _bound_ms(gauss: bool, M: int, K: int, N: int) -> float:
+def _bound_ms(precision: str, gauss: bool, M: int, K: int, N: int) -> float:
     t_bytes = 4 * (2 * M * K + 2 * K * N + 2 * M * N) / DATASHEET["hbm"]
-    t_ops = (6 if gauss else 8) * M * K * N / DATASHEET["tf32"]
+    t_ops = (6 if gauss else 8) * M * K * N / DATASHEET[RATE[precision]]
     return 1e3 * max(t_bytes, t_ops)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    for name in KERNELS:
+    for name in KERNELS["high"] + KERNELS["default"]:
         getattr(lib, "cmatmul_" + name).argtypes = [p, p, i, p, p, i, p, p, i, i, i, i, p, i, p]
         getattr(lib, f"cmatmul_{name}_splits").argtypes = [i, i, i, i]
         if hasattr(lib, f"cmatmul_{name}_workspace"):
@@ -128,17 +138,18 @@ def _split(fn, calls: int = 10) -> dict:
     out = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = next((k for k in ("prep_b", "copy_a", "wgmma_tf32_kernel", "splitk_sum")
+            name = next((k for k in ("prep_b", "prep_a", "copy_a", "wgmma_tf32_kernel",
+                                     "wgmma_bf16_kernel", "splitk_sum")
                          if k in e.name), e.name[:40])
             out[name] = out.get(name, 0.0) + e.device_time / 1e3 / calls
     return out
 
 
-# one tree's steps at `high`: run with that tree first on sys.path
+# one tree's steps at the precision in argv: run with that tree first on sys.path
 STEP_PROBE = r"""
 import json, os, sys
 import torch
-os.environ["OFDM_LTE_TPU_TORCH_MATMUL_PRECISION"] = "high"
+os.environ["OFDM_LTE_TPU_TORCH_MATMUL_PRECISION"] = sys.argv[1]
 torch.backends.cuda.matmul.allow_tf32 = False
 from ofdm_lte_tpu_torch import LTEConfig
 from ofdm_lte_tpu_torch.sim import beamforming, siso
@@ -182,10 +193,10 @@ print(json.dumps(out))
 """
 
 
-def _step_ms(root: Path) -> dict:
-    """The steps at `high` of the tree at `root`, in a fresh interpreter."""
+def _step_ms(root: Path, precision: str) -> dict:
+    """The steps at `precision` of the tree at `root`, in a fresh interpreter."""
     env = dict(os.environ, PYTHONPATH=str(root))
-    run = subprocess.run([sys.executable, "-c", STEP_PROBE], cwd=root, env=env,
+    run = subprocess.run([sys.executable, "-c", STEP_PROBE, precision], cwd=root, env=env,
                          capture_output=True, text=True, timeout=600)
     if run.returncode != 0:
         raise RuntimeError(f"the step at {root} failed:\n{run.stderr[-3000:]}")
@@ -194,7 +205,8 @@ def _step_ms(root: Path) -> dict:
 
 def main(argv) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--parent", type=Path, default=None)
+    parser.add_argument("--precision", choices=tuple(KERNELS), default="high")
+    parser.add_argument("--parent", type=Path, action="append", default=[])
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--split", action="store_true")
     parser.add_argument("--step", action="store_true")
@@ -205,25 +217,24 @@ def main(argv) -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card)
+    precision, kernels = args.precision, KERNELS[args.precision]
     torch.backends.cuda.matmul.allow_tf32 = False
-    os.environ["OFDM_LTE_TPU_TORCH_MATMUL_PRECISION"] = "high"
+    os.environ["OFDM_LTE_TPU_TORCH_MATMUL_PRECISION"] = precision
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    libs = {}
-    if args.parent:
-        libs["parent"] = _parent_library(args.parent.resolve())
+    parents = [(root.resolve().name, root.resolve()) for root in args.parent]
+    libs = {tag: _parent_library(root) for tag, root in parents}
 
     if args.step:
-        here = Path(__file__).resolve().parents[2]
-        trees = ([("parent", args.parent.resolve())] if args.parent else []) + [("here", here)]
+        trees = parents + [("here", Path(__file__).resolve().parents[2])]
         steps = {tag: [] for tag, _ in trees}
         for tag, root in trees + trees[::-1]:
-            steps[tag].append(_step_ms(root))
+            steps[tag].append(_step_ms(root, precision))
         for tag, runs in steps.items():
             for key in runs[0]:
                 ts = [r[key] for r in runs]
                 path, form = key.split("/")
-                print(f"[{card}] {path} step at high/{form}, {tag}: "
+                print(f"[{card}] {path} step at {precision}/{form}, {tag}: "
                       f"{sum(ts) / len(ts):.4f} ms (passes {', '.join(f'{t:.4f}' for t in ts)})")
 
     g = torch.Generator(device=dev)
@@ -243,90 +254,58 @@ def main(argv) -> None:
               "tap_basis": (randc(14336, 25), randc(25, 500))}
     for name, (a, b) in shapes.items():
         (M, K), N = a.re.shape, b.re.shape[1]
-        ac = torch.complex(a.re, a.im).contiguous()
-        bc = torch.complex(b.re, b.im)
+        if precision == "high":
+            ac = torch.complex(a.re, a.im).contiguous()
+            bc = torch.complex(b.re, b.im)
 
-        def library():
-            torch.backends.cuda.matmul.allow_tf32 = True
-            try:
-                return torch.matmul(ac, bc)
-            finally:
-                torch.backends.cuda.matmul.allow_tf32 = False
+            def library():
+                torch.backends.cuda.matmul.allow_tf32 = True
+                try:
+                    return torch.matmul(ac, bc)
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = False
 
-        runs = {"library": library}
-        for kernel in KERNELS:
+            runs = {"library": library}
+        else:
+            from chip_smoke import bf16_stand_ins
+            runs = bf16_stand_ins(a, b)
+        lib_names = list(runs)
+        for kernel in kernels:
             gauss = kernel.endswith("gauss")
             runs[kernel] = lambda gauss=gauss: cm.cmatmul(a, b, gauss=gauss)
             for tag, lib in libs.items():
                 runs[f"{tag}_{kernel}"] = lambda kernel=kernel, lib=lib: _lib_call(
                     lib, kernel, a, b, sms)
-        order = [f"{tag}_{k}" for tag in libs for k in KERNELS] + list(KERNELS)
-        order = ["library"] + order + order[::-1] + ["library"]
+        order = [f"{tag}_{k}" for tag in libs for k in kernels] + list(kernels)
+        order = lib_names + order + order[::-1] + lib_names[::-1]
         t = dict.fromkeys(runs, 0.0)
         count = dict.fromkeys(runs, 0)
         for which in order:
             t[which] += _cuda_ms(runs[which], args.reps)
             count[which] += 1
+        ms = {which: t[which] / count[which] for which in runs}
+        yardstick = min(lib_names, key=ms.get)
         for which in runs:
-            kernel = "tf32_gauss" if which.endswith("tf32_gauss") else "tf32"
-            ms = t[which] / count[which]
-            line = f"[{card}] {name} ({M}x{K})@({K}x{N}) {which}: {ms:.4f} ms"
-            if which != "library":
-                gauss = kernel.endswith("gauss")
+            line = f"[{card}] {name} ({M}x{K})@({K}x{N}) {which}: {ms[which]:.4f} ms"
+            if which not in lib_names:
+                kernel = kernels[1] if which.endswith("gauss") else kernels[0]
                 out, ref = runs[which](), cm.PLAIN[kernel](a, b)
                 scale = max(ref.re.abs().max().item(), ref.im.abs().max().item())
                 err = max((out.re - ref.re).abs().max().item(),
                           (out.im - ref.im).abs().max().item()) / scale
-                bound = _bound_ms(gauss, M, K, N)
-                line += (f", bound {bound:.4f} ms (share {bound / ms:.3f}), "
-                         f"{ms / (t['library'] / count['library']):.3f} of the library's, "
-                         f"vs plain {err:.3e}")
+                bound = _bound_ms(precision, kernel.endswith("gauss"), M, K, N)
+                line += (f", bound {bound:.4f} ms (share {bound / ms[which]:.3f}), "
+                         f"{ms[which] / ms[yardstick]:.3f} of {yardstick}'s, vs plain {err:.3e}")
             print(line)
-        for kernel in KERNELS if args.split else ():
+        for kernel in kernels if args.split else ():
             print(f"[{card}] {name} {kernel} device time a call by launch: " + ", ".join(
                 f"{k} {v:.4f} ms" for k, v in _split(runs[kernel]).items()))
-        del ac, bc
+        del runs
         torch.cuda.empty_cache()
 
     if args.seeds:
-        _seed_errors(args.seeds, card, dev)
-
-
-def _seed_errors(seeds: int, card: str, dev: torch.device) -> None:
-    """This tree's kernels against their plain versions at the TX and RX data
-    GEMMs of the flagship (20 MHz 64-QAM, 256 lanes of 14 symbols, the
-    operands that chip_smoke.py's phase 9 makes), each draw of bits a seed."""
-    from chip_smoke import TOL
-    from ..config import LTEConfig
-    from ..ops import ofdm, qam
-    from ..sim import siso
-    cfg = LTEConfig(20.0, modulation="64-QAM")
-    link = siso.SisoLink(cfg, device=dev)
-    gen = torch.Generator(device=dev)
-    errs = {(name, kernel): [] for name in ("tx", "rx_data") for kernel in KERNELS}
-    shapes = {}
-    for seed in range(seeds):
-        gen.manual_seed(100 + seed)
-        bits = torch.randint(0, 2, (256, siso.bits_per_frame(cfg, 14)), generator=gen,
-                             device=dev, dtype=torch.int8)
-        y = ofdm.frame_stream(link.transmit(bits), cfg)
-        gemms = {"tx": (qam.modulate(bits, cfg.modulation).reshape(256, 14, -1),
-                        link.mod_tables.b),
-                 "rx_data": (y[..., cfg.cp_length:], link.rx_tables.data.g)}
-        for name, (a, b) in gemms.items():
-            shapes[name] = (a.re.numel() // a.shape[-1], a.shape[-1], b.re.shape[1])
-            for kernel in KERNELS:
-                out = cm.cmatmul(a, b, gauss=kernel.endswith("gauss"))
-                ref = cm.PLAIN[kernel](a, b)
-                scale = max(ref.re.abs().max().item(), ref.im.abs().max().item())
-                errs[name, kernel].append(max((out.re - ref.re).abs().max().item(),
-                                              (out.im - ref.im).abs().max().item()) / scale)
-    for (name, kernel), e in errs.items():
-        M, K, N = shapes[name]
-        print(f"[{card}] {name} ({M}x{K})@({K}x{N}) {kernel} vs plain over {seeds} draws of "
-              f"bits: max {max(e):.3e}, mean {sum(e) / len(e):.3e}, tolerance "
-              f"{TOL[kernel]:.0e}, margin {TOL[kernel] / max(e):.2f}x "
-              f"({', '.join(f'{x:.3e}' for x in e)})")
+        from chip_smoke import draw_errors
+        draw_errors(kernels, args.seeds, card, dev)
 
 
 if __name__ == "__main__":

@@ -22,9 +22,8 @@ call (torch.matmul on complex64). For each it prints registers and spills
 (-Xptxas -v), the time, and the error against a float64 product.
 
 The probe is a loop of independent mma.sync.m16n8k8 TF32 instructions, and
-one of mma.sync.m16n8k16 bf16 instructions (what csrc/cmatmul_bf16.cu
-issues), on every SM: the rate each instruction reaches with nothing else
-in its way. utils/profiling.CEILINGS keeps the highest reading of each.
+one of mma.sync.m16n8k16 bf16 instructions, on every SM: the rate each
+instruction reaches with nothing else in its way. utils/profiling.CEILINGS keeps the highest reading of each.
 """
 from __future__ import annotations
 

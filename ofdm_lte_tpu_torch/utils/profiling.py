@@ -17,9 +17,10 @@ rate). The units are the card's:
   tensor-core kernels at each precision (ops/cmatmul.py), in the 8·m·k·n
   convention: `highest` three TF32 products per fp32 product, so a third
   of the TF32 rate; `high` one TF32 product, the TF32 rate; `default` one
-  bf16 product, the bf16 rate. The operands stay fp32 in device memory at
-  every precision (the kernels round them as they load them), so a GEMM's
-  bytes do not depend on it;
+  bf16 product, the bf16 rate. The operands are fp32 in device memory at
+  every precision, and a GEMM is charged their bytes read once and C's
+  written once, whatever the precision (the `default` kernels' bf16 copies
+  of A and B are their own traffic, not the product's least);
 - "fp32": the CUDA cores (elementwise passes, the RNG, demapping, the BCJR
   pass);
 - "hbm": device memory.

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import WGMMA_SOURCES
 from ofdm_lte_tpu_torch import LTEConfig
 from ofdm_lte_tpu_torch.cplx import C
 from ofdm_lte_tpu_torch.ops import cmatmul as cm
@@ -201,26 +202,25 @@ def test_precision_split_k_is_bit_identical(precision, gauss, M, K, N, offset, c
     assert _rel_diff(runs[0], cm.PLAIN[kernel](a, b)) <= (1e-4 if gauss else 1e-5)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("gauss", [False, True], ids=["tf32", "tf32_gauss"])
-def test_high_runs_the_wgmma_source(gauss, cuda_device, monkeypatch):
-    """A call at `high` launches cmatmul_wgmma_tf32.cu's kernel (its launch
+def _runs_the_wgmma_source(precision, gauss, device, monkeypatch):
+    """A call at `precision` launches its wgmma source's kernel (its launch
     count, its entry in the build log, its workspace query, which agrees with
     the plain formula for an A that TMA reads in place and one it copies)."""
-    monkeypatch.setenv("OFDM_LTE_TPU_TORCH_MATMUL_PRECISION", "high")
+    monkeypatch.setenv("OFDM_LTE_TPU_TORCH_MATMUL_PRECISION", precision)
     from ofdm_lte_tpu_torch import _build
     lib = _build.library()
-    assert "cmatmul_wgmma_tf32_kernel" in _build.build_log
-    kernel = "tf32_gauss" if gauss else "tf32"
+    assert WGMMA_SOURCES[precision][1] in _build.build_log
+    kernel = PRECISION_KERNELS[precision, gauss]
     query = getattr(lib, f"cmatmul_{kernel}_workspace")
-    y = torch.empty(64, 2192, device=cuda_device)
+    y = torch.empty(64, 2192, device=device)
     for view, lda in ((y[:, 144:], 2192), (y[:, 1:], 2192), (y[:, :999], 999)):
         for M, N, K, splits in ((64, 999, 2048, 1), (64, 200, 999, 4), (64, 300, 16, 1),
                                 (64, 300, 32, 1), (64, 300, 33, 1)):
             want = cm.wgmma_workspace_floats(M, N, K, gauss,
-                                             cm.wgmma_a_needs_copy(view, view, lda), splits)
+                                             cm.wgmma_a_needs_copy(view, view, lda), splits,
+                                             precision)
             assert query(view.data_ptr(), view.data_ptr(), lda, M, N, K, splits) == want
-    a, b = _operands(64, 999, 130, cuda_device)
+    a, b = _operands(64, 999, 130, device)
     before = dict(cm.cmatmul.launches_by_kernel)
     out = cm.cmatmul(a, b, gauss=gauss)
     after = cm.cmatmul.launches_by_kernel
@@ -230,37 +230,69 @@ def test_high_runs_the_wgmma_source(gauss, cuda_device, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,K,N", [(64, 999, 130), (40, 2048, 70), (40, 25, 130),
-                                   (40, 16, 300)])
 @pytest.mark.parametrize("gauss", [False, True], ids=["tf32", "tf32_gauss"])
-def test_high_workspace_holds_the_twins_layout(M, K, N, gauss, cuda_device):
-    """What the `high` kernels write into their workspace, read back after a
-    call: B prepared (prep_b_kernel) and A copied (copy_a_kernel, where TMA
-    cannot read it: K = 999 and 25 here) equal their plain twins
-    wgmma_prep_b and wgmma_copy_a bit for bit."""
+def test_high_runs_the_wgmma_source(gauss, cuda_device, monkeypatch):
+    """At `high`: cmatmul_wgmma_tf32.cu."""
+    _runs_the_wgmma_source("high", gauss, cuda_device, monkeypatch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gauss", [False, True], ids=["bf16", "bf16_gauss"])
+def test_default_runs_the_wgmma_source(gauss, cuda_device, monkeypatch):
+    """At `default`: cmatmul_bf16.cu, whose kernels are wgmma's too."""
+    _runs_the_wgmma_source("default", gauss, cuda_device, monkeypatch)
+
+
+def _workspace_holds_the_twins_layout(precision, M, K, N, gauss, device):
+    """What a wgmma kernel writes into its workspace, read back after a call:
+    B prepared (prep_b_kernel), and A prepared at `default` (prep_a_kernel)
+    or copied at `high` (copy_a_kernel, where TMA cannot read it: K = 999 and
+    25 here), equal their plain twins wgmma_prep_b, wgmma_prep_a and
+    wgmma_copy_a byte for byte."""
     from ofdm_lte_tpu_torch._build import library
     lib = library()
-    kernel = "tf32_gauss" if gauss else "tf32"
-    a, b = _operands(M, K, N, cuda_device)
-    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    kernel = PRECISION_KERNELS[precision, gauss]
+    a, b = _operands(M, K, N, device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     splits = getattr(lib, f"cmatmul_{kernel}_splits")(M, N, K, sms)
     a_copy = cm.wgmma_a_needs_copy(a.re, a.im, K)
-    floats = cm.wgmma_workspace_floats(M, N, K, gauss, a_copy, splits)
-    ws = torch.full((floats + 1,), float("nan"), device=cuda_device)
-    cr, ci = (torch.empty(M, N, device=cuda_device) for _ in range(2))
+    floats = cm.wgmma_workspace_floats(M, N, K, gauss, a_copy, splits, precision)
+    ws = torch.full((floats + 1,), float("nan"), device=device)
+    cr, ci = (torch.empty(M, N, device=device) for _ in range(2))
     rc = getattr(lib, "cmatmul_" + kernel)(
         a.re.data_ptr(), a.im.data_ptr(), K, b.re.data_ptr(), b.im.data_ptr(), N,
         cr.data_ptr(), ci.data_ptr(), N, M, N, K, ws.data_ptr(), splits,
         torch.cuda.current_stream().cuda_stream)
     assert rc == 0
     torch.cuda.synchronize()
-    want = [cm.wgmma_prep_b(b, gauss).reshape(-1)]
-    if a_copy:
-        want.append(cm.wgmma_copy_a(a).reshape(-1))
+    want = [cm.wgmma_prep_b(b, gauss, precision).reshape(-1).view(torch.uint8)]
+    if precision == "default":
+        want.append(cm.wgmma_prep_a(a, gauss).reshape(-1).view(torch.uint8))
+    elif a_copy:
+        want.append(cm.wgmma_copy_a(a).reshape(-1).view(torch.uint8))
     want = torch.cat(want)
-    assert torch.equal(ws[:want.numel()].view(torch.int32), want.view(torch.int32))
+    assert torch.equal(ws.view(torch.uint8)[:want.numel()], want)
     assert torch.isnan(ws[-1])                    # nothing written past the workspace
     assert _rel_diff(C(cr, ci), cm.PLAIN[kernel](a, b)) <= (1e-4 if gauss else 1e-5)
+
+
+WORKSPACE_SHAPES = [(64, 999, 130), (40, 2048, 70), (40, 25, 130), (40, 16, 300)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", WORKSPACE_SHAPES)
+@pytest.mark.parametrize("gauss", [False, True], ids=["tf32", "tf32_gauss"])
+def test_high_workspace_holds_the_twins_layout(M, K, N, gauss, cuda_device):
+    """At `high`: B rounded to TF32 in fp32 words."""
+    _workspace_holds_the_twins_layout("high", M, K, N, gauss, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", WORKSPACE_SHAPES)
+@pytest.mark.parametrize("gauss", [False, True], ids=["bf16", "bf16_gauss"])
+def test_default_workspace_holds_the_twins_layout(M, K, N, gauss, cuda_device):
+    """At `default`: B and A rounded to bf16 (to nearest even)."""
+    _workspace_holds_the_twins_layout("default", M, K, N, gauss, cuda_device)
 
 
 @pytest.mark.cuda
