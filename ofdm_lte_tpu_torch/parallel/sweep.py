@@ -18,6 +18,11 @@ every rank writes its block's counts into a zero (points, ...) tensor and
 one all_reduce sums them over the world, on the card under NCCL and on the
 host under gloo. The result is the JAX sweep's: counts over every process,
 `frames` times the processes of an SNR shard a point, padding trimmed.
+
+Under a torch.profiler a call is one `link.sweep` span (utils/profiling.span)
+holding `link.setup`, `link.forward` (the link's own stage spans inside) and
+`link.readback`, with a `link.host_sync` span at each point where the host
+waits for the card.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from ..config import LTEConfig
 from ..device import resolve_device
 from ..sim import beamforming, coded, diversity, siso, spatial
 from ..sim.links import cached_link
+from ..utils.profiling import span
 from .distributed import Layout, rank_generator
 
 PIPELINES = ("siso", "simo", "sfbc", "spatial", "beamforming", "coded")
@@ -123,31 +129,44 @@ def ber_sweep(config: LTEConfig, snr_points, frames: int = 8, num_ofdm_symbols: 
     are the global ones, of which each rank takes its lanes (rank_seams). A
     world of one is the one-device call, bit for bit.
     """
-    part = _Part(snr_points, frames, layout, device, generator)
-    n_bits = _bits_per_frame(config, num_ofdm_symbols, mode, pipeline, coded_tb_bits)
-    link = sweep_link(config, pipeline, part.device, mode, channel_type, itu_profile,
-                      velocity_kmh, num_tx, num_rx, detector_type, rank, coded_tb_bits)
-    snr, bits = _lanes(part.snr, frames, n_bits, part.generator, part.device, part.bits(bits))
-    S, F = snr.shape[0], int(frames)
-    r = link(bits, snr.repeat_interleave(F), generator=part.generator,
-             **part.seams(seams, pipeline, num_tx, num_rx))
-    errors = part.reduce(r.bit_errors.reshape(S, F).sum(dim=1, dtype=torch.int64)).cpu().numpy()
-    if pipeline == "beamforming":
-        papr = np.zeros(part.S, np.float32)
-    else:
-        # the JAX sweep's pmean: each rank's mean, summed and over mc_size
-        # (the mean itself where there is no layout)
-        papr = (part.reduce(r.papr_db.reshape(S, F).mean(dim=1).double()) / part.mc) \
-            .float().cpu().numpy()
-    F_all = F * part.mc
-    total = np.full((part.S,), np.int64(n_bits) * F_all, np.int64)
-    return SweepResult(part.snr_all, errors / total, errors, total, papr, F_all)
+    with span("link.sweep"):
+        with span("link.setup"):
+            part = _Part(snr_points, frames, layout, device, generator)
+            n_bits = _bits_per_frame(config, num_ofdm_symbols, mode, pipeline, coded_tb_bits)
+            link = sweep_link(config, pipeline, part.device, mode, channel_type, itu_profile,
+                              velocity_kmh, num_tx, num_rx, detector_type, rank, coded_tb_bits)
+            snr, bits = _lanes(part.snr, frames, n_bits, part.generator, part.device,
+                               part.bits(bits))
+            S, F = snr.shape[0], int(frames)
+            snr_lanes = snr.repeat_interleave(F)
+            link_seams = part.seams(seams, pipeline, num_tx, num_rx)
+        with span("link.forward"):
+            r = link(bits, snr_lanes, generator=part.generator, **link_seams)
+        with span("link.readback"):
+            errors = _host(part.reduce(r.bit_errors.reshape(S, F).sum(dim=1, dtype=torch.int64)))
+            if pipeline == "beamforming":
+                papr = np.zeros(part.S, np.float32)
+            else:
+                # the JAX sweep's pmean: each rank's mean, summed and over mc_size
+                # (the mean itself where there is no layout)
+                papr = _host((part.reduce(r.papr_db.reshape(S, F).mean(dim=1).double())
+                              / part.mc).float())
+            F_all = F * part.mc
+            total = np.full((part.S,), np.int64(n_bits) * F_all, np.int64)
+        return SweepResult(part.snr_all, errors / total, errors, total, papr, F_all)
+
+
+def _host(x: torch.Tensor) -> np.ndarray:
+    """x as a NumPy array on the host, which waits here for the card."""
+    with span("link.host_sync"):
+        return x.cpu().numpy()
 
 
 def _lanes(snr_points, frames: int, n_bits: int, generator, device, bits):
     """The SNR points on the device and the bits of their S·frames lanes,
     point-major: drawn, or the caller's (S, frames, n_bits)."""
-    snr = torch.as_tensor(np.asarray(snr_points, np.float32), device=device).reshape(-1)
+    with span("link.host_sync"):       # a pageable copy to the device, waited for
+        snr = torch.as_tensor(np.asarray(snr_points, np.float32), device=device).reshape(-1)
     S, F = snr.shape[0], int(frames)
     if bits is None:
         return snr, torch.randint(0, 2, (S * F, n_bits), generator=generator, device=device,
@@ -293,20 +312,28 @@ def harq_sweep(config: LTEConfig, snr_points, frames: int = 4, tb_bits: int = 60
     `seams` passed to the HARQ call (`draws=` with a leading axis of
     len(rv_sequence) transmissions, then S·frames lanes, point-major).
     `layout` as in ber_sweep: the counters are summed over the world."""
-    part = _Part(snr_points, frames, layout, device, generator)
-    link = coded.link_for(config, tb_bits, part.device, channel_type, itu_profile, velocity_kmh)
-    snr, bits = _lanes(part.snr, frames, tb_bits, part.generator, part.device, part.bits(bits))
-    S, F, T = snr.shape[0], int(frames), len(rv_sequence)
-    r = link.harq(bits, snr.repeat_interleave(F), tuple(int(v) for v in rv_sequence),
-                  num_iterations, generator=part.generator,
-                  **part.seams(seams, "coded", 2, 2, lead=1))
-    counts = part.reduce(torch.cat([
-        (~r.crc_pass_stage).reshape(S, F, T).sum(dim=1, dtype=torch.int64),
-        (~r.crc_pass).reshape(S, F, 1).sum(dim=1, dtype=torch.int64),
-        r.num_transmissions.reshape(S, F, 1).sum(dim=1, dtype=torch.int64),
-        r.bit_errors.reshape(S, F, 1).sum(dim=1, dtype=torch.int64)], dim=1)).cpu().numpy()
-    fails_stage, fails, ntx, errs = counts[:, :T], counts[:, T], counts[:, T + 1], counts[:, T + 2]
-    F_all = F * part.mc
-    return HarqSweepResult(part.snr_all, fails / F_all, ntx / F_all, fails_stage / F_all,
-                           errs / (np.int64(tb_bits) * F_all), fails, F_all, fails_stage, ntx,
-                           errs)
+    with span("link.sweep"):
+        with span("link.setup"):
+            part = _Part(snr_points, frames, layout, device, generator)
+            link = coded.link_for(config, tb_bits, part.device, channel_type, itu_profile,
+                                  velocity_kmh)
+            snr, bits = _lanes(part.snr, frames, tb_bits, part.generator, part.device,
+                               part.bits(bits))
+            S, F, T = snr.shape[0], int(frames), len(rv_sequence)
+            snr_lanes = snr.repeat_interleave(F)
+            link_seams = part.seams(seams, "coded", 2, 2, lead=1)
+        with span("link.forward"):
+            r = link.harq(bits, snr_lanes, tuple(int(v) for v in rv_sequence), num_iterations,
+                          generator=part.generator, **link_seams)
+        with span("link.readback"):
+            counts = _host(part.reduce(torch.cat([
+                (~r.crc_pass_stage).reshape(S, F, T).sum(dim=1, dtype=torch.int64),
+                (~r.crc_pass).reshape(S, F, 1).sum(dim=1, dtype=torch.int64),
+                r.num_transmissions.reshape(S, F, 1).sum(dim=1, dtype=torch.int64),
+                r.bit_errors.reshape(S, F, 1).sum(dim=1, dtype=torch.int64)], dim=1)))
+        fails_stage, fails, ntx, errs = counts[:, :T], counts[:, T], counts[:, T + 1], \
+            counts[:, T + 2]
+        F_all = F * part.mc
+        return HarqSweepResult(part.snr_all, fails / F_all, ntx / F_all, fails_stage / F_all,
+                               errs / (np.int64(tb_bits) * F_all), fails, F_all, fails_stage,
+                               ntx, errs)

@@ -35,6 +35,14 @@ Seams for the draws (`draws=`), one transmission: {"noise": (re, im)}
 standard normals shaped like the signal, (..., S·(N+cp)); over multipath
 also {"phases": (lanes·taps, 16)} in radians. For HARQ every array has a
 leading axis of T transmissions. Without them a torch.Generator draws.
+
+Under a torch.profiler the stages record spans (utils/profiling.span):
+`coding.crc` (CRC attachment with the code-block gather, and the check),
+`coding.encode`, `coding.rate_match` (and de-matching), `coding.decode`
+(the turbo iterations and the desegmenting gather), `coding.harq_combine`
+(the soft combining and the lanes' freeze), the modem's and the channel's
+spans of one transmission, `link.errors`, and `link.host_sync` where a host
+path waits for the decoded bits.
 """
 from __future__ import annotations
 
@@ -56,6 +64,7 @@ from ..device import resolve_device
 from ..grid import grid_for
 from ..ops import ofdm, qam
 from ..rx import estimation as est
+from ..utils.profiling import span
 from .links import cached_link
 from .siso import SisoLink
 
@@ -185,32 +194,36 @@ class CodedLink(nn.Module):
         """CRC-24A, then the code blocks by size, {K: (..., n_K, K) int32}:
         the layout's filler/info placement as one gather, and CRC-24B on
         each block when the transport block is segmented."""
-        b = bits.to(torch.int32)
-        lead = tuple(b.shape[:-1])
-        tb = torch.cat([b, crc.crc_torch(b, crc.CRC24A_POLY, 24, M=self.crc_tb),
-                        b.new_zeros(lead + (1,))], dim=-1)
-        out = {}
-        for K, n in self.groups:
-            idx = self._t("blocks", K)
-            body = torch.index_select(tb, -1, idx.reshape(-1)).reshape(lead + tuple(idx.shape))
-            if self.segmented:
-                body = torch.cat([body, crc.crc_torch(body, crc.CRC24B_POLY, 24,
-                                                      M=self._t("crc_body", K))], dim=-1)
-            out[K] = body
-        return out
+        with span("coding.crc"):
+            b = bits.to(torch.int32)
+            lead = tuple(b.shape[:-1])
+            tb = torch.cat([b, crc.crc_torch(b, crc.CRC24A_POLY, 24, M=self.crc_tb),
+                            b.new_zeros(lead + (1,))], dim=-1)
+            out = {}
+            for K, n in self.groups:
+                idx = self._t("blocks", K)
+                body = torch.index_select(tb, -1, idx.reshape(-1)).reshape(lead
+                                                                           + tuple(idx.shape))
+                if self.segmented:
+                    body = torch.cat([body, crc.crc_torch(body, crc.CRC24B_POLY, 24,
+                                                          M=self._t("crc_body", K))], dim=-1)
+                out[K] = body
+            return out
 
     def encode(self, blocks: dict) -> dict:
         """{K: turbo-encoded (..., n_K, 3K+12)}: rv-independent, so HARQ
         encodes once."""
-        return {K: turbo.turbo_encode(blocks[K], K, self._t("qpp", K)) for K in blocks}
+        with span("coding.encode"):
+            return {K: turbo.turbo_encode(blocks[K], K, self._t("qpp", K)) for K in blocks}
 
     def rate_match(self, enc: dict, rv: int) -> torch.Tensor:
         """Every block rate-matched at rv, laid end to end: (..., coded_len)."""
-        parts = []
-        for K, n in self.groups:
-            out = rm.rate_match(enc[K], 3 * K + 12, K, rv, fwd=self._t(f"rm_fwd_{K}", rv))
-            parts.append(out.reshape(tuple(out.shape[:-2]) + (n * (3 * K + 12),)))
-        return torch.cat(parts, dim=-1)
+        with span("coding.rate_match"):
+            parts = []
+            for K, n in self.groups:
+                out = rm.rate_match(enc[K], 3 * K + 12, K, rv, fwd=self._t(f"rm_fwd_{K}", rv))
+                parts.append(out.reshape(tuple(out.shape[:-2]) + (n * (3 * K + 12),)))
+            return torch.cat(parts, dim=-1)
 
     # -- the link ------------------------------------------------------------
     def link_llrs(self, coded: torch.Tensor, snr_db, generator: Optional[torch.Generator] = None,
@@ -229,47 +242,54 @@ class CodedLink(nn.Module):
         n_sym = (coded_len + pad_b) // bps
         rows = -(-n_sym // nd)
         total = rows * nd
-        syms = qam.modulate(torch.nn.functional.pad(coded, (0, pad_b)), cfg.modulation)
-        syms = cplx.pad(syms, [(0, 0)] * len(lead) + [(0, total - n_sym)])
-        data_syms = _transpose_flatten(syms, rows, nd).reshape(lead + (rows, nd))
-
         modem = self.modem
-        tx = ofdm.modulate_symbols(data_syms, cfg, 0, modem.mod_tables)   # (..., S, N+cp)
-        sig = tx.reshape(lead + (rows * cfg.samples_per_ofdm_symbol,))
-        papr = ofdm.papr_db(sig, axis=-1)
+        with span("modem.tx"):
+            syms = qam.modulate(torch.nn.functional.pad(coded, (0, pad_b)), cfg.modulation)
+            syms = cplx.pad(syms, [(0, 0)] * len(lead) + [(0, total - n_sym)])
+            data_syms = _transpose_flatten(syms, rows, nd).reshape(lead + (rows, nd))
+            tx = ofdm.modulate_symbols(data_syms, cfg, 0, modem.mod_tables)   # (..., S, N+cp)
+            sig = tx.reshape(lead + (rows * cfg.samples_per_ofdm_symbol,))
+        with span("modem.papr"):
+            papr = ofdm.papr_db(sig, axis=-1)
         draws = draws or {}
         if self.channel_type == "awgn":
-            rx = awgn(sig, snr_db, (-1,), generator, draws.get("noise"))
+            with span("channel.awgn"):
+                rx = awgn(sig, snr_db, (-1,), generator, draws.get("noise"))
         else:
-            rx = rayleigh_multipath(sig, snr_db, self.profile, (-1,), generator,
-                                    draws.get("phases"), draws.get("noise"))
+            with span("channel.multipath"):
+                rx = rayleigh_multipath(sig, snr_db, self.profile, (-1,), generator,
+                                        draws.get("phases"), draws.get("noise"))
 
         rt = modem.rx_tables
-        y = ofdm.frame_stream(rx, cfg)
-        y_data = ofdm.demodulate_bins(y, cfg, g.data_idx, rt.data)
-        # the slot-start symbols: a view the GEMM reads in place when the
-        # frame holds one slot; with more slots and S not a multiple of 14 the
-        # wrapper copies the two planes (counted in cmatmul.copies)
-        y_pil = ofdm.demodulate_bins(y[..., ::est.SLOT_SIZE, :], cfg, g.pilot_idx, rt.pilot)
-        h_pil = est.ls_at_pilots(y_pil, 0, rt.known)
-        psnr = est.pilot_snr_db(y_pil, 0, axis=(-2, -1), known=rt.known)
-        h_slots = est.interpolate(h_pil, cfg, out_bins=g.data_idx, table=rt.interp)
-        h_data = est.slot_periodic(h_slots, rows)
-        x_eq = est.zf_equalize(y_data, h_data)
+        with span("modem.rx_dft"):
+            y = ofdm.frame_stream(rx, cfg)
+            y_data = ofdm.demodulate_bins(y, cfg, g.data_idx, rt.data)
+            # the slot-start symbols: a view the GEMM reads in place when the
+            # frame holds one slot; with more slots and S not a multiple of 14 the
+            # wrapper copies the two planes (counted in cmatmul.copies)
+            y_pil = ofdm.demodulate_bins(y[..., ::est.SLOT_SIZE, :], cfg, g.pilot_idx,
+                                         rt.pilot)
+        with span("modem.estimate"):
+            h_pil = est.ls_at_pilots(y_pil, 0, rt.known)
+            psnr = est.pilot_snr_db(y_pil, 0, axis=(-2, -1), known=rt.known)
+            h_slots = est.interpolate(h_pil, cfg, out_bins=g.data_idx, table=rt.interp)
+            h_data = est.slot_periodic(h_slots, rows)
+            x_eq = est.zf_equalize(y_data, h_data)
 
-        de = _transpose_flatten(x_eq.reshape(lead + (total,)), nd, rows)[..., :n_sym]
-        h_de = _transpose_flatten(h_data.reshape(lead + (total,)), nd, rows)[..., :n_sym]
-        h_pow = torch.clamp(h_de.abs2(), 1e-6, 1e6)
-        if isinstance(snr_db, torch.Tensor) or np.ndim(snr_db):
-            snr = torch.as_tensor(snr_db, dtype=torch.float32, device=h_pow.device)
-            s2 = 10.0 ** (-snr / 10.0)
-            s2 = s2[..., None] if s2.ndim else s2
-            noise_var = torch.maximum(s2 / h_pow, s2 / 4.0)
-        else:
-            # a Python scalar, as the JAX package's host path takes it
-            s2 = 1.0 / (10.0 ** (float(snr_db) / 10.0))
-            noise_var = torch.clamp(s2 / h_pow, min=s2 / 4.0)
-        llrs = qam.llrs(de, noise_var, cfg.modulation)[..., :coded_len]
+        with span("modem.demap"):
+            de = _transpose_flatten(x_eq.reshape(lead + (total,)), nd, rows)[..., :n_sym]
+            h_de = _transpose_flatten(h_data.reshape(lead + (total,)), nd, rows)[..., :n_sym]
+            h_pow = torch.clamp(h_de.abs2(), 1e-6, 1e6)
+            if isinstance(snr_db, torch.Tensor) or np.ndim(snr_db):
+                snr = torch.as_tensor(snr_db, dtype=torch.float32, device=h_pow.device)
+                s2 = 10.0 ** (-snr / 10.0)
+                s2 = s2[..., None] if s2.ndim else s2
+                noise_var = torch.maximum(s2 / h_pow, s2 / 4.0)
+            else:
+                # a Python scalar, as the JAX package's host path takes it
+                s2 = 1.0 / (10.0 ** (float(snr_db) / 10.0))
+                noise_var = torch.clamp(s2 / h_pow, min=s2 / 4.0)
+            llrs = qam.llrs(de, noise_var, cfg.modulation)[..., :coded_len]
         return llrs, papr, psnr
 
     # -- RX ------------------------------------------------------------------
@@ -278,30 +298,35 @@ class CodedLink(nn.Module):
         combining domain: {K: (..., n_K, 3K+12)}."""
         lead = tuple(llrs.shape[:-1])
         out, off = {}, 0
-        for K, n in self.groups:
-            E = 3 * K + 12
-            part = llrs[..., off:off + n * E].reshape(lead + (n, E))
-            out[K] = rm.rate_dematch(part, K, rv, enc_from_cb=self._t("rm_dematch", K))
-            off += n * E
+        with span("coding.rate_match"):
+            for K, n in self.groups:
+                E = 3 * K + 12
+                part = llrs[..., off:off + n * E].reshape(lead + (n, E))
+                out[K] = rm.rate_dematch(part, K, rv, enc_from_cb=self._t("rm_dematch", K))
+                off += n * E
         return out
 
     def decode_blocks(self, acc: dict, num_iterations: int, use_max_log: bool) -> dict:
         """{K: hard bits (..., n_K, K)} from encoder-domain LLRs."""
-        return {K: turbo.turbo_decode(acc[K], K, num_iterations, use_max_log,
-                                      self._t("qpp", K), self._t("qpp_inv", K)) for K in acc}
+        with span("coding.decode"):
+            return {K: turbo.turbo_decode(acc[K], K, num_iterations, use_max_log,
+                                          self._t("qpp", K), self._t("qpp_inv", K))
+                    for K in acc}
 
     def desegment(self, dec: dict) -> torch.Tensor:
         """The received transport block (..., B) out of the decoded blocks:
         the information bits of each, without fillers or CRC-24B, one gather."""
         lead = tuple(dec[self.groups[0][0]].shape[:-2])
-        flat = torch.cat([dec[K].reshape(lead + (n * K,)) for K, n in self.groups], dim=-1)
-        return torch.index_select(flat, -1, self.deseg)
+        with span("coding.decode"):
+            flat = torch.cat([dec[K].reshape(lead + (n * K,)) for K, n in self.groups], dim=-1)
+            return torch.index_select(flat, -1, self.deseg)
 
     def check(self, tb_rx: torch.Tensor) -> torch.Tensor:
         """CRC-24A of the received transport blocks (..., B): pass (...,) bool."""
         n = self.tb_bits
-        rem = crc.crc_torch(tb_rx[..., :n], crc.CRC24A_POLY, 24, M=self.crc_tb)
-        return torch.all(rem == tb_rx[..., n:], dim=-1)
+        with span("coding.crc"):
+            rem = crc.crc_torch(tb_rx[..., :n], crc.CRC24A_POLY, 24, M=self.crc_tb)
+            return torch.all(rem == tb_rx[..., n:], dim=-1)
 
     def _bits(self, bits: torch.Tensor) -> torch.Tensor:
         if bits.shape[-1] != self.tb_bits:
@@ -324,8 +349,9 @@ class CodedLink(nn.Module):
         llrs, papr, _ = self.link_llrs(coded, snr_db, generator, draws)
         tb_rx = self.desegment(self.decode_blocks(self.dematch(llrs, rv), num_iterations,
                                                   bool(use_max_log)))
-        bits_rx = tb_rx[..., :self.tb_bits].to(bits.dtype)
-        errors, ber = self._errors(bits_rx, bits)
+        with span("link.errors"):
+            bits_rx = tb_rx[..., :self.tb_bits].to(bits.dtype)
+            errors, ber = self._errors(bits_rx, bits)
         return CodedBatchResult(bits_rx, errors, ber, self.check(tb_rx), papr)
 
     def harq(self, bits: torch.Tensor, snr_db, rv_sequence=(0, 1, 2, 3), num_iterations: int = 8,
@@ -341,28 +367,32 @@ class CodedLink(nn.Module):
         lead = tuple(bits.shape[:-1])
         enc = self.encode(self.blocks(bits))
         acc, papr0, stages = None, None, []
-        done = torch.zeros(lead, dtype=torch.bool, device=bits.device)
-        num_tx = torch.zeros(lead, dtype=torch.int32, device=bits.device)
-        bits_rx = torch.zeros(lead + (n,), dtype=torch.int32, device=bits.device)
+        with span("coding.harq_combine"):
+            done = torch.zeros(lead, dtype=torch.bool, device=bits.device)
+            num_tx = torch.zeros(lead, dtype=torch.int32, device=bits.device)
+            bits_rx = torch.zeros(lead + (n,), dtype=torch.int32, device=bits.device)
         for t, rv in enumerate(rv_sequence):
             llrs, papr, _ = self.link_llrs(self.rate_match(enc, int(rv)), snr_db, generator,
                                            _draws_at(draws, t))
             papr0 = papr if papr0 is None else papr0
             dem = self.dematch(llrs, int(rv))
-            acc = dem if acc is None else {K: acc[K] + dem[K] for K in acc}
+            with span("coding.harq_combine"):
+                acc = dem if acc is None else {K: acc[K] + dem[K] for K in acc}
             tb_rx = self.desegment(self.decode_blocks(acc, num_iterations, bool(use_max_log)))
             passed = self.check(tb_rx)
-            # a lane keeps the decode of its first passing stage; one that
-            # never passes keeps the last stage's
-            take = ~done if t == T - 1 else passed & ~done
-            bits_rx = torch.where(take[..., None], tb_rx[..., :n], bits_rx)
-            num_tx = torch.where(done, num_tx, t + 1)
-            done = done | passed
-            stages.append(done)
-        bits_rx = bits_rx.to(bits.dtype)
-        errors, ber = self._errors(bits_rx, bits)
-        return HarqBatchResult(bits_rx, errors, ber, done, num_tx, torch.stack(stages, dim=-1),
-                               papr0)
+            with span("coding.harq_combine"):
+                # a lane keeps the decode of its first passing stage; one that
+                # never passes keeps the last stage's
+                take = ~done if t == T - 1 else passed & ~done
+                bits_rx = torch.where(take[..., None], tb_rx[..., :n], bits_rx)
+                num_tx = torch.where(done, num_tx, t + 1)
+                done = done | passed
+                stages.append(done)
+        with span("link.errors"):
+            bits_rx = bits_rx.to(bits.dtype)
+            errors, ber = self._errors(bits_rx, bits)
+            crc_pass_stage = torch.stack(stages, dim=-1)
+        return HarqBatchResult(bits_rx, errors, ber, done, num_tx, crc_pass_stage, papr0)
 
 
 def link_for(config: LTEConfig, tb_bits: int, device, channel_type: str = "awgn",
@@ -413,8 +443,9 @@ def _host_blocks(link: CodedLink, blocks, meta) -> dict:
 def _host_decode(link: CodedLink, acc: dict, meta, n_orig: int, num_iterations: int,
                  use_max_log: bool):
     """Grouped decode on the device, desegmentation and CRC-24A on the host."""
-    dec = {K: v.cpu().numpy() for K, v in link.decode_blocks(acc, num_iterations,
-                                                              use_max_log).items()}
+    dec = link.decode_blocks(acc, num_iterations, use_max_log)
+    with span("link.host_sync"):
+        dec = {K: v.cpu().numpy() for K, v in dec.items()}
     dec_blocks, seen = [], {K: 0 for K in dec}
     for K in meta["block_sizes"]:
         dec_blocks.append(dec[K][seen[K]].astype(np.uint8))

@@ -29,6 +29,13 @@ unless the caller passes `device="cpu"`. Leading axes of `bits` are
 independent Monte-Carlo lanes. Randomness comes from one torch.Generator
 per call; `noise` (bin-domain AWGN) and `draws` (time-domain channels) are
 the seams through which a caller supplies the random numbers.
+
+Under a torch.profiler `forward` records its stages as sibling spans
+(utils/profiling.span): `modem.tx`, `modem.papr`, the channel
+(`channel.awgn`, twice over AWGN at the bins: σ, then the noise;
+`channel.multipath`, `channel.fading`), `modem.rx_dft`, `modem.estimate`,
+`modem.demap` and `link.errors`. A channel span never holds a modem span,
+nor the reverse.
 """
 from __future__ import annotations
 
@@ -47,6 +54,7 @@ from ..grid import grid_for, interp_table, pilot_sequence
 from ..ops import ofdm, qam, scfdm
 from ..ops.ofdm import DemodTables, ModTables
 from ..rx import estimation as est
+from ..utils.profiling import span
 from .links import cached_link
 
 MODES = ("lte", "sc-fdm", "simple")
@@ -133,28 +141,35 @@ def receive(signal: C, config: LTEConfig, mode: str = "lte", cell_id: int = 0,
     Frame, per-bin DFT, slot-periodic CRS estimation, per-symbol ZF,
     optional SC-FDM IDFT, hard detection, bit demap."""
     g = grid_for(config)
-    y = ofdm.frame_stream(signal, config)                          # (..., S, N+cp)
     t = tables if tables is not None else RxTables(None)
 
     if mode == "simple":
         # sequential mapping: first Nc bins, no pilots, no equalization
-        y_bins = ofdm.demodulate_bins(y, config, np.arange(config.Nc), t.data)
-        zero = torch.zeros(tuple(y_bins.shape[:-2]), dtype=torch.float32,
-                           device=y_bins.re.device)
-        return _hard_bits(y_bins, config), y_bins, zero
+        with span("modem.rx_dft"):
+            y_bins = ofdm.demodulate_bins(ofdm.frame_stream(signal, config), config,
+                                          np.arange(config.Nc), t.data)
+        with span("modem.demap"):
+            zero = torch.zeros(tuple(y_bins.shape[:-2]), dtype=torch.float32,
+                               device=y_bins.re.device)
+            return _hard_bits(y_bins, config), y_bins, zero
 
-    y_data = ofdm.demodulate_bins(y, config, g.data_idx, t.data)   # (..., S, n_data)
+    with span("modem.rx_dft"):
+        y = ofdm.frame_stream(signal, config)                          # (..., S, N+cp)
+        y_data = ofdm.demodulate_bins(y, config, g.data_idx, t.data)   # (..., S, n_data)
+        # with equalization the slot-start symbols alone, as a strided view: a
+        # row gather the GEMM reads in place
+        y_pil = ofdm.demodulate_bins(y[..., ::est.SLOT_SIZE, :] if enable_equalization else y,
+                                     config, g.pilot_idx, t.pilot)
     if enable_equalization:
-        # slot-start symbols as a strided view: a row gather the GEMM reads in place
-        y_pil = ofdm.demodulate_bins(y[..., ::est.SLOT_SIZE, :], config, g.pilot_idx, t.pilot)
         return _detect_from_bins(y_data, y_pil, config, mode, cell_id, tables)
 
-    psnr = est.pilot_snr_db(ofdm.demodulate_bins(y, config, g.pilot_idx, t.pilot),
-                            cell_id, axis=(-2, -1), known=t.known)
-    x_eq = y_data
-    if mode == "sc-fdm":
-        x_eq = scfdm.decode(x_eq, g.num_data, t.scfdm)
-    return _hard_bits(x_eq, config), x_eq, psnr
+    with span("modem.estimate"):
+        psnr = est.pilot_snr_db(y_pil, cell_id, axis=(-2, -1), known=t.known)
+    with span("modem.demap"):
+        x_eq = y_data
+        if mode == "sc-fdm":
+            x_eq = scfdm.decode(x_eq, g.num_data, t.scfdm)
+        return _hard_bits(x_eq, config), x_eq, psnr
 
 
 def _detect_from_bins(y_data: C, y_pil: C, config: LTEConfig, mode: str = "lte",
@@ -166,14 +181,16 @@ def _detect_from_bins(y_data: C, y_pil: C, config: LTEConfig, mode: str = "lte",
     g = grid_for(config)
     t = tables if tables is not None else RxTables(None)
     S = y_data.shape[-2]
-    h_pil = est.ls_at_pilots(y_pil, cell_id, t.known)              # (..., n_slots, n_pil)
-    psnr = est.pilot_snr_db(y_pil, cell_id, axis=(-2, -1), known=t.known)
-    h_data_slots = est.interpolate(h_pil, config, out_bins=g.data_idx, table=t.interp)
-    h_data = est.slot_periodic(h_data_slots, S)                    # (..., S, n_data)
-    x_eq = est.zf_equalize(y_data, h_data)
-    if mode == "sc-fdm":
-        x_eq = scfdm.decode(x_eq, g.num_data, t.scfdm)
-    return _hard_bits(x_eq, config), x_eq, psnr
+    with span("modem.estimate"):
+        h_pil = est.ls_at_pilots(y_pil, cell_id, t.known)          # (..., n_slots, n_pil)
+        psnr = est.pilot_snr_db(y_pil, cell_id, axis=(-2, -1), known=t.known)
+        h_data_slots = est.interpolate(h_pil, config, out_bins=g.data_idx, table=t.interp)
+        h_data = est.slot_periodic(h_data_slots, S)                # (..., S, n_data)
+        x_eq = est.zf_equalize(y_data, h_data)
+    with span("modem.demap"):
+        if mode == "sc-fdm":
+            x_eq = scfdm.decode(x_eq, g.num_data, t.scfdm)
+        return _hard_bits(x_eq, config), x_eq, psnr
 
 
 def _receive_awgn_freq(signal: C, snr_db, config: LTEConfig, mode: str, measure_axes,
@@ -187,29 +204,31 @@ def _receive_awgn_freq(signal: C, snr_db, config: LTEConfig, mode: str, measure_
     (..., n_slots, n_pil), replaces the generator's draws; the scale stays
     σ/√2 per leg."""
     device = signal.re.device
-    snr_lin = snr_linear(snr_db, device)
-    p = signal.abs2()
-    sig_power = p.mean() if measure_axes is None else p.mean(dim=measure_axes)
-    std = torch.sqrt((sig_power / snr_lin)[..., None, None] / 2.0)
+    with span("channel.awgn"):
+        snr_lin = snr_linear(snr_db, device)
+        p = signal.abs2()
+        sig_power = p.mean() if measure_axes is None else p.mean(dim=measure_axes)
+        std = torch.sqrt((sig_power / snr_lin)[..., None, None] / 2.0)
 
     g = grid_for(config)
-    y = ofdm.frame_stream(signal, config)
-    y_data = ofdm.demodulate_bins(y, config, g.data_idx,
-                                  tables.data if tables is not None else None)
-    # slot-start symbols as a strided view: a row gather the GEMM reads in place
-    y_slot = y[..., ::est.SLOT_SIZE, :]
-    y_pil = ofdm.demodulate_bins(y_slot, config, g.pilot_idx,
-                                 tables.pilot if tables is not None else None)
-
-    noise = (None, None) if noise is None else noise
-    n_data = standard_normals(y_data.shape, generator, device, noise[0], "data noise")
-    n_pil = standard_normals(y_pil.shape, generator, device, noise[1], "pilot noise")
+    with span("modem.rx_dft"):
+        y = ofdm.frame_stream(signal, config)
+        y_data = ofdm.demodulate_bins(y, config, g.data_idx,
+                                      tables.data if tables is not None else None)
+        # slot-start symbols as a strided view: a row gather the GEMM reads in place
+        y_slot = y[..., ::est.SLOT_SIZE, :]
+        y_pil = ofdm.demodulate_bins(y_slot, config, g.pilot_idx,
+                                     tables.pilot if tables is not None else None)
 
     def add_cn(x: C, n: C) -> C:
         return C(x.re + n.re * std, x.im + n.im * std)
 
-    return _detect_from_bins(add_cn(y_data, n_data), add_cn(y_pil, n_pil),
-                             config, mode, cell_id, tables)
+    with span("channel.awgn"):
+        noise = (None, None) if noise is None else noise
+        n_data = standard_normals(y_data.shape, generator, device, noise[0], "data noise")
+        n_pil = standard_normals(y_pil.shape, generator, device, noise[1], "pilot noise")
+        y_data, y_pil = add_cn(y_data, n_data), add_cn(y_pil, n_pil)
+    return _detect_from_bins(y_data, y_pil, config, mode, cell_id, tables)
 
 
 def _apply_channel(signal: C, snr_db, channel_type: str, profile, measure_axes,
@@ -219,13 +238,16 @@ def _apply_channel(signal: C, snr_db, channel_type: str, profile, measure_axes,
     (every channel), "phases" (rayleigh_mp), "fading" (fading)."""
     draws = draws or {}
     if channel_type == "awgn":
-        return awgn(signal, snr_db, measure_axes, generator, draws.get("noise"))
+        with span("channel.awgn"):
+            return awgn(signal, snr_db, measure_axes, generator, draws.get("noise"))
     if channel_type == "rayleigh_mp":
-        return rayleigh_multipath(signal, snr_db, profile, measure_axes, generator,
-                                  draws.get("phases"), draws.get("noise"))
+        with span("channel.multipath"):
+            return rayleigh_multipath(signal, snr_db, profile, measure_axes, generator,
+                                      draws.get("phases"), draws.get("noise"))
     if channel_type == "fading":
-        return flat_fading(signal, snr_db, generator, draws.get("fading"),
-                           draws.get("noise"))
+        with span("channel.fading"):
+            return flat_fading(signal, snr_db, generator, draws.get("fading"),
+                               draws.get("noise"))
     raise ValueError(f"unknown channel_type {channel_type}")
 
 
@@ -358,8 +380,10 @@ class SisoLink(nn.Module):
     def forward(self, bits: torch.Tensor, snr_db,
                 generator: Optional[torch.Generator] = None, noise=None,
                 draws: Optional[dict] = None) -> SisoResult:
-        signal_tx = self.transmit(bits)
-        papr = ofdm.papr_db(signal_tx, axis=-1)
+        with span("modem.tx"):
+            signal_tx = self.transmit(bits)
+        with span("modem.papr"):
+            papr = ofdm.papr_db(signal_tx, axis=-1)
         measure_axes = -1 if bits.ndim > 1 else None
         if (self.channel_type == "awgn" and self.mode in ("lte", "sc-fdm")
                 and self.enable_equalization):
@@ -374,10 +398,11 @@ class SisoLink(nn.Module):
                                        measure_axes, generator, draws)
             bits_rx, x_eq, psnr = receive(signal_rx, self.config, self.mode, self.cell_id,
                                           self.enable_equalization, self.rx_tables)
-        # follow the caller's bit dtype
-        bits_rx = bits_rx.to(bits.dtype)
-        errors = (bits_rx != bits).sum(dim=-1, dtype=torch.int32)
-        ber = errors / bits.shape[-1]
+        with span("link.errors"):
+            # follow the caller's bit dtype
+            bits_rx = bits_rx.to(bits.dtype)
+            errors = (bits_rx != bits).sum(dim=-1, dtype=torch.int32)
+            ber = errors / bits.shape[-1]
         return SisoResult(bits_rx, errors, ber, papr, psnr, x_eq, signal_tx)
 
 

@@ -163,13 +163,15 @@ def test_bcjr_pass_cost_is_chip_smokes_bound():
         assert round(1e3 * cost.roofline_time_s(pr.DATASHEET), 4) == ms
 
 
-def test_benchmark_needs_the_card_and_trace_writes_a_chrome_trace(tmp_path):
-    if torch.cuda.is_available():
-        pytest.skip("the CPU half of this test")
-    with pytest.raises(RuntimeError, match="CUDA card"):
-        pr.benchmark(lambda: None)
+def test_trace_writes_a_chrome_trace_with_the_link_spans(tmp_path):
+    from ofdm_lte_tpu_torch.parallel.sweep import ber_sweep
     path = tmp_path / "t.json"
     with pr.trace(path):
-        torch.ones(4) @ torch.ones(4)
-    assert "traceEvents" in json.loads(path.read_text())
+        ber_sweep(LTEConfig(1.25, modulation="QPSK"), [0.0, 30.0], frames=2,
+                  num_ofdm_symbols=14, generator=torch.Generator().manual_seed(0),
+                  device="cpu")
+    events = json.loads(path.read_text())["traceEvents"]
+    spans = [e["name"] for e in events if e.get("cat") == "cpu_op"]
+    assert spans.count("link.sweep") == 1
+    assert {"link.forward", "modem.tx", "channel.awgn", "link.host_sync"} <= set(spans)
     assert np.isfinite(pr.bcjr_pass_cost(1, 1).roofline_time_s())
