@@ -14,8 +14,9 @@ extended CRS layout over multipath) and TM6 beamforming with PMI feedback
 with W recomputed every 4 symbols) and the TS 36.212 coded chain (a 6,000-bit
 transport block a lane, one transmission; a 75,376-bit one with HARQ over
 rv 0-3; 8 max-log iterations), see PATHS. Every complex GEMM of every path goes through
-the tensor-core kernel `cmatmul_tf32x3` (`tc`, 4-dot form, `highest`); the
-tensor-core Gauss kernel `cmatmul_tf32x3_gauss` and the CUDA-core kernel
+the tensor-core kernel `cmatmul_tf32x3` (`tc`, 4-dot form, `highest`: wgmma
+fed by TMA, csrc/cmatmul_wgmma_tf32x3.cu); the mma.sync tensor-core Gauss
+kernel `cmatmul_tf32x3_gauss` and the CUDA-core kernel
 `cmatmul_f32` (`ffma`: 4-dot and Gauss forms) are driven beside it on the
 main path, and the kernels of the `high` and `default` precisions on the
 paths of phase 9; every half-iteration of the turbo decoder (the a-priori's QPP
@@ -29,8 +30,11 @@ gather, the BCJR pass, the extrinsic) is one launch of `turbo_bcjr`
    paths make (CP-stripped and slot-start views, a leading antenna axis),
    (the coded paths' TX, RX data and RX pilot products too) and at two
    small ragged shapes and one whose A starts 4 bytes off 16-byte
-   alignment: `tc` against `cmatmul_plain` and
-   `cmatmul_plain_tf32x3`, the tensor-core Gauss kernel against
+   alignment: `tc` against `cmatmul_plain`, `cmatmul_plain_tf32x3` and
+   its slab model `cmatmul_plain_wgmma_slabs(precision="highest")`, with its
+   workspace query against ops.cmatmul.wgmma_workspace_floats and its
+   registers, spills and shared memory printed, the tensor-core Gauss
+   kernel against
    `cmatmul_plain(gauss=True)` and `cmatmul_plain_gauss_tf32x3`, `ffma`
    4-dot and Gauss against `cmatmul_plain` of the same form. Print each
    one's error against a float64 product (a yardstick). Run the split-K
@@ -705,14 +709,15 @@ def bcjr_registers(log: str) -> str:
 
 
 # the wgmma kernels of each precision: their source and their name in the build log
-WGMMA_SOURCES = {"high": ("cmatmul_wgmma_tf32.cu", "cmatmul_wgmma_tf32_kernel"),
+WGMMA_SOURCES = {"highest": ("cmatmul_wgmma_tf32x3.cu", "cmatmul_wgmma_tf32x3_kernel"),
+                 "high": ("cmatmul_wgmma_tf32.cu", "cmatmul_wgmma_tf32_kernel"),
                  "default": ("cmatmul_bf16.cu", "cmatmul_wgmma_bf16_kernel")}
 
 
 def wgmma_registers(log: str, precision: str) -> str:
-    """The two instantiations, 4-dot and Gauss, of the wgmma kernel of
-    `precision` (`high` or `default`)."""
-    return kernel_registers(log, WGMMA_SOURCES[precision][1] + r"ILb([01])E",
+    """The instantiations, 4-dot and Gauss, of the wgmma kernel of
+    `precision` (`high` or `default`; `highest` has the 4-dot form alone)."""
+    return kernel_registers(log, WGMMA_SOURCES[precision][1] + r"(?:ILb([01])E)?",
                             lambda m: "gauss" if m[1] == "1" else "4-dot")
 
 
@@ -1213,7 +1218,8 @@ def main() -> None:
     from ofdm_lte_tpu_torch.ops import bcjr, ofdm, qam
     from ofdm_lte_tpu_torch.ops.cmatmul import (PLAIN, _kernel_for, _ld, cmatmul, cmatmul_plain,
                                                 cmatmul_plain_gauss_tf32x3,
-                                                cmatmul_plain_tf32x3, default_variant,
+                                                cmatmul_plain_tf32x3,
+                                                cmatmul_plain_wgmma_slabs, default_variant,
                                                 rounding_bound, wgmma_a_needs_copy,
                                                 wgmma_workspace_floats)
     from ofdm_lte_tpu_torch.rx import alamouti
@@ -1433,11 +1439,25 @@ def main() -> None:
     def plane_max(x: C) -> float:
         return max(x.re.abs().max().item(), x.im.abs().max().item())
 
+    kernel_lib = _build.library()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"`highest` 4-dot kernel (csrc/{WGMMA_SOURCES['highest'][0]}) registers and spill "
+          f"(ptxas): {wgmma_registers(_build.build_log, 'highest')}; dynamic shared memory a "
+          f"block: {kernel_lib.cmatmul_tf32x3_smem_bytes()} B")
     max_err = dict.fromkeys(TOL, 0.0)
     zero_counts()
     for name, (a, b, bsum) in {**gemms, **new_gemms, **coded_gemms, **ragged}.items():
         M, K, N = mkn(a, b)
         a2 = C(a.re.reshape(M, K), a.im.reshape(M, K))
+        # the workspace that the wgmma kernel asks for, against its formula
+        splits = kernel_lib.cmatmul_tf32x3_splits(M, N, K, sms)
+        got = kernel_lib.cmatmul_tf32x3_workspace(a2.re.data_ptr(), a2.im.data_ptr(), _ld(a2.re),
+                                                  M, N, K, splits)
+        want = wgmma_workspace_floats(M, N, K, False,
+                                      wgmma_a_needs_copy(a2.re, a2.im, _ld(a2.re)), splits,
+                                      "highest")
+        if got != want:
+            raise AssertionError(f"tf32x3 at {name}: workspace {got} floats, the formula {want}")
         # each kernel once at the whole shape, the operand with the strides the
         # path gives it; the plain versions and the float64 product follow in
         # blocks of rows, so that the largest outputs (8 GB) fit beside them
@@ -1457,6 +1477,7 @@ def main() -> None:
                 refs = {"plain": plain[GAUSS[kernel]]}
                 if kernel == "tf32x3":
                     refs["plain_tf32x3"] = cmatmul_plain_tf32x3(ab, b)
+                    refs["slabs"] = cmatmul_plain_wgmma_slabs(ab, b, False, "highest")
                 elif kernel == "tf32x3_gauss":
                     refs["plain_gauss_tf32x3"] = cmatmul_plain_gauss_tf32x3(ab, b)
                 for ref_name, ref in refs.items():
@@ -2181,9 +2202,8 @@ def main() -> None:
           f"({', '.join(PRECISION_KERNELS[2:])})")
     launches.update(dict.fromkeys(PRECISION_KERNELS, 0))
     prec_launches = {kernel: {} for kernel in ("tf32x3",) + PRECISION_KERNELS}
-    kernel_lib = _build.library()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for precision, (source, _) in WGMMA_SOURCES.items():
+    for precision in ("high", "default"):
+        source = WGMMA_SOURCES[precision][0]
         smem = getattr(kernel_lib, f"cmatmul_{_kernel_for(False, 'tc', precision)}_smem_bytes")
         print(f"`{precision}` kernels (csrc/{source}) registers and spill (ptxas): "
               f"{wgmma_registers(_build.build_log, precision)}; dynamic shared memory a block: "
@@ -2499,7 +2519,7 @@ def main() -> None:
         torch.cuda.empty_cache()
     print(f"[{card}] phase 9: {time.perf_counter() - t_phase:.2f} s wall")
 
-    sources = {"tf32x3": ("cmatmul_tf32x3", "cmatmul_tc.cu", "41"),
+    sources = {"tf32x3": ("cmatmul_tf32x3", "cmatmul_wgmma_tf32x3.cu", "41"),
                "tf32x3_gauss": ("cmatmul_tf32x3_gauss", "cmatmul_tc_gauss.cu", "56"),
                "f32_fma4": ("cmatmul_f32 (fma4)", "cmatmul.cu", "41"),
                "f32_gauss": ("cmatmul_f32 (gauss)", "cmatmul.cu", "56"),

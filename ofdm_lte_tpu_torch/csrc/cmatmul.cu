@@ -40,9 +40,9 @@
 //     is fixed) and arrives as `bsum`; Ar+Ai is formed from the staged
 //     tiles in registers.
 //
-// The 4-dot form also runs on the tensor cores, as accurate as this one
-// (cmatmul_tc.cu, the wrapper's default); this kernel serves the Gauss form
-// and `variant="ffma"`. The `high` and `default` precisions are later work.
+// Both forms also run on the tensor cores, as accurate as this one
+// (cmatmul_wgmma_tf32x3.cu and cmatmul_tc_gauss.cu, the wrapper's default);
+// this kernel serves `variant="ffma"`, at `highest` alone.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

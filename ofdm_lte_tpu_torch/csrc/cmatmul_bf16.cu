@@ -16,7 +16,8 @@
 // Gauss form Ar+Ai and Br+Bi are added in fp32 and then rounded. So the
 // kernel differs from its plain version (ops/cmatmul.py:cmatmul_plain_bf16,
 // cmatmul_plain_gauss_bf16) only in the order of the sums. `highest` (3xTF32)
-// is cmatmul_tc.cu and cmatmul_tc_gauss.cu, `high` (TF32) cmatmul_wgmma_tf32.cu.
+// is cmatmul_wgmma_tf32x3.cu (4-dot) and cmatmul_tc_gauss.cu (Gauss), `high`
+// (TF32) cmatmul_wgmma_tf32.cu.
 //
 // What bounds it here: operations, on the tensor cores at the bf16 rate (989
 // TFLOP/s dense, twice TF32's): 8·M·K·N (4-dot) or 6·M·K·N (Gauss). The
@@ -164,6 +165,7 @@ struct Bf16 {
   static constexpr CUtensorMapDataType A_TYPE = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   static constexpr CUtensorMapDataType B_TYPE = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   template <bool GAUSS> static constexpr int a_planes() { return GAUSS ? 3 : 2; }
+  template <bool GAUSS> static constexpr int b_planes() { return GAUSS ? 3 : 2; }
   template <bool GAUSS> static constexpr int stages() { return GAUSS ? 3 : 4; }
 
   // A's prepared planes, one 3-D tensor (planes, M, Kp)

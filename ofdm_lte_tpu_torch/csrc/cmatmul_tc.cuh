@@ -1,8 +1,7 @@
-// What the tensor-core complex GEMMs share: cmatmul_tc.cu (4-dot form) and
-// cmatmul_tc_gauss.cu (3-product Gauss form) include this header, each into
-// its own translation unit (everything here is in an unnamed namespace); the
-// wgmma kernels (cmatmul_wgmma_tf32.cu, cmatmul_bf16.cu) take its split-K
-// pieces alone, through wgmma_cmatmul.cuh.
+// What the mma.sync complex GEMM cmatmul_tc_gauss.cu (3-product Gauss form,
+// `highest`) builds on; the wgmma kernels (cmatmul_wgmma_tf32x3.cu,
+// cmatmul_wgmma_tf32.cu, cmatmul_bf16.cu) take its split-K pieces alone,
+// through wgmma_cmatmul.cuh. Everything here is in an unnamed namespace.
 //
 //   - the tile geometry (Tile) and the staging of one K slab of the four
 //     planes [Ar | Ai | Br | Bi] into shared memory with cp.async, 4 or 16
@@ -14,7 +13,7 @@
 //     second kernel that adds the partial planes in ascending order
 //     (splitk_sum_kernel), and the host side of a call (run_gemm).
 //
-// Design notes are in the two kernels' sources.
+// Design notes are in cmatmul_tc_gauss.cu.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -24,7 +23,7 @@ namespace {
 
 // Choices of the design that the compiler's command line can set, so that
 // tools/tune_cmatmul_tc.py can time them against each other; the defaults
-// are what the package builds. Each kernel's source lists its own beside
+// are what the package builds. cmatmul_tc_gauss.cu lists its own beside
 // these.
 #ifndef TC_SPLIT_CVT
 #define TC_SPLIT_CVT 0    // 1: split with cvt.rna.tf32.f32 instead of integer arithmetic

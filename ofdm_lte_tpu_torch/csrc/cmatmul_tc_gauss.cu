@@ -9,12 +9,13 @@
 //
 // Replaces the TPU kernel ofdm_lte_tpu/ops/pallas_kernels.py:_cmatmul_kernel
 // (driven by cmatmul_pallas_2d) in its Gauss form (`gauss=True`) at its
-// `highest` precision. cmatmul_tc.cu is the 4-dot form of the same kernel and
-// shares cmatmul_tc.cuh with this file (staging, TF32 split, MMA wrappers,
-// split-K); the `high` (TF32) Gauss kernel is in cmatmul_wgmma_tf32.cu, the
-// `default` (bf16) one in cmatmul_bf16.cu; the fp32 CUDA-core Gauss kernel of
-// cmatmul.cu (`cmatmul_f32<true>`) stays as `variant="ffma"` and as the
-// yardstick.
+// `highest` precision, on mma.sync with cmatmul_tc.cuh (staging, TF32 split,
+// MMA wrappers, split-K). It was built beside an mma.sync kernel of the 4-dot
+// form ("the 4-dot kernel" below), which cmatmul_wgmma_tf32x3.cu (wgmma and
+// TMA) has since replaced; the `high` (TF32) Gauss kernel is in
+// cmatmul_wgmma_tf32.cu, the `default` (bf16) one in cmatmul_bf16.cu; the
+// fp32 CUDA-core Gauss kernel of cmatmul.cu (`cmatmul_f32<true>`) stays as
+// `variant="ffma"` and as the yardstick.
 //
 // What bounds it here: operations, on the tensor cores: three real products
 // of three TF32 MMAs each (hi·lo, lo·hi, hi·hi), so 3 x 6·M·K·N over the

@@ -16,8 +16,8 @@
 // Gauss form Ar+Ai and Br+Bi are added in fp32 and then rounded. The products
 // of two TF32 values are exact, so the kernel differs from its plain version
 // (ops/cmatmul.py:cmatmul_plain_tf32, cmatmul_plain_gauss_tf32) only in the
-// order of the sums. `highest` (3xTF32) stays in cmatmul_tc.cu and
-// cmatmul_tc_gauss.cu, `default` (bf16) in cmatmul_bf16.cu.
+// order of the sums. `highest` (3xTF32) is cmatmul_wgmma_tf32x3.cu (4-dot)
+// and cmatmul_tc_gauss.cu (Gauss), `default` (bf16) cmatmul_bf16.cu.
 //
 // What bounds it here: operations, on the tensor cores at the TF32 rate (495
 // TFLOP/s dense): 8·M·K·N (4-dot) or 6·M·K·N (Gauss). At the modem's shapes
@@ -96,8 +96,9 @@
 //     kernel as __grid_constant__ parameters.
 //
 // The ring, the persistent walk, the chains and the host side are shared with
-// the `default` kernels (cmatmul_bf16.cu) through wgmma_cmatmul.cuh; this file
-// holds what is TF32's: the rounding, the m64n64k8 wgmma and B's prep.
+// the `highest` and `default` kernels (cmatmul_wgmma_tf32x3.cu,
+// cmatmul_bf16.cu) through wgmma_cmatmul.cuh; this file holds what is `high`'s:
+// the rounding, the m64n64k8 wgmma and B's prep.
 
 #include <cuda.h>            // CUtensorMap and its enums (types only)
 #include <cuda_runtime.h>
@@ -111,12 +112,6 @@ namespace wg {
 constexpr int BK = 32;       // depth of a slab: 128 bytes of fp32, one swizzle row
 constexpr int STAGES = 4;    // stages of the TMA ring
 constexpr int CHAIN = 4;     // slabs a chain of wgmmas sums from zero (128 of K)
-
-// x rounded to TF32 (10 explicit mantissa bits), to nearest, ties away from
-// zero: split_tf32's head, by integer arithmetic on the bit pattern.
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
 
 // d (64x64 fp32, 32 a thread) = (scale_d ? d : 0) + a · b, with a (64x8 TF32)
 // in registers in the m16n8k8 fragment layout (warp w of the warpgroup holds
@@ -163,9 +158,9 @@ prep_b_kernel(const float* __restrict__ br, const float* __restrict__ bi, int64_
     if (n >= N) continue;
     const float xr = s_r[x][i], xi = s_i[x][i];
     const int64_t off = (int64_t)n * kp + k0 + x;
-    bt[off] = __uint_as_float(tf32_rna(xr));
-    bt[plane + off] = __uint_as_float(tf32_rna(xi));
-    if (GAUSS) bt[2 * plane + off] = __uint_as_float(tf32_rna(__fadd_rn(xr, xi)));
+    bt[off] = __uint_as_float(wgc::tf32_rna(xr));
+    bt[plane + off] = __uint_as_float(wgc::tf32_rna(xi));
+    if (GAUSS) bt[2 * plane + off] = __uint_as_float(wgc::tf32_rna(__fadd_rn(xr, xi)));
   }
 }
 
@@ -177,6 +172,7 @@ struct Tf32 {
   static constexpr CUtensorMapDataType A_TYPE = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   static constexpr CUtensorMapDataType B_TYPE = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   template <bool GAUSS> static constexpr int a_planes() { return 2; }
+  template <bool GAUSS> static constexpr int b_planes() { return GAUSS ? 3 : 2; }
   template <bool GAUSS> static constexpr int stages() { return wg::STAGES; }
 
   // A's two fp32 planes, each from its own tensor (in place or copied)
@@ -206,9 +202,9 @@ struct Tf32 {
         const int off = r * 128 + (((2 * kk + (v >> 1)) ^ g) << 4) + 4 * t;
         const float fr = *reinterpret_cast<const float*>(a + off);
         const float fi = *reinterpret_cast<const float*>(a + A_BYTES + off);
-        xr[kk][v] = tf32_rna(fr);
-        xi[kk][v] = tf32_rna(fi);
-        xs[kk][v] = GAUSS ? tf32_rna(__fadd_rn(fr, fi)) : (xi[kk][v] ^ 0x80000000u);
+        xr[kk][v] = wgc::tf32_rna(fr);
+        xi[kk][v] = wgc::tf32_rna(fi);
+        xs[kk][v] = GAUSS ? wgc::tf32_rna(__fadd_rn(fr, fi)) : (xi[kk][v] ^ 0x80000000u);
       }
     }
     wgc::wgmma_fence();

@@ -1,12 +1,13 @@
-// What the wgmma complex GEMMs share: cmatmul_wgmma_tf32.cu (`high`, TF32)
-// and cmatmul_bf16.cu (`default`, bf16) include this header, each into its
-// own translation unit (everything here is in an unnamed namespace), and
-// supply a precision policy P: the slab depth BK (one 128-byte row of A:
-// 32 fp32 or 64 bf16), the element types and planes of A and B in the ring,
-// its stages, the chain length CHAIN, how a warpgroup runs the wgmmas of one
-// slab (P::slab: A from registers, rounded as loaded, at `high`; A from
-// shared memory, prepared per call, at `default`), how A's planes are loaded
-// (P::load_a), and the kernels that prepare B (and A) per call.
+// What the wgmma complex GEMMs share: cmatmul_wgmma_tf32x3.cu (`highest`,
+// 3xTF32, 4-dot form), cmatmul_wgmma_tf32.cu (`high`, TF32) and
+// cmatmul_bf16.cu (`default`, bf16) include this header, each into its own
+// translation unit (everything here is in an unnamed namespace), and supply a
+// precision policy P: the slab depth BK (one 128-byte row of A: 32 fp32 or 64
+// bf16), the element types and planes of A and B in the ring, its stages, the
+// chain length CHAIN, how a warpgroup runs the wgmmas of one slab (P::slab:
+// A from registers, split or rounded as loaded, at `highest` and `high`; A
+// from shared memory, prepared per call, at `default`), how A's planes are
+// loaded (P::load_a), and the kernels that prepare B (and A) per call.
 //
 //   - the Hopper machinery: mbarriers, TMA loads, named barriers, the wgmma
 //     fence, commit and wait, setmaxnreg; the TMA descriptors, encoded on the
@@ -20,12 +21,13 @@
 //     wgmmas over CHAIN slabs from zero, which then joins an fp32 running sum
 //     on the CUDA cores (the tensor cores' adder truncates); the Gauss form
 //     folds its three chains into Cr += t1 − t2, Ci += t3 − t1 − t2;
-//   - A copied (copy_a_kernel) where TMA cannot read it in place at `high`,
-//     and the host side of a call (run): B's prep, A's prep or copy, the
-//     descriptors, the launch, the split-K sum in ascending order (the same
-//     bits every run).
+//   - the TF32 head of an fp32 value (tf32_rna), which the TF32 policies use;
+//   - A copied (copy_a_kernel) where TMA cannot read it in place at
+//     `highest` and `high`, and the host side of a call (run): B's prep, A's
+//     prep or copy, the descriptors, the launch, the split-K sum in ascending
+//     order (the same bits every run).
 //
-// Design notes and measurements are in the two sources.
+// Design notes and measurements are in the three sources.
 #pragma once
 
 #include <cuda.h>            // CUtensorMap and its enums (types only)
@@ -46,7 +48,7 @@ constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;  // setmaxnreg: 64,512 of
 template <class P, bool GAUSS>
 struct Layout {
   static constexpr int A_PLANES = P::template a_planes<GAUSS>();  // (Ar, Ai, Ar+Ai)
-  static constexpr int B_PLANES = GAUSS ? 3 : 2;      // Br, Bi (, Br+Bi)
+  static constexpr int B_PLANES = P::template b_planes<GAUSS>();  // P's layout of B
   static constexpr int A_BYTES = BM * P::BK * P::A_ELEM;  // a plane of A's slab
   static constexpr int B_BYTES = BN * P::BK * P::B_ELEM;  // a plane of B's slab
   static constexpr int STAGES = P::template stages<GAUSS>();
@@ -90,6 +92,13 @@ int64_t workspace_floats(const float* ar, const float* ai, int lda, int M, int N
   else if (a_needs_copy(ar, ai, lda)) floats += 2 * (int64_t)M * kp;
   if (splits > 1) floats += 2 * (int64_t)splits * M * N;
   return floats;
+}
+
+// x rounded to TF32 (10 explicit mantissa bits), to nearest, ties away from
+// zero: the head of ops/cmatmul.py:tf32_split, by integer arithmetic on the
+// bit pattern (cvt.rna.tf32.f32 gives the same at a quarter of the rate).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -177,7 +186,8 @@ __device__ __forceinline__ void fence_operands(float (&d)[32]) {
 }
 
 // A (M, K) at lda -> at[p] (M, Kp), raw, zero past K: for an A that TMA
-// cannot read in place.
+// cannot read in place (the TF32 kernels, which split or round A in
+// registers).
 __global__ void __launch_bounds__(256)
 copy_a_kernel(const float* __restrict__ ar, const float* __restrict__ ai, int64_t lda,
               float* __restrict__ at, int M, int K, int kp) {
@@ -192,7 +202,7 @@ copy_a_kernel(const float* __restrict__ ar, const float* __restrict__ ai, int64_
   }
 }
 
-// The main loop of both precisions' kernels; each source's __global__
+// The main loop of every precision's kernels; each source's __global__
 // kernel is this body for its policy. One block an SM walks the units u =
 // blockIdx.x, blockIdx.x + gridDim.x, ...: u = (split · m_tiles + row tile) ·
 // n_tiles + column tile. A split's unit covers the slabs [split ·

@@ -15,14 +15,14 @@ the precision that OFDM_LTE_TPU_TORCH_MATMUL_PRECISION names
   library GEMM or to another precision's kernel. Which kernel serves a call
   is the rule in `_kernel_for`. `variant="tc"`, the default, goes to the
   tensor cores: at `highest` three TF32 products per real product, as
-  accurate as fp32 (mma.sync; `tf32x3`: csrc/cmatmul_tc.cu, and
-  `tf32x3_gauss`: csrc/cmatmul_tc_gauss.cu); at `high` one TF32 product of
-  the operands rounded to TF32 (wgmma with TMA; `tf32`, `tf32_gauss`:
-  csrc/cmatmul_wgmma_tf32.cu); at `default` bf16 operands with fp32 sums
-  (wgmma with TMA; `bf16`, `bf16_gauss`: csrc/cmatmul_bf16.cu). Both pairs
-  share their main loop (csrc/wgmma_cmatmul.cuh) and prepare B (and, at
-  `default`, A) per call in a workspace that this wrapper allocates (see
-  `wgmma_prep_b`, `wgmma_prep_a`).
+  accurate as fp32 (`tf32x3`: wgmma with TMA, csrc/cmatmul_wgmma_tf32x3.cu;
+  `tf32x3_gauss`: mma.sync, csrc/cmatmul_tc_gauss.cu); at `high` one TF32
+  product of the operands rounded to TF32 (wgmma with TMA; `tf32`,
+  `tf32_gauss`: csrc/cmatmul_wgmma_tf32.cu); at `default` bf16 operands with
+  fp32 sums (wgmma with TMA; `bf16`, `bf16_gauss`: csrc/cmatmul_bf16.cu).
+  The wgmma kernels share their main loop (csrc/wgmma_cmatmul.cuh) and
+  prepare B (and, at `default`, A) per call in a workspace that this
+  wrapper allocates (see `wgmma_prep_b`, `wgmma_prep_a`).
   `variant="ffma"` goes to the fp32 CUDA-core kernel
   csrc/cmatmul.cu (`cmatmul_f32`, either form), at `highest` only: the
   CUDA cores have no TF32 or bf16 product. Each call that launches adds one
@@ -113,7 +113,8 @@ def cmatmul_plain(a: C, b: C, gauss: bool = False) -> C:
 
 def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x ≈ hi + lo with hi and lo float32 values that TF32 holds exactly,
-    split as the tensor-core kernel splits (csrc/cmatmul_tc.cu:split_tf32).
+    split as the `highest` kernels split (csrc/cmatmul_wgmma_tf32x3.cu:split,
+    csrc/cmatmul_tc.cuh:split_tf32).
 
     hi is x rounded to nearest (ties away from zero) to TF32's 10 explicit
     mantissa bits, by integer arithmetic on the fp32 bit pattern; lo is
@@ -211,17 +212,18 @@ PLAIN = {"tf32x3": cmatmul_plain_tf32x3, "tf32x3_gauss": cmatmul_plain_gauss_tf3
          "f32_fma4": lambda a, b: cmatmul_plain(a, b),
          "f32_gauss": lambda a, b: cmatmul_plain(a, b, gauss=True)}
 
-# The wgmma kernels of `high` (csrc/cmatmul_wgmma_tf32.cu) and `default`
-# (csrc/cmatmul_bf16.cu) read operands in the layout that TMA and wgmma
-# accept. Their plain twins below, each taking the precision, are what the CPU
-# tests hold that layout and the kernels' chain-by-chain sums to. The
-# constants are each source's BK and CHAIN, which a test reads there.
-WGMMA_BK = {"high": 32, "default": 64}     # depth of a slab: one 128-byte row of A
-WGMMA_CHAIN = {"high": 4, "default": 2}    # slabs a chain sums from zero (128 of K)
-# how each precision's kernels round an operand, and the type of a prepared
-# value (TF32 in fp32 words, bf16)
+# The wgmma kernels of `highest` (4-dot: csrc/cmatmul_wgmma_tf32x3.cu), `high`
+# (csrc/cmatmul_wgmma_tf32.cu) and `default` (csrc/cmatmul_bf16.cu) read
+# operands in the layout that TMA and wgmma accept. Their plain twins below,
+# each taking the precision, are what the CPU tests hold that layout and the
+# kernels' chain-by-chain sums to. The constants are each source's BK and
+# CHAIN, which a test reads there.
+WGMMA_BK = {"highest": 32, "high": 32, "default": 64}  # depth of a slab: a 128-byte row of A
+WGMMA_CHAIN = {"highest": 1, "high": 4, "default": 2}  # slabs a chain sums from zero
+# how the `high` and `default` kernels round an operand (`highest` splits it:
+# tf32_split), and the type of a prepared value (TF32 in fp32 words, bf16)
 WGMMA_ROUND = {"high": tf32_round, "default": bf16_round}
-WGMMA_DTYPE = {"high": torch.float32, "default": torch.bfloat16}
+WGMMA_DTYPE = {"highest": torch.float32, "high": torch.float32, "default": torch.bfloat16}
 
 
 def wgmma_padded_k(K: int, precision: str = "high") -> int:
@@ -232,8 +234,8 @@ def wgmma_padded_k(K: int, precision: str = "high") -> int:
 def wgmma_a_needs_copy(ar: torch.Tensor, ai: torch.Tensor, lda: int) -> bool:
     """Whether TMA cannot read A's planes in place (a base that is not 16-byte
     aligned, or a row pitch that is not a multiple of 16 bytes), so that a
-    `high` kernel copies them first (`wgmma_copy_a`). The `default` kernels
-    prepare A at every call (`wgmma_prep_a`)."""
+    `highest` or `high` kernel copies them first (`wgmma_copy_a`). The
+    `default` kernels prepare A at every call (`wgmma_prep_a`)."""
     return bool(ar.data_ptr() % 16 or ai.data_ptr() % 16 or lda % 4)
 
 
@@ -241,39 +243,57 @@ def wgmma_workspace_floats(M: int, N: int, K: int, gauss: bool, a_copy: bool,
                            splits: int, precision: str = "high") -> int:
     """The floats of workspace one call of a wgmma kernel takes (what its C
     query cmatmul_<kernel>_workspace returns): B prepared, (N, Kp) a plane,
-    two planes or three (Gauss); A prepared at `default`, (M, Kp) a plane, two
-    or three, else A copied, two fp32 (M, Kp) planes, where TMA cannot read it
-    (`a_copy`, read at `high` alone); the two partial planes of each K split.
-    A value of a prepared plane takes 4 bytes at `high`, 2 at `default`."""
+    two planes or three (Gauss), six at `highest` (`wgmma_prep_b`); A
+    prepared at `default`, (M, Kp) a plane, two or three, else A copied, two
+    fp32 (M, Kp) planes, where TMA cannot read it (`a_copy`, read at
+    `highest` and `high` alone); the two partial planes of each K split. A
+    value of a prepared plane takes 4 bytes at `highest` and `high`, 2 at
+    `default`."""
+    _check_wgmma(gauss, precision)
     if M <= 0 or N <= 0 or K <= 0:
         return 0
     kp, nb = wgmma_padded_k(K, precision), WGMMA_DTYPE[precision].itemsize
     planes = 3 if gauss else 2
+    b_planes = 6 if precision == "highest" else planes
     if precision == "default":
         a_floats = planes * M * kp * nb // 4
     else:
         a_floats = 2 * M * kp if a_copy else 0
-    return planes * N * kp * nb // 4 + a_floats + (2 * splits * M * N if splits > 1 else 0)
+    return b_planes * N * kp * nb // 4 + a_floats + (2 * splits * M * N if splits > 1 else 0)
+
+
+def _check_wgmma(gauss: bool, precision: str) -> None:
+    if gauss and precision == "highest":
+        raise ValueError("cmatmul: the Gauss form at `highest` is the mma.sync kernel "
+                         "tf32x3_gauss, which prepares nothing")
 
 
 def _prepared(planes, precision: str) -> torch.Tensor:
-    """The planes (rows, K) rounded as the precision rounds, (planes, rows, Kp),
-    zero past K, in the precision's prepared dtype."""
+    """The planes (rows, K), already rounded or split as the precision's
+    kernels make them, as (planes, rows, Kp), zero past K, in the precision's
+    prepared dtype."""
     rows, K = planes[0].shape
     out = torch.zeros((len(planes), rows, wgmma_padded_k(K, precision)),
                       dtype=WGMMA_DTYPE[precision], device=planes[0].device)
     for p, x in enumerate(planes):
-        out[p, :, :K] = WGMMA_ROUND[precision](x)
+        out[p, :, :K] = x
     return out
 
 
 def wgmma_prep_b(b: C, gauss: bool, precision: str = "high") -> torch.Tensor:
     """B as the wgmma kernels prepare it (prep_b_kernel): (planes, N, Kp),
-    K-major, each plane rounded as the precision rounds (`WGMMA_ROUND`),
-    zero past K; the planes Br, Bi and, for the Gauss form, Br + Bi formed in
-    fp32. float32 at `high`, bfloat16 at `default`."""
+    K-major, zero past K. At `high` and `default` each plane rounded as the
+    precision rounds (`WGMMA_ROUND`): Br, Bi and, for the Gauss form, Br + Bi
+    formed in fp32; float32 at `high`, bfloat16 at `default`. At `highest`
+    (4-dot form) six float32 planes, split by `tf32_split`: the heads of −Bi,
+    Br and Bi, then their tails (−Bi's the negated heads and tails of Bi), so
+    that the kernel reads [Br | Bi] and [−Bi | Br] as one operand each."""
+    _check_wgmma(gauss, precision)
+    if precision == "highest":
+        (rh, rl), (ih, il) = tf32_split(b.re.t()), tf32_split(b.im.t())
+        return _prepared([-ih, rh, ih, -il, rl, il], precision)
     planes = [b.re, b.im] + ([b.re + b.im] if gauss else [])
-    return _prepared([x.t() for x in planes], precision)
+    return _prepared([WGMMA_ROUND[precision](x.t()) for x in planes], precision)
 
 
 def wgmma_prep_a(a: C, gauss: bool) -> torch.Tensor:
@@ -281,13 +301,14 @@ def wgmma_prep_a(a: C, gauss: bool) -> torch.Tensor:
     (planes, M, Kp) bfloat16, each plane rounded to nearest even, zero past
     K; the planes Ar, Ai and, for the Gauss form, Ar + Ai formed in fp32."""
     planes = [a.re, a.im] + ([a.re + a.im] if gauss else [])
-    return _prepared(planes, "default")
+    return _prepared([bf16_round(x) for x in planes], "default")
 
 
 def wgmma_copy_a(a: C) -> torch.Tensor:
-    """A (M, K) as the `high` kernels copy it where TMA cannot read it in place
-    (copy_a_kernel): (2, M, Kp), the raw fp32 planes, zero past K. Those
-    kernels round A in registers, after forming Ar + Ai for the Gauss form."""
+    """A (M, K) as the `highest` and `high` kernels copy it where TMA cannot
+    read it in place (copy_a_kernel): (2, M, Kp), the raw fp32 planes, zero
+    past K. Those kernels split (`highest`) or round (`high`, after forming
+    Ar + Ai for the Gauss form) A in registers."""
     M, K = a.re.shape
     out = torch.zeros((2, M, wgmma_padded_k(K)), dtype=torch.float32, device=a.re.device)
     out[0, :, :K] = a.re
@@ -297,20 +318,27 @@ def wgmma_copy_a(a: C) -> torch.Tensor:
 
 def cmatmul_plain_wgmma_slabs(a: C, b: C, gauss: bool, precision: str = "high") -> C:
     """The wgmma kernels' sums in plain PyTorch, from the prepared operands:
-    A rounded as the kernel rounds it (at `high` in registers, from the raw
-    planes; at `default` by its prep), Ar + Ai formed in fp32 first for
-    Gauss; the products of each chain of WGMMA_CHAIN slabs (128 of K) summed
-    from zero in true fp32 (the kernel sums them in the tensor cores) and
-    added to fp32 running sums, the Gauss form folded after each chain
-    (Cr += t1 − t2, Ci += t3 − t1 − t2)."""
+    A split or rounded as the kernel does it (at `highest` and `high` in
+    registers, from the raw planes; at `default` by its prep), Ar + Ai formed
+    in fp32 first for Gauss; the products of each chain of WGMMA_CHAIN slabs
+    (128 of K; 32 at `highest`) summed from zero in true fp32 (the kernel sums
+    them in the tensor cores) and added to fp32 running sums, the Gauss form
+    folded after each chain (Cr += t1 − t2, Ci += t3 − t1 − t2). At
+    `highest` a chain is the six products of the kernel's wgmmas, in its
+    order: Ar.hi and Ar.lo times [Br | Bi], Ai.hi and Ai.lo times [−Bi | Br],
+    each A plane against the other's tails or heads, the heads' products
+    last."""
     M, N = a.re.shape[0], b.re.shape[1]
     bt = wgmma_prep_b(b, gauss, precision).float()
     if precision == "default":
         a_planes = list(wgmma_prep_a(a, gauss).float())
     else:
         at = wgmma_copy_a(a)
-        a_planes = [tf32_round(at[0]), tf32_round(at[1])]
-        a_planes += [tf32_round(at[0] + at[1])] if gauss else []
+        if precision == "highest":
+            a_planes = [*tf32_split(at[0]), *tf32_split(at[1])]
+        else:
+            a_planes = [tf32_round(at[0]), tf32_round(at[1])]
+            a_planes += [tf32_round(at[0] + at[1])] if gauss else []
     cr = torch.zeros((M, N), dtype=torch.float32, device=a.re.device)
     ci = torch.zeros_like(cr)
     depth = WGMMA_BK[precision] * WGMMA_CHAIN[precision]
@@ -319,7 +347,14 @@ def cmatmul_plain_wgmma_slabs(a: C, b: C, gauss: bool, precision: str = "high") 
             sl = slice(k0, k0 + depth)
             xs = [x[:, sl] for x in a_planes]
             ys = [y[:, sl].t() for y in bt]
-            if gauss:
+            if precision == "highest":
+                (arh, arl, aih, ail), (nh, rh, ih, nl, rl, il) = xs, ys
+                terms = [(arh, rl, il), (arl, rh, ih), (aih, nl, rl), (ail, nh, rh),
+                         (arh, rh, ih), (aih, nh, rh)]
+                chain_r, chain_i = (sum(x @ y[j] for x, *y in terms) for j in (0, 1))
+                cr += chain_r
+                ci += chain_i
+            elif gauss:
                 t1, t2, t3 = (x @ y for x, y in zip(xs, ys))
                 cr += t1 - t2
                 ci += t3 - t1 - t2
@@ -335,18 +370,27 @@ UNIT_ROUNDOFF = {"high": 2.0 ** -11, "default": 2.0 ** -9}
 
 
 def rounding_bound(precision: str, gauss: bool, K: int) -> float:
-    """c such that, elementwise, a product at `precision` (`high` or
-    `default`) of fp32 operands lies within c·(|Ar|+|Ai|)·(|Br|+|Bi|) of the
-    exact product of those operands.
+    """c such that, elementwise, a product at `precision` of fp32 operands
+    lies within c·(|Ar|+|Ai|)·(|Br|+|Bi|) of the exact product of those
+    operands.
 
-    Each operand is rounded with unit roundoff u (TF32 2⁻¹¹, bf16 2⁻⁹), so a
-    product of two is within 2u + u² of the exact one, and the fp32 sums of
-    K terms add at most one ulp, 2⁻²³, of the terms' magnitude an add (the
-    tensor cores' adder truncates). The Gauss form rounds Ar+Ai and Br+Bi
-    after an fp32 add (u + 2⁻²⁴ an operand), and its imaginary part,
-    t3 − t1 − t2, carries the errors of three products whose magnitudes sum
-    to at most twice (|Ar|+|Ai|)(|Br|+|Bi|), and two more adds: twice the
-    bound."""
+    At `high` and `default` each operand is rounded with unit roundoff u
+    (TF32 2⁻¹¹, bf16 2⁻⁹), so a product of two is within 2u + u² of the
+    exact one. At `highest` (3xTF32) x = hi + lo within 2⁻²¹|x| (`tf32_split`:
+    the head within 2⁻¹¹|x|, the tail cut within 2⁻¹⁰ of the rest), so
+    hi·hi + hi·lo + lo·hi is within (2·2⁻²¹(1 + 2⁻¹¹) + 2⁻²²)|x||y| of xy
+    (the tails' two cuts and the product lo·lo that it leaves out). The fp32
+    sums of K terms add at most one ulp, 2⁻²³, of the terms' magnitude an add
+    (the tensor cores' adder truncates). The Gauss form forms Ar+Ai and Br+Bi
+    by an fp32 add (2⁻²⁴ an operand) before it rounds or splits them, and its
+    imaginary part, t3 − t1 − t2, carries the errors of three products whose
+    magnitudes sum to at most twice (|Ar|+|Ai|)(|Br|+|Bi|), and two more
+    adds: twice the bound."""
+    if precision == "highest":
+        e = 2 * 2.0 ** -21 * (1 + 2.0 ** -11) + 2.0 ** -22
+        if not gauss:
+            return e + K * 2.0 ** -23
+        return 2 * (e + 2.0 ** -23 * (1 + e) + (K + 2) * 2.0 ** -23)
     u = UNIT_ROUNDOFF[precision]
     if not gauss:
         return 2 * u + u * u + K * 2.0 ** -23
@@ -441,8 +485,9 @@ def cmatmul(a: C, b: C, gauss: bool = False, bsum: torch.Tensor = None,
         if variant == "tc":
             # a tile grid smaller than the card is split along K into partial
             # sums, which the kernel's second pass adds in a fixed order; the
-            # `high` kernels' scratch is a workspace that also holds B prepared
-            # and, where TMA cannot read it in place, A copied
+            # scratch of a kernel of WORKSPACE_KERNELS (the wgmma kernels) is a
+            # workspace that also holds B prepared and A prepared (`default`)
+            # or, where TMA cannot read it in place, copied
             run = getattr(lib, "cmatmul_" + kernel)
             sms = torch.cuda.get_device_properties(dev).multi_processor_count
             splits = getattr(lib, f"cmatmul_{kernel}_splits")(M, N, K, sms)

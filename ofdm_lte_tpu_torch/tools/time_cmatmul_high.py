@@ -1,33 +1,39 @@
-"""Time the wgmma complex GEMMs of `high` (TF32) or `default` (bf16) against
-other trees' and the library, in turns, on one CUDA card.
+"""Time the wgmma complex GEMMs of `highest` (3xTF32, the 4-dot form), `high`
+(TF32) or `default` (bf16) against other trees' and the library, in turns,
+on one CUDA card.
 
-    python3 -m ofdm_lte_tpu_torch.tools.time_cmatmul_high [--precision high|default]
-        [--parent DIR ...] [--reps N] [--split] [--step] [--seeds N]
+    python3 -m ofdm_lte_tpu_torch.tools.time_cmatmul_high
+        [--precision highest|high|default] [--parent DIR ...] [--reps N]
+        [--split] [--step] [--seeds N]
 
 At the modem's shapes (20 MHz, 256 lanes: TX, RX data on the CP-stripped
 view, RX pilot on the slot-start view, SC-FDM, the Jakes product at K = 16,
 the beamforming Jakes path's 14x16x2048 product and the extended CRS
 layout's K = 25 tap-basis product; random operands with the paths' strides)
-it times the precision's two kernels of this tree (`cmatmul_tf32[_gauss]`
-or `cmatmul_bf16[_gauss]`) through ops.cmatmul (workspace and all), the same
-two kernels of each tree given by --parent (a checkout of another commit,
+it times the precision's wgmma kernels of this tree (`cmatmul_tf32x3`,
+`cmatmul_tf32[_gauss]` or `cmatmul_bf16[_gauss]`) through ops.cmatmul
+(workspace and all), the same kernels of each tree given by --parent (a
+checkout of another commit,
 e.g. from `git archive`; the flag repeats, each tree named by its
 directory), built there by that tree's own _build and called through their
 C interface, and the library, in the order there, here, here, there (CUDA
 events, 3 warm-up runs, the device parked first so that the host runs
-ahead). The library at `high` is the TF32 complex GEMM (torch.matmul on
-complex64 with allow_tf32); at `default` two bf16 stand-ins with bf16 out,
+ahead). The library at `highest` is the fp32 complex GEMM (torch.matmul on
+complex64), at `high` the TF32 one (with allow_tf32); at `default` two bf16
+stand-ins with bf16 out,
 their operands made outside the timed window: four real torch.matmuls of
 the rounded planes, and one of the real block form [Ar | Ai] (M, 2K') @
 [[Br, Bi], [-Bi, Br]] (2K', 2N') with K and N padded to K', N', multiples of
 8, with zeros (chip_smoke.bf16_stand_ins); the faster is the yardstick.
 Each time is printed beside the bound (chip_smoke.bound_ms's rule: the
 larger of the fp32 planes' bytes over 3.35 TB/s and one product's operations
-over 495 TFLOP/s at TF32 or 989 at bf16) and each kernel's largest error
-against its plain version (max|d|/max|C|). With --split, a torch.profiler
+over 495 TFLOP/s at TF32, three times over at `highest`, or 989 at bf16) and
+each kernel's largest error against its plain version and against the
+float64 product (max|d|/max|C|), a parent's beside. With --split, a
+torch.profiler
 trace of 10 calls of each of this tree's kernels splits its device time by
-launch: B's prep, A's prep (`default`) or copy (`high`), the GEMM, the
-split-K sum. --step times two paths' steps at the precision in both
+launch: B's prep, A's prep (`default`) or copy (`highest`, `high`), the
+GEMM, the split-K sum. --step times two paths' steps at the precision in both
 forms, in a fresh interpreter for each tree, in the order there, here, here,
 there: the flagship (sim.siso.SisoLink, 20 MHz 64-QAM, 256 lanes of 14
 symbols at 15 dB) and bf_8x1_tm6_jakes_30kmh (sim.beamforming.BeamformingLink,
@@ -55,9 +61,12 @@ from ..cplx import C
 from ..ops import cmatmul as cm
 from ..utils.profiling import DATASHEET
 
-# each precision's two wgmma kernels
-KERNELS = {"high": ("tf32", "tf32_gauss"), "default": ("bf16", "bf16_gauss")}
-RATE = {"high": "tf32", "default": "bf16"}
+# each precision's wgmma kernels, the rate of their tensor-core products, and
+# how many such products a real product takes
+KERNELS = {"highest": ("tf32x3",), "high": ("tf32", "tf32_gauss"),
+           "default": ("bf16", "bf16_gauss")}
+RATE = {"highest": "tf32", "high": "tf32", "default": "bf16"}
+PASSES = {"highest": 3, "high": 1, "default": 1}
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -75,13 +84,13 @@ def _cuda_ms(fn, reps: int) -> float:
 
 def _bound_ms(precision: str, gauss: bool, M: int, K: int, N: int) -> float:
     t_bytes = 4 * (2 * M * K + 2 * K * N + 2 * M * N) / DATASHEET["hbm"]
-    t_ops = (6 if gauss else 8) * M * K * N / DATASHEET[RATE[precision]]
+    t_ops = PASSES[precision] * (6 if gauss else 8) * M * K * N / DATASHEET[RATE[precision]]
     return 1e3 * max(t_bytes, t_ops)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    for name in KERNELS["high"] + KERNELS["default"]:
+    for name in sum(KERNELS.values(), ()):
         getattr(lib, "cmatmul_" + name).argtypes = [p, p, i, p, p, i, p, p, i, i, i, i, p, i, p]
         getattr(lib, f"cmatmul_{name}_splits").argtypes = [i, i, i, i]
         if hasattr(lib, f"cmatmul_{name}_workspace"):
@@ -138,8 +147,8 @@ def _split(fn, calls: int = 10) -> dict:
     out = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = next((k for k in ("prep_b", "prep_a", "copy_a", "wgmma_tf32_kernel",
-                                     "wgmma_bf16_kernel", "splitk_sum")
+            name = next((k for k in ("prep_b", "prep_a", "copy_a", "wgmma_tf32x3_kernel",
+                                     "wgmma_tf32_kernel", "wgmma_bf16_kernel", "splitk_sum")
                          if k in e.name), e.name[:40])
             out[name] = out.get(name, 0.0) + e.device_time / 1e3 / calls
     return out
@@ -254,12 +263,12 @@ def main(argv) -> None:
               "tap_basis": (randc(14336, 25), randc(25, 500))}
     for name, (a, b) in shapes.items():
         (M, K), N = a.re.shape, b.re.shape[1]
-        if precision == "high":
+        if precision != "default":
             ac = torch.complex(a.re, a.im).contiguous()
             bc = torch.complex(b.re, b.im)
 
             def library():
-                torch.backends.cuda.matmul.allow_tf32 = True
+                torch.backends.cuda.matmul.allow_tf32 = precision == "high"
                 try:
                     return torch.matmul(ac, bc)
                 finally:
@@ -285,6 +294,9 @@ def main(argv) -> None:
             count[which] += 1
         ms = {which: t[which] / count[which] for which in runs}
         yardstick = min(lib_names, key=ms.get)
+        exact = torch.complex(a.re.double(), a.im.double()) @ torch.complex(b.re.double(),
+                                                                          b.im.double())
+        scale64 = exact.abs().max().item()
         for which in runs:
             line = f"[{card}] {name} ({M}x{K})@({K}x{N}) {which}: {ms[which]:.4f} ms"
             if which not in lib_names:
@@ -293,14 +305,16 @@ def main(argv) -> None:
                 scale = max(ref.re.abs().max().item(), ref.im.abs().max().item())
                 err = max((out.re - ref.re).abs().max().item(),
                           (out.im - ref.im).abs().max().item()) / scale
+                err64 = (torch.complex(out.re.double(), out.im.double()) - exact).abs().max()
                 bound = _bound_ms(precision, kernel.endswith("gauss"), M, K, N)
                 line += (f", bound {bound:.4f} ms (share {bound / ms[which]:.3f}), "
-                         f"{ms[which] / ms[yardstick]:.3f} of {yardstick}'s, vs plain {err:.3e}")
+                         f"{ms[which] / ms[yardstick]:.3f} of {yardstick}'s, vs plain {err:.3e}, "
+                         f"vs float64 {err64.item() / scale64:.3e}")
             print(line)
         for kernel in kernels if args.split else ():
             print(f"[{card}] {name} {kernel} device time a call by launch: " + ", ".join(
                 f"{k} {v:.4f} ms" for k, v in _split(runs[kernel]).items()))
-        del runs
+        del runs, exact
         torch.cuda.empty_cache()
 
     if args.seeds:

@@ -1,25 +1,23 @@
-"""Time design variants of the two tensor-core complex GEMMs (4-dot and
-Gauss) against each other, and measure the card's mma.sync TF32 and bf16
-rates, on one CUDA card.
+"""Time design variants of the mma.sync tensor-core complex GEMM at
+`highest` (the Gauss form, csrc/cmatmul_tc_gauss.cu) against each other, and
+measure the card's mma.sync TF32 and bf16 rates, on one CUDA card.
 
     python3 -m ofdm_lte_tpu_torch.tools.tune_cmatmul_tc [VARIANT ...]
 
-A VARIANT is a comma-separated list of the compile-time choices that
-csrc/cmatmul_tc.cu and csrc/cmatmul_tc.cuh document (TC_WARPS_M, TC_CHAIN,
-TC_SPLIT_CVT, TC_SPLIT_TRUNC, TC_STAGES, TC_NO_COPIES), e.g.
-`TC_WARPS_M=4,TC_CHAIN=1`; `default` is the 4-dot source as the package
-builds it. A VARIANT that starts with `gauss` is the Gauss kernel,
-csrc/cmatmul_tc_gauss.cu: `gauss` alone as the package builds it, or
-`gauss:` and its choices (TCG_WARPS_M, TCG_WARPS_N, TCG_MF, TCG_NF,
-TCG_COLS, TCG_CHAIN, TCG_ACC3 and the shared TC_ ones), e.g.
-`gauss:TCG_COLS=2,TCG_CHAIN=2`. With no arguments it runs the
-sets behind the design notes in PERF.md. Each variant is compiled by its own
-nvcc, all started together, into build/tune/, and run through its C
-interface at the main path's three GEMM shapes (20 MHz, 256 lanes; random
-operands with the path's strides) in one interleaved sequence, there and
-back, beside the plain versions, the CUDA-core kernels and the library
-call (torch.matmul on complex64). For each it prints registers and spills
-(-Xptxas -v), the time, and the error against a float64 product.
+A VARIANT is `default`, the source as the package builds it, or a
+comma-separated list of the compile-time choices that
+csrc/cmatmul_tc_gauss.cu and csrc/cmatmul_tc.cuh document (TCG_WARPS_M,
+TCG_WARPS_N, TCG_MF, TCG_NF, TCG_COLS, TCG_CHAIN, TCG_ACC3; TC_SPLIT_CVT,
+TC_SPLIT_TRUNC, TC_STAGES, TC_NO_COPIES), e.g. `TCG_COLS=2,TCG_CHAIN=2`.
+With no arguments it runs the sets behind the design notes in PERF.md. Each
+variant is compiled by its own nvcc, all started together, into
+build/tune/, and run through its C interface at the main path's three GEMM
+shapes (20 MHz, 256 lanes; random operands with the path's strides) in one
+interleaved sequence, there and back, beside the plain versions, the
+package's 4-dot kernel (wgmma, csrc/cmatmul_wgmma_tf32x3.cu), the CUDA-core
+kernels and the library call (torch.matmul on complex64). For each it
+prints registers and spills (-Xptxas -v), the time, and the error against a
+float64 product.
 
 The probe is a loop of independent mma.sync.m16n8k8 TF32 instructions, and
 one of mma.sync.m16n8k16 bf16 instructions, on every SM: the rate each
@@ -37,14 +35,11 @@ from .. import _build
 from ..cplx import C
 from ..ops.cmatmul import cmatmul, cmatmul_plain
 
-DEFAULT_VARIANTS = ("default", "TC_WARPS_M=4", "TC_CHAIN=1", "TC_CHAIN=2", "TC_CHAIN=0",
-                    "TC_SPLIT_CVT=1", "TC_STAGES=3", "TC_STAGES=4", "TC_NO_COPIES=1",
-                    "TC_SPLIT_TRUNC=1",
-                    "gauss", "gauss:TCG_CHAIN=2", "gauss:TCG_CHAIN=1", "gauss:TCG_CHAIN=1,TCG_ACC3=1",
-                    "gauss:TCG_COLS=1,TCG_CHAIN=1,TCG_ACC3=1", "gauss:TCG_COLS=2,TCG_CHAIN=2",
-                    "gauss:TCG_COLS=2", "gauss:TCG_WARPS_M=4",
-                    "gauss:TCG_MF=1,TCG_WARPS_M=4,TCG_COLS=1,TCG_CHAIN=1,TCG_ACC3=1",
-                    "gauss:TC_SPLIT_TRUNC=1", "gauss:TC_NO_COPIES=1")
+DEFAULT_VARIANTS = ("default", "TCG_CHAIN=2", "TCG_CHAIN=1", "TCG_CHAIN=1,TCG_ACC3=1",
+                    "TCG_COLS=1,TCG_CHAIN=1,TCG_ACC3=1", "TCG_COLS=2,TCG_CHAIN=2",
+                    "TCG_COLS=2", "TCG_WARPS_M=4",
+                    "TCG_MF=1,TCG_WARPS_M=4,TCG_COLS=1,TCG_CHAIN=1,TCG_ACC3=1",
+                    "TC_SPLIT_CVT=1", "TC_STAGES=3", "TC_SPLIT_TRUNC=1", "TC_NO_COPIES=1")
 
 PROBE_CU = r"""
 #include <cuda_runtime.h>
@@ -141,12 +136,10 @@ def main(argv) -> None:
                                str(out_dir / "probe"), str(probe_src)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)]
     for i, v in enumerate(variants):
-        gauss = v.startswith("gauss")
-        choices = v.partition(":")[2] if gauss else ("" if v == "default" else v)
-        defs = [f"-D{d}" for d in choices.split(",") if d]
+        defs = [f"-D{d}" for d in ("" if v == "default" else v).split(",") if d]
         procs.append(subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS, "-shared", *defs, "-o", str(out_dir / f"v{i}.so"),
-             str(_build.CSRC / ("cmatmul_tc_gauss.cu" if gauss else "cmatmul_tc.cu"))],
+             str(_build.CSRC / "cmatmul_tc_gauss.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs = [p.communicate()[0] for p in procs]
     if any(p.returncode for p in procs):
@@ -162,7 +155,7 @@ def main(argv) -> None:
         print(f"build {v}: " + " | ".join(used[:8]))
         lib = ctypes.CDLL(str(out_dir / f"v{i}.so"))
         p, n = ctypes.c_void_p, ctypes.c_int
-        name = "cmatmul_tf32x3_gauss" if v.startswith("gauss") else "cmatmul_tf32x3"
+        name = "cmatmul_tf32x3_gauss"
         gemm, splits_fn = getattr(lib, name), getattr(lib, name + "_splits")
         gemm.argtypes = [p, p, n, p, p, n, p, p, n, n, n, n, p, n, p]
         splits_fn.argtypes = [n, n, n, n]
@@ -210,6 +203,7 @@ def main(argv) -> None:
         runs = {"plain": lambda: cmatmul_plain(a, b),
                 "plain_gauss": lambda: cmatmul_plain(a, b, gauss=True),
                 "library": library,
+                "tf32x3": lambda: cmatmul(a, b),
                 "ffma": lambda: cmatmul(a, b, variant="ffma"),
                 "ffma_gauss": lambda: cmatmul(a, b, gauss=True, bsum=bsum, variant="ffma")}
         runs.update({v: (lambda fns=fns: run(fns, a, b)) for v, fns in libs.items()})

@@ -1,7 +1,8 @@
-"""The complex GEMM at the `high` (TF32) and `default` (bf16) precisions.
+"""The complex GEMM at the `high` (TF32) and `default` (bf16) precisions, and
+the error bound of `highest` (3xTF32).
 
-The four kernels (csrc/cmatmul_tc.cu and csrc/cmatmul_tc_gauss.cu with one
-TF32 product a real product; csrc/cmatmul_bf16.cu) run only on a card. Their
+The four kernels (csrc/cmatmul_wgmma_tf32.cu with one TF32 product a real
+product; csrc/cmatmul_bf16.cu) run only on a card. Their
 arithmetic is tested here through the plain versions that repeat it
 (`ops.cmatmul.PLAIN`): operands rounded as the kernel rounds them, then
 multiplied in true fp32. Each is held against the JAX package's Pallas
@@ -9,7 +10,9 @@ kernel in interpret mode fed the same rounded operands (on the CPU the JAX
 kernel's precision is inert, so it multiplies them in fp32 too), and
 against the exact product of the unrounded operands within
 `rounding_bound`. The kernels are held against these plain versions in
-tests/test_torch_cuda.py and by chip_smoke.py (phase 9)."""
+tests/test_torch_cuda.py and by chip_smoke.py (phase 9). At `highest` the
+plain 3xTF32 versions (`cmatmul_plain_tf32x3`, `cmatmul_plain_gauss_tf32x3`)
+are held to the exact product within `rounding_bound("highest")`."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -113,9 +116,35 @@ def test_plain_within_rounding_bound_of_exact_product(M, K, N, precision, gauss,
         cm.cmatmul_plain(C(ar, ai), C(br, bi), gauss).re.double().numpy() - exact.real).max()
 
 
+@pytest.mark.parametrize("gauss", [False, True], ids=["tf32x3", "tf32x3_gauss"])
+@pytest.mark.parametrize("M,K,N", SHAPES)
+def test_highest_plain_within_rounding_bound_of_exact_product(M, K, N, gauss, rng):
+    """The 3xTF32 products against the exact one: inside the split's bound,
+    and as accurate as fp32 give or take a few units (the split leaves some
+    2^-20 of each product, the fp32 sums 2^-24 an add)."""
+    ar, ai, br, bi = _planes(rng, M, K, N)
+    out = cm.PLAIN["tf32x3_gauss" if gauss else "tf32x3"](C(ar, ai), C(br, bi))
+    a = ar.double().numpy() + 1j * ai.double().numpy()
+    exact = a @ (br.double().numpy() + 1j * bi.double().numpy())
+    mag = (np.abs(ar.double().numpy()) + np.abs(ai.double().numpy())) @ \
+        (np.abs(br.double().numpy()) + np.abs(bi.double().numpy()))
+    bound = cm.rounding_bound("highest", gauss, K) * mag
+    d_re = np.abs(out.re.double().numpy() - exact.real)
+    d_im = np.abs(out.im.double().numpy() - exact.imag)
+    assert (d_re <= bound).all() and (d_im <= bound).all()
+    fp32 = cm.cmatmul_plain(C(ar, ai), C(br, bi), gauss)
+    err32 = max(np.abs(fp32.re.double().numpy() - exact.real).max(),
+                np.abs(fp32.im.double().numpy() - exact.imag).max())
+    assert max(d_re.max(), d_im.max()) <= 8 * err32
+
+
 def test_rounding_bound_and_roundings():
     assert cm.UNIT_ROUNDOFF == {"high": 2.0 ** -11, "default": 2.0 ** -9}
     assert cm.rounding_bound("default", False, 16) == pytest.approx(2 ** -8 + 2 ** -18 + 2 ** -19)
+    # 3xTF32: the split's 2^-20 (1 + 2^-11) + 2^-22 a product, far below TF32's 2^-10
+    assert cm.rounding_bound("highest", False, 0) == pytest.approx(2 ** -20 + 2 ** -31 + 2 ** -22)
+    assert cm.rounding_bound("highest", False, 999) < cm.rounding_bound("high", False, 999) / 8
+    assert cm.rounding_bound("highest", True, 999) > 2 * cm.rounding_bound("highest", False, 999)
     assert cm.rounding_bound("high", True, 999) > 2 * cm.rounding_bound("high", False, 999)
     x = torch.tensor([1.0 + 2 ** -8, 1.0 + 3 * 2 ** -8, 1.0 + 3 * 2 ** -9, -(1.0 + 2 ** -12)])
     # bf16: to nearest, ties to even; TF32 head: to nearest, ties away from zero

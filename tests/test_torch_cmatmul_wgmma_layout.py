@@ -1,22 +1,25 @@
-"""The operand layout and the sums of the wgmma GEMM kernels, at `high`
-(TF32) and `default` (bf16).
+"""The operand layout and the sums of the wgmma GEMM kernels, at `highest`
+(3xTF32, the 4-dot form), `high` (TF32) and `default` (bf16).
 
-csrc/cmatmul_wgmma_tf32.cu and csrc/cmatmul_bf16.cu run only on a card.
-What surrounds their shared main loop is tested here through the plain twins
-in ops/cmatmul.py, at each precision: B prepared as the kernels prepare it
-(`wgmma_prep_b`: K-major, rounded to TF32 or bf16, K padded to a whole slab
-with zeros, Br + Bi formed in fp32 for the Gauss form), A copied where TMA
-cannot read it at `high` (`wgmma_copy_a`: raw fp32, padded) and prepared at
+csrc/cmatmul_wgmma_tf32x3.cu, csrc/cmatmul_wgmma_tf32.cu and
+csrc/cmatmul_bf16.cu run only on a card. What surrounds their shared main
+loop is tested here through the plain twins in ops/cmatmul.py, at each
+precision: B prepared as the kernels prepare it (`wgmma_prep_b`: K-major, K
+padded to a whole slab with zeros; rounded to TF32 or bf16, Br + Bi formed
+in fp32 for the Gauss form; at `highest` split by `tf32_split` into the
+heads and tails of −Bi, Br and Bi), A copied where TMA cannot read it at
+`highest` and `high` (`wgmma_copy_a`: raw fp32, padded) and prepared at
 every call at `default` (`wgmma_prep_a`: rounded to bf16, Ar + Ai formed in
 fp32), the workspace's size, the slab depth and chain length that the twins
 share with each source, and the product of those operands summed chain by
-chain as the kernels sum it (`cmatmul_plain_wgmma_slabs`: chains of 128 of
-K: four 32-deep slabs at `high`, two 64-deep ones at `default`), against the
-plain versions that specify the kernels (`cmatmul_plain_tf32`,
-`cmatmul_plain_gauss_tf32`, `cmatmul_plain_bf16`, `cmatmul_plain_gauss_bf16`)
-and against the JAX package's Pallas kernel in interpret mode fed the rounded
-operands. tests/test_torch_cuda.py and chip_smoke.py (phase 9) hold the
-kernels themselves to the plain versions on the card."""
+chain as the kernels sum it (`cmatmul_plain_wgmma_slabs`: chains of one
+32-deep slab at `highest`, four at `high`, two 64-deep ones at `default`),
+against the plain versions that specify the kernels (`cmatmul_plain_tf32x3`,
+`cmatmul_plain_tf32`, `cmatmul_plain_gauss_tf32`, `cmatmul_plain_bf16`,
+`cmatmul_plain_gauss_bf16`) and against the JAX package's Pallas kernel in
+interpret mode fed the rounded operands. tests/test_torch_cuda.py and
+chip_smoke.py (phases 3 and 9) hold the kernels themselves to the plain
+versions on the card."""
 import re
 from pathlib import Path
 
@@ -39,7 +42,7 @@ torch.set_num_threads(2)
 SHAPES = [(20, 300, 40), (12, 999, 999), (8, 2048, 999), (40, 16, 300), (30, 25, 70),
           (5, 7, 3)]
 # every wgmma kernel: (precision, gauss); the test ids are the kernels' names
-KERNELS = {"tf32": ("high", False), "tf32_gauss": ("high", True),
+KERNELS = {"tf32x3": ("highest", False), "tf32": ("high", False), "tf32_gauss": ("high", True),
            "bf16": ("default", False), "bf16_gauss": ("default", True)}
 
 
@@ -59,28 +62,58 @@ def _bits(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous().view(torch.int32)
 
 
+def _b_planes(b: C, precision: str, gauss: bool) -> list:
+    """The (K, N) planes that the kernel's prep of B holds, transposed:
+    each rounded at `high` and `default`; at `highest` tf32_split's heads
+    of −Bi, Br and Bi, then their tails."""
+    if precision == "highest":
+        (rh, rl), (ih, il) = cm.tf32_split(b.re), cm.tf32_split(b.im)
+        return [-ih, rh, ih, -il, rl, il]
+    planes = [b.re, b.im] + ([b.re + b.im] if gauss else [])
+    if precision == "high":
+        return [cm.tf32_round(x) for x in planes]
+    return [x.to(torch.bfloat16) for x in planes]
+
+
 @pytest.mark.parametrize("kernel", list(KERNELS), ids=list(KERNELS))
 @pytest.mark.parametrize("M,K,N", SHAPES)
 def test_prepared_b_is_the_rounded_planes_k_major(M, K, N, kernel, rng):
     """B (K, N) becomes (planes, N, Kp): each plane Br, Bi (and Br + Bi added
     in fp32) rounded to TF32 (float32 words) or to bf16 (to nearest even,
-    bfloat16), transposed, bit for bit, zeros past K."""
+    bfloat16), or at `highest` the heads and tails of −Bi, Br and Bi as
+    tf32_split splits them, transposed, bit for bit, zeros past K."""
     precision, gauss = KERNELS[kernel]
     _, b = _operands(rng, M, K, N)
     bt = cm.wgmma_prep_b(b, gauss, precision)
     kp, bk = cm.wgmma_padded_k(K, precision), cm.WGMMA_BK[precision]
     assert kp % bk == 0 and K <= kp < K + bk
-    planes = [b.re, b.im] + ([b.re + b.im] if gauss else [])
-    dtype = {"high": torch.float32, "default": torch.bfloat16}[precision]
+    planes = _b_planes(b, precision, gauss)
+    dtype = cm.WGMMA_DTYPE[precision]
     assert bt.shape == (len(planes), N, kp) and bt.dtype == dtype
-    for p, x in enumerate(planes):
-        want = cm.tf32_round(x) if precision == "high" else x.to(torch.bfloat16)
+    for p, want in enumerate(planes):
         assert torch.equal(bt[p, :, :K].contiguous().view(torch.uint8),
                            want.t().to(dtype).contiguous().view(torch.uint8))
     assert torch.equal(bt[:, :, K:], torch.zeros_like(bt[:, :, K:]))
-    # rounded once: rounding again changes no bit
-    again = cm.WGMMA_ROUND[precision](bt.float()).to(dtype)
+    # rounded once: rounding again changes no bit (a tail is a TF32 value too)
+    again = cm.WGMMA_ROUND.get(precision, cm.tf32_round)(bt.float()).to(dtype)
     assert torch.equal(again.view(torch.uint8), bt.view(torch.uint8))
+    if precision == "highest":
+        # the heads and tails stand for B to within 2^-21 of each value
+        heads, tails = bt[1:3, :, :K].double(), bt[4:6, :, :K].double()
+        exact = torch.stack([b.re.t(), b.im.t()]).double()
+        assert ((heads + tails - exact).abs() <= 2.0 ** -21 * exact.abs()).all()
+        assert torch.equal(bt[0], -bt[2]) and torch.equal(bt[3], -bt[5])
+
+
+def test_highest_has_no_wgmma_gauss_form(rng):
+    """At `highest` the Gauss form is the mma.sync kernel tf32x3_gauss, which
+    prepares nothing: the twins refuse it."""
+    a, b = _operands(rng, 4, 40, 8)
+    for call in (lambda: cm.wgmma_prep_b(b, True, "highest"),
+                 lambda: cm.wgmma_workspace_floats(4, 8, 40, True, False, 1, "highest"),
+                 lambda: cm.cmatmul_plain_wgmma_slabs(a, b, True, "highest")):
+        with pytest.raises(ValueError, match="tf32x3_gauss"):
+            call()
 
 
 @pytest.mark.parametrize("operand", ["a", "b"])
@@ -173,6 +206,8 @@ def test_workspace_is_what_the_prepared_operands_take(M, K, N, a_copy, splits, k
     product."""
     precision, gauss = KERNELS[kernel]
     floats = cm.wgmma_workspace_floats(M, N, K, gauss, a_copy, splits, precision)
+    if precision == "highest" and min(M, N, K) > 0:     # B's six planes of TF32 values
+        assert floats >= 6 * N * cm.wgmma_padded_k(K, precision)
     if min(M, N, K) == 0:
         assert floats == 0
         return
@@ -195,7 +230,8 @@ def test_workspace_is_what_the_prepared_operands_take(M, K, N, a_copy, splits, k
 def test_slab_sums_match_the_plain_version(M, K, N, kernel, rng):
     """The prepared operands summed chain by chain as the kernel sums them are
     the plain version's exact products in another order: within chip_smoke's
-    tolerance of it, and within the rounding's bound of the exact product."""
+    tolerance of it, and within the rounding's bound of the exact product (at
+    `highest` the bound of the 3xTF32 split, rounding_bound("highest"))."""
     precision, gauss = KERNELS[kernel]
     a, b = _operands(rng, M, K, N)
     out = cm.cmatmul_plain_wgmma_slabs(a, b, gauss, precision)
@@ -230,7 +266,8 @@ def _against_pallas(precision, M, K, N, rng) -> float:
     them in fp32): the same exact products, summed in another order."""
     a, b = _operands(rng, M, K, N)
     out = cm.cmatmul_plain_wgmma_slabs(a, b, False, precision)
-    rnd = [jnp.asarray(cm.WGMMA_ROUND[precision](x).numpy()) for x in (a.re, a.im, b.re, b.im)]
+    rounded = cm.WGMMA_ROUND.get(precision, lambda x: x)     # `highest` feeds it raw
+    rnd = [jnp.asarray(rounded(x).numpy()) for x in (a.re, a.im, b.re, b.im)]
     ref = pk.cmatmul_pallas_2d(jcplx.C(rnd[0], rnd[1]), jcplx.C(rnd[2], rnd[3]), bk=K,
                                interpret=True, gauss=False, precision=precision)
     return _rel(out, C(torch.from_numpy(np.array(ref.re)), torch.from_numpy(np.array(ref.im))))
@@ -241,6 +278,15 @@ def _against_pallas(precision, M, K, N, rng) -> float:
 def test_slab_sums_match_pallas_fed_rounded_operands(M, K, N, rng):
     """At `high`: operands rounded to TF32."""
     assert _against_pallas("high", M, K, N, rng) <= chip_smoke.TOL["tf32"]
+
+
+@pytest.mark.skipif(not pk.HAVE_PALLAS, reason="pallas unavailable")
+@pytest.mark.parametrize("M,K,N", [(12, 999, 40), (8, 2048, 24), (16, 16, 64)])
+def test_highest_slab_sums_match_pallas(M, K, N, rng):
+    """At `highest`: the Pallas kernel fed the raw operands, which it
+    multiplies in fp32 on the CPU; the split's error lies inside the sum-order
+    tolerance."""
+    assert _against_pallas("highest", M, K, N, rng) <= chip_smoke.TOL["tf32x3"]
 
 
 @pytest.mark.skipif(not pk.HAVE_PALLAS, reason="pallas unavailable")

@@ -115,10 +115,12 @@ def test_default_variant_context_reaches_ffma(cuda_device):
     assert all(after[kernel] == before[kernel] + (kernel in served) for kernel in after)
 
 
-# the kernels at `high` (TF32) and `default` (bf16): (precision, gauss) -> kernel
-PRECISION_KERNELS = {("high", False): "tf32", ("high", True): "tf32_gauss",
+# the wgmma kernels, at `highest` (3xTF32, 4-dot), `high` (TF32) and `default`
+# (bf16): (precision, gauss) -> kernel
+PRECISION_KERNELS = {("highest", False): "tf32x3",
+                     ("high", False): "tf32", ("high", True): "tf32_gauss",
                      ("default", False): "bf16", ("default", True): "bf16_gauss"}
-PRECISION_IDS = ["tf32", "tf32_gauss", "bf16", "bf16_gauss"]
+PRECISION_IDS = ["tf32x3", "tf32", "tf32_gauss", "bf16", "bf16_gauss"]
 
 
 def _within_rounding_bound(out, a, b, precision, gauss):
@@ -139,10 +141,11 @@ def _within_rounding_bound(out, a, b, precision, gauss):
 @pytest.mark.parametrize("M,K,N", SHAPES + [(96, 16, 30688), (40, 16, 300), (40, 25, 130),
                                    (70, 999, 999), (1, 999, 999), (300, 2048, 999)])
 def test_precision_kernel_matches_plain(M, K, N, precision, gauss, cuda_device, monkeypatch):
-    """The four kernels at `high` and `default` against the plain versions
-    that repeat their arithmetic (the same exact products, summed in another
-    order: 1e-5 of max|C|, 1e-4 for Gauss), and against the exact product
-    within the rounding's bound; ragged shapes and the Jakes product."""
+    """The wgmma kernels against the plain versions that repeat their
+    arithmetic (the same exact products, summed in another order: 1e-5 of
+    max|C|, 1e-4 for Gauss), and against the exact product within the
+    rounding's (at `highest` the split's) bound; ragged shapes and the Jakes
+    product."""
     monkeypatch.setenv("OFDM_LTE_TPU_TORCH_MATMUL_PRECISION", precision)
     kernel = PRECISION_KERNELS[precision, gauss]
     a, b = _operands(M, K, N, cuda_device)
@@ -230,6 +233,15 @@ def _runs_the_wgmma_source(precision, gauss, device, monkeypatch):
 
 
 @pytest.mark.cuda
+def test_highest_runs_the_wgmma_source(cuda_device, monkeypatch):
+    """At `highest`, the 4-dot form: cmatmul_wgmma_tf32x3.cu, and no mma.sync
+    4-dot kernel left in the library."""
+    _runs_the_wgmma_source("highest", False, cuda_device, monkeypatch)
+    from ofdm_lte_tpu_torch import _build
+    assert "cmatmul_tc_kernel" not in _build.build_log
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("gauss", [False, True], ids=["tf32", "tf32_gauss"])
 def test_high_runs_the_wgmma_source(gauss, cuda_device, monkeypatch):
     """At `high`: cmatmul_wgmma_tf32.cu."""
@@ -281,6 +293,13 @@ WORKSPACE_SHAPES = [(64, 999, 130), (40, 2048, 70), (40, 25, 130), (40, 16, 300)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,K,N", WORKSPACE_SHAPES)
+def test_highest_workspace_holds_the_twins_layout(M, K, N, cuda_device):
+    """At `highest`: B split into the heads and tails of −Bi, Br and Bi."""
+    _workspace_holds_the_twins_layout("highest", M, K, N, False, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", WORKSPACE_SHAPES)
 @pytest.mark.parametrize("gauss", [False, True], ids=["tf32", "tf32_gauss"])
 def test_high_workspace_holds_the_twins_layout(M, K, N, gauss, cuda_device):
     """At `high`: B rounded to TF32 in fp32 words."""
@@ -293,6 +312,39 @@ def test_high_workspace_holds_the_twins_layout(M, K, N, gauss, cuda_device):
 def test_default_workspace_holds_the_twins_layout(M, K, N, gauss, cuda_device):
     """At `default`: B and A rounded to bf16 (to nearest even)."""
     _workspace_holds_the_twins_layout("default", M, K, N, gauss, cuda_device)
+
+
+# the `highest` 4-dot kernel's products on each path: (A's rows, its row
+# pitch and offset in a frame stream of 2192-sample symbols, or None for a
+# dense A; K; N): TX (K = 999, A copied), RX data (the CP-stripped view), RX
+# pilot (the slot-start view, split along K), the Jakes product (K = 16) and
+# ragged edges
+SLAB_SHAPES = {"tx": (3584, None, 999, 2192), "rx_data": (3584, 1, 2048, 999),
+               "rx_pilot": (256, 14, 2048, 200), "jakes": (1536, None, 16, 30688),
+               "ragged": (130, None, 999, 70), "tiny": (5, None, 7, 3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", list(SLAB_SHAPES))
+def test_highest_kernel_matches_the_slab_model(path, cuda_device):
+    """The `highest` 4-dot kernel against its slab model
+    (cmatmul_plain_wgmma_slabs: the same split, the same chains of one
+    slab), within the sum-order tolerance, at each path's shape and
+    strides."""
+    M, pitch, K, N = SLAB_SHAPES[path]
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(K * N)
+    if pitch is None:
+        a = C(*(torch.randn(M, K, generator=g, device=cuda_device) for _ in range(2)))
+    else:
+        y = C(*(torch.randn(M * pitch, 2192, generator=g, device=cuda_device) for _ in range(2)))
+        a = y[::pitch, 144:]
+    b = C(*(torch.randn(K, N, generator=g, device=cuda_device) for _ in range(2)))
+    before = cm.cmatmul.launches_by_kernel["tf32x3"]
+    out = cm.cmatmul(a, b)
+    assert cm.cmatmul.launches_by_kernel["tf32x3"] == before + 1
+    torch.cuda.synchronize()
+    assert _rel_diff(out, cm.cmatmul_plain_wgmma_slabs(a, b, False, "highest")) <= 1e-5
 
 
 @pytest.mark.cuda
