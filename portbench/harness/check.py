@@ -1,7 +1,10 @@
 """The comparison that decides `correct`: a sampled call's sweep results
 against the reference's for the same inputs.
 
-Each number compared is the worst over the calls checked:
+Each entry's adapter (entries/<entry>.py) compares its own results; the
+numbers that decide are the keys of `limits/<cell>.json`, each the worst
+over the calls checked, and a key that the adapter does not produce fails
+the call. `compare` is `ber_sweep`'s:
 
 - `error_gap_bits`: Σ over the SNR points of |errors(port) − errors(ref)|,
   the bit decisions that differ in count. The float64 reference and the
@@ -17,9 +20,6 @@ from __future__ import annotations
 
 import numpy as np
 
-NUMBERS = ("error_gap_bits", "papr_gap_db", "bits_gap")
-
-
 def compare(port: dict, ref: dict) -> dict:
     e_p, e_r = np.asarray(port["bit_errors"], np.int64), np.asarray(ref["bit_errors"], np.int64)
     t_p, t_r = np.asarray(port["total_bits"], np.int64), np.asarray(ref["total_bits"], np.int64)
@@ -32,14 +32,20 @@ def compare(port: dict, ref: dict) -> dict:
             "bits_gap": float(np.abs(t_p - t_r).sum())}
 
 
-def worst(readings: list) -> dict:
-    """The worst of each number over the calls checked."""
-    return {k: max(r[k] for r in readings) for k in NUMBERS} if readings else {}
+def worst(readings: list, keys=None) -> dict:
+    """The worst of each number over the calls checked (every number the
+    readings hold, or `keys`, a missing one reading inf)."""
+    if not readings:
+        return {}
+    keys = list(readings[0]) if keys is None else list(keys)
+    return {k: max(r.get(k, float("inf")) for r in readings) for k in keys}
 
 
 def verdict(readings: list, limits: dict):
-    """(correct, calls over a limit, {number: {value, limit}})."""
-    w = worst(readings)
-    failed = sum(any(r[k] > limits[k] for k in NUMBERS) for r in readings)
-    checks = {k: {"value": w[k], "limit": limits[k]} for k in NUMBERS} if w else {}
+    """(correct, calls over a limit, {number: {value, limit}}) over the
+    numbers that `limits` names."""
+    w = worst(readings, limits)
+    failed = sum(any(r.get(k, float("inf")) > lim for k, lim in limits.items())
+                 for r in readings)
+    checks = {k: {"value": w[k], "limit": limits[k]} for k in limits} if w else {}
     return bool(readings) and failed == 0, failed, checks

@@ -9,13 +9,24 @@ per-layer metric is a file the runner finds by name:
 
     <config file of BENCHMARK.json>       numerology, precision, `reference`
     portbench/traffic/<traffic>.json      the entry and its arguments
+    portbench/entries/<entry>.py          the adapter of the traffic's entry
     portbench/limits/<cell>.json          the limit of each number compared
     portbench/reference/<reference>.py    the plain reference
     portbench/metrics/<metric>.py         read(ctx) -> a number or None
 
-A call draws its inputs (harness/inputs.py), waits for the draw, and then
-calls the sweep: its latency is the sweep's alone, from the call until its
-results are host numbers; the window's rate holds the draws too.
+The adapter of an entry (a function of ofdm_lte_tpu_torch, named by its
+dotted path under the package in `ENTRY`) gives what differs between
+entries: the call's input sizes (`shape`), its draws (`call_inputs`,
+through harness/inputs.py), the entry's arguments and its call (`kwargs`,
+`sweep_args`, `call`), its results as host numbers (`results`,
+`info_bits`), its complex products (`products`, for the kernel and device
+metrics), the reference's results for the same inputs (`reference`) and
+the numbers compared (`compare`). A configuration whose entry takes other
+arguments enters the benchmark as files alone.
+
+A call draws its inputs, waits for the draw, and then calls the sweep: its
+latency is the sweep's alone, from the call until its results are host
+numbers; the window's rate holds the draws too.
 """
 from __future__ import annotations
 
@@ -42,10 +53,13 @@ WARMUP_CALLS = 5
 TRACED_CALLS = 40           # the metrics' window (the card alone)
 BREAKDOWN_CALLS = 20        # the breakdown's window (host ops too)
 TRACE_LOOP_S = 3.0          # the closed loop before a traced window, in a --trace 1 run
+SETTLE = 5                  # unrecorded calls under the profiler before each traced window
 DRAW, SWEEP = "portbench.draw", "portbench.sweep"     # the host spans of a call
 # the program's own counters, by dotted path under ofdm_lte_tpu_torch
 COUNTERS = {"cmatmul.launches": ("ops.cmatmul", "cmatmul", "launches"),
-            "cmatmul.copies": ("ops.cmatmul", "cmatmul", "copies")}
+            "cmatmul.copies": ("ops.cmatmul", "cmatmul", "copies"),
+            "bcjr_half.launches": ("ops.bcjr", "bcjr_half", "launches"),
+            "bcjr_app.launches": ("ops.bcjr", "bcjr_app", "launches")}
 
 
 class LostTrace(RuntimeError):
@@ -81,6 +95,8 @@ class Cell:
         self.limits = json.loads((bench / "limits" / f"{name}.json").read_text())
         self.reference = load_module(bench / "reference" / f"{self.config['reference']}.py",
                                      f"portbench_reference_{self.config['reference']}")
+        entry = self.traffic["entry"]
+        self.entry = load_module(bench / "entries" / f"{entry}.py", f"portbench_entry_{entry}")
 
         def mine(m):
             return "workloads" not in m or name in m["workloads"]
@@ -89,23 +105,20 @@ class Cell:
         self.metric_files = {m["name"]: bench / "metrics" / f"{m['name']}.py"
                              for m in self.per_layer}
 
-    def shape(self) -> inputs.Shape:
-        t = self.traffic
-        sizes = self.reference.sizes(self.config, t)
-        return inputs.Shape(points=len(t["snr_db"]), frames=int(t["frames"]),
-                            n_bits=sizes["bits_per_frame"], symbols=int(t["num_ofdm_symbols"]),
-                            n_fft=sizes["n_fft"], cp=sizes["cp"], n_data=sizes["n_data"],
-                            n_pilot=sizes["n_pilot"], channel=t.get("channel_type", "awgn"),
-                            taps=sizes["taps"])
+    def shape(self):
+        """The sizes of a call's inputs, as the entry's adapter gives them."""
+        return self.entry.shape(self.config, self.traffic, self.reference)
 
 
 class Context:
     """What a per-layer reader reads: the cell, its input sizes, the metrics'
-    traced window (the card alone) and the breakdown's (host ops too)."""
+    traced window (the card alone), the breakdown's (host ops too), and the
+    results of the metrics window's calls, one a call, in order."""
 
-    def __init__(self, cell: Cell, shape: inputs.Shape, trace: devtrace.Reduced,
-                 host_trace: devtrace.Reduced = None):
+    def __init__(self, cell: Cell, shape, trace: devtrace.Reduced,
+                 host_trace: devtrace.Reduced = None, results=()):
         self.cell, self.shape, self.trace, self.host_trace = cell, shape, trace, host_trace
+        self.results = list(results)
         self.costs, self.peaks, self.LostTrace = costs, peaks.H100_SXM, LostTrace
         self.draw_span = DRAW
 
@@ -122,19 +135,16 @@ class Program:
         os.environ["OFDM_LTE_TPU_TORCH_MATMUL_PRECISION"] = precision
         import torch
         from ofdm_lte_tpu_torch import LTEConfig
-        from ofdm_lte_tpu_torch.parallel import sweep
         self.torch = torch
+        self.adapter = cell.entry
         self.shape = cell.shape()
         c, t = cell.config, cell.traffic
         self.cfg = LTEConfig(float(c["bandwidth_mhz"]), modulation=c["modulation"],
                              cp_type=c["cp_type"])
         self.device = torch.device(job["device_type"])
-        self.entry = getattr(sweep, t["entry"])
-        self.kwargs = dict(frames=int(t["frames"]), num_ofdm_symbols=int(t["num_ofdm_symbols"]),
-                           mode=c.get("mode", "lte"), channel_type=t.get("channel_type", "awgn"),
-                           pipeline=c["pipeline"])
-        if self.shape.channel != "awgn":
-            self.kwargs.update(itu_profile=t["itu_profile"], velocity_kmh=t.get("velocity_kmh"))
+        module, fn = self.adapter.ENTRY.rsplit(".", 1)
+        self.sweep = getattr(importlib.import_module(f"ofdm_lte_tpu_torch.{module}"), fn)
+        self.kwargs = self.adapter.kwargs(c, t)
         self.snr = [float(s) for s in t["snr_db"]]
         self.seed = int(job["seed"])
 
@@ -145,15 +155,14 @@ class Program:
         the host (what an idle gap is named by)."""
         span = self.torch.profiler.record_function if spans else _no_span
         with span(DRAW):
-            arrays = inputs.call_inputs(self.shape, self.seed, stream, i, self.device)
-            bits, seams = inputs.sweep_args(self.shape, arrays)
+            arrays = self.adapter.call_inputs(self.shape, self.seed, stream, i, self.device)
+            args = self.adapter.sweep_args(self.shape, arrays)
             self.sync()
         with span(SWEEP):
             a = time.perf_counter()
-            r = self.entry(self.cfg, self.snr, bits=bits, seams=seams, device=self.device,
-                           **self.kwargs)
-            res = {"bit_errors": np.asarray(r.bit_errors),
-                   "total_bits": np.asarray(r.total_bits), "papr_db": np.asarray(r.papr_db)}
+            r = self.adapter.call(self.sweep, self.cfg, self.snr, self.shape, args,
+                                  self.kwargs, self.device)
+            res = self.adapter.results(self.shape, r)
             b = time.perf_counter()
         return res, b - a
 
@@ -211,9 +220,12 @@ def _measure(job: dict, cell: Cell) -> dict:
 
         def one(_, spans=False):       # call k of the stream is traced[k]
             traced.append(prog.call(inputs.TRACED, len(traced), spans)[0])
-        out["trace"] = devtrace.trace_calls(one, TRACED_CALLS, prog.counters, host=False)
-        out["host_trace"] = devtrace.trace_calls(lambda i: one(i, True), BREAKDOWN_CALLS)
+        out["trace"] = devtrace.trace_calls(one, TRACED_CALLS, prog.counters, host=False,
+                                            settle=SETTLE)
+        out["host_trace"] = devtrace.trace_calls(lambda i: one(i, True), BREAKDOWN_CALLS,
+                                                 settle=SETTLE)
         out["traced_res"] = traced
+        out["window_res"] = traced[SETTLE:SETTLE + TRACED_CALLS]    # the metrics window's
     prog.sync()
     out["memory_peak"] = prog.memory_peak()
     return out
@@ -237,17 +249,16 @@ def sample_calls(seed: int, res: list, traced_res: list, n_check: int) -> list:
                for i in _sample(seed + 1, len(traced_res), 2)])
 
 
-def reference_readings(cell: Cell, shape: inputs.Shape, prog: Program, seed: int,
-                       calls: list) -> list:
+def reference_readings(cell: Cell, shape, prog: Program, seed: int, calls: list) -> list:
     """The comparison numbers of each (stream, index, port result)."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    readings = []
+    entry, readings = cell.entry, []
     for stream, i, port in calls:
-        arrays = inputs.call_inputs(shape, seed, stream, i, prog.device)
-        ref = cell.reference.sweep(cell.config, cell.traffic, prog.snr, arrays, shape.frames)
-        readings.append(check.compare(port, ref))
+        arrays = entry.call_inputs(shape, seed, stream, i, prog.device)
+        ref = entry.reference(cell.reference, cell.config, cell.traffic, prog.snr, arrays, shape)
+        readings.append(entry.compare(port, ref))
         del arrays
     return readings
 
@@ -270,7 +281,8 @@ def run(job: dict) -> dict:
     t_ref = time.perf_counter() - t_ref
     correct, failed, checks = check.verdict(readings, cell.limits)
     out = _result(job, cell, shape, m, correct, failed, checks)
-    out["_notes"].append(f"reference: {len(sample)} calls checked in {t_ref:.3f} s")
+    out["_notes"].append(f"reference: {len(sample)} calls checked in {t_ref:.3f} s "
+                         f"({t_ref / max(len(sample), 1):.3f} s a call)")
     return out
 
 
@@ -287,10 +299,10 @@ def _device(job: dict, mem_peak: int) -> dict:
 def _result(job, cell, shape, m, correct, failed, checks) -> dict:
     lat = np.asarray(m["lat"])
     calls = len(lat)
-    info_bits = float(sum(int(np.sum(r["total_bits"])) for r in m["res"]))
+    info_bits = float(sum(cell.entry.info_bits(r) for r in m["res"]))
     device = _device(job, m["memory_peak"])
     notes = [f"calls in the window: {calls} over {m['window_s']:.6f} s "
-             f"({shape.lanes} lanes, {int(np.sum(m['res'][0]['total_bits'])) if calls else 0} "
+             f"({shape.lanes} lanes, {cell.entry.info_bits(m['res'][0]) if calls else 0} "
              "information bits a call)",
              f"sweep latency: median {np.median(lat) * 1e3:.6f} ms, p95 "
              f"{np.percentile(lat, 95) * 1e3:.6f} ms over {calls} samples"]
@@ -307,7 +319,7 @@ def _result(job, cell, shape, m, correct, failed, checks) -> dict:
         trace, host = m["trace"], m["host_trace"]
         if not trace.kernels:
             raise LostTrace("the traced window shows no device kernel")
-        ctx = Context(cell, shape, trace, host)
+        ctx = Context(cell, shape, trace, host, m["window_res"])
         for metric in cell.per_layer:
             mod = load_module(cell.metric_files[metric["name"]], "portbench_metric_"
                               + metric["name"].replace(".", "_"))

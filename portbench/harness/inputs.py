@@ -2,9 +2,11 @@
 card from (seed, stream, call) and handed to the sweep through its seams
 (`bits=`, `seams=`), so that the reference can be given the same.
 
-A traffic file names what a sweep call draws. Each SNR point carries
-`frames` frames; the lanes are point-major, lane s·frames + f. Every array
-of a call is lane-leading:
+The entry's adapter (entries/<entry>.py) says which arrays a call draws,
+in which order, through `generator` and `draw`. Each SNR point carries
+`frames` frames; the lanes are point-major, lane s·frames + f. A
+`ber_sweep` call (`Shape`, `call_inputs`, `sweep_args`) draws lane-leading
+arrays:
 
 - bits (lanes, n_bits) int8 0/1;
 - over AWGN, the bin-domain noise of the link: standard normals at the data
@@ -73,18 +75,32 @@ class Shape(NamedTuple):
         raise ValueError(f"no draws are defined for channel {self.channel!r}")
 
 
-def call_inputs(shape: Shape, seed: int, stream: int, call: int, device) -> dict:
-    """The arrays of one call, drawn by a generator of its own."""
+def generator(seed: int, stream: int, call: int, device) -> torch.Generator:
+    """The generator of one call's draws."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed_word(seed, stream, call))
+    return gen
+
+
+def draw(gen: torch.Generator, shape: tuple, law: str, device) -> torch.Tensor:
+    """One array of `shape` under `law`: "bits" (int8 0/1), "normal"
+    (standard normals) or "phase" (U(0, 2π))."""
+    if law == "bits":
+        return torch.randint(0, 2, shape, generator=gen, device=device, dtype=torch.int8)
+    if law == "normal":
+        return torch.randn(shape, generator=gen, device=device)
+    if law == "phase":
+        return torch.rand(shape, generator=gen, device=device) * (2.0 * np.pi)
+    raise ValueError(f"no law {law!r}")
+
+
+def call_inputs(shape: Shape, seed: int, stream: int, call: int, device) -> dict:
+    """The arrays of one call, drawn by a generator of its own."""
+    gen = generator(seed, stream, call, device)
     n = shape.lanes
-    out = {"bits": torch.randint(0, 2, (n, shape.n_bits), generator=gen, device=device,
-                                 dtype=torch.int8)}
+    out = {"bits": draw(gen, (n, shape.n_bits), "bits", device)}
     for name, per, law in shape.arrays():
-        if law == "normal":
-            out[name] = torch.randn((n,) + per, generator=gen, device=device)
-        else:
-            out[name] = torch.rand((n,) + per, generator=gen, device=device) * (2.0 * np.pi)
+        out[name] = draw(gen, (n,) + per, law, device)
     return out
 
 

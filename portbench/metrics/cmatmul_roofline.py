@@ -1,4 +1,4 @@
-"""cmatmul_roofline: the least time of a sweep call's complex products
+"""cmatmul_roofline: the least time of a call's complex products
 (harness/costs.cgemm_bound_s: 6·m·k·n flops at the bf16 dense rate or
 8 B a complex element of A, B and C at the HBM rate, whichever is longer),
 times the calls, over the device time of the port's complex-GEMM kernels
@@ -7,8 +7,9 @@ in the traced window, in %.
 The kernels are matched by name: every `__global__` of
 ofdm_lte_tpu_torch/csrc/cmatmul*.cu, cmatmul_tc.cuh and wgmma_cmatmul.cuh,
 the per-call operand preparation and copies among them, which are part of
-a product. The products are those of one SISO link step over the call's
-lanes (costs.siso_products), with the Jakes tap product over multipath.
+a product. The products are those the cell's entry adapter counts a call
+(`products`: one SISO link step over the call's lanes, with the Jakes tap
+product over multipath; in the HARQ entry, one a transmission).
 A window with no matching kernel while the port's counter
 `cmatmul.launches` counted launches is a lost trace, never a 0.
 """
@@ -23,9 +24,7 @@ def matches(name: str) -> bool:
 
 
 def bound_s_per_call(ctx) -> float:
-    s = ctx.shape
-    products = ctx.costs.siso_products(s.lanes, s.symbols, s.n_fft, s.cp, s.n_data,
-                                       s.n_pilot, jakes_taps=s.taps)
+    products = ctx.cell.entry.products(ctx.shape, ctx.costs)
     return sum(ctx.costs.cgemm_bound_s(m, k, n, ctx.peaks) for _, m, k, n in products)
 
 

@@ -7,17 +7,9 @@ ahead into the next call. A window with kernels and no `link.` span lost
 the trace: it raises, never reads 0. A program without `span` marks no
 stage, and reads nothing.
 """
-import importlib
+from harness.spans import program_marks_stages
 
 SYNC, LAYER = "link.host_sync", "link."
-
-
-def program_marks_stages() -> bool:
-    try:
-        prof = importlib.import_module("ofdm_lte_tpu_torch.utils.profiling")
-    except ImportError:
-        return False
-    return hasattr(prof, "span")
 
 
 def read(ctx):

@@ -1,7 +1,8 @@
 """Shared set-up of the benchmark's tests: a temporary checkout holding a
-copy of portbench/, BENCHMARK.json with tiny 1.25 MHz cells added as new
-files, and the port linked in; and a subprocess runner of one cell on the
-CPU (the harness's look for a card skipped)."""
+copy of portbench/, BENCHMARK.json with tiny 1.25 MHz cells (three of
+`ber_sweep`, one of the batched HARQ entry) added as new files, and the port linked
+in; and a subprocess runner of one cell on the CPU (the harness's look for
+a card skipped)."""
 import json
 import os
 import shutil
@@ -13,6 +14,10 @@ BENCH = Path(__file__).resolve().parents[1]
 REPO = BENCH.parent
 
 TINY_LIMITS = {"error_gap_bits": 10, "papr_gap_db": 1e-3, "bits_gap": 0}
+# a 1,000-bit transport block (one code block of K = 1,024) at 1.25 MHz
+TINY_HARQ = {"snr_db": [15.5, 16.0], "frames": 4, "tb_bits": 1000, "check_calls": 2}
+TINY_HARQ_LIMITS = {"stage_fail_gap": 0, "tx_gap": 0, "error_gap_bits": 400,
+                    "crc_mismatch_lanes": 0, "papr_gap_db": 1e-3}
 
 
 def tiny_checkout(tmp: Path) -> Path:
@@ -36,9 +41,21 @@ def tiny_checkout(tmp: Path) -> Path:
         (pb / "limits" / f"{name}.json").write_text(json.dumps(TINY_LIMITS))
         spec["workloads"].append({"name": name, "config": "tiny", "traffic": f"{name}_mix",
                                   "chips": 1, "why": "test"})
+    coded = json.loads((pb / "configs" / "lte20_64qam_coded.json").read_text())
+    coded.update(name="tiny_coded", bandwidth_mhz=1.25, fft_size=128, cp_length=9, num_prb=6)
+    (pb / "configs" / "tiny_coded.json").write_text(json.dumps(coded))
+    spec["configs"].append({"name": "tiny_coded", "source": "https://example.org/tiny",
+                            "file": "portbench/configs/tiny_coded.json", "reduced": [],
+                            "why": "test"})
+    traffic = json.loads((pb / "traffic" / "harq_awgn_4x64.json").read_text())
+    traffic.update(TINY_HARQ)
+    (pb / "traffic" / "t_harq_mix.json").write_text(json.dumps(traffic))
+    (pb / "limits" / "t_harq.json").write_text(json.dumps(TINY_HARQ_LIMITS))
+    spec["workloads"].append({"name": "t_harq", "config": "tiny_coded", "traffic": "t_harq_mix",
+                              "chips": 1, "why": "test"})
     for m in spec["per_layer"]:
         if "workloads" in m:
-            m["workloads"] += ["t_awgn", "t_peda", "t_wide"]
+            m["workloads"] += ["t_awgn", "t_peda", "t_wide", "t_harq"]
     (root / "BENCHMARK.json").write_text(json.dumps(spec, indent=1))
     return root
 

@@ -1,5 +1,5 @@
 """The work arithmetic: the products of a sweep call, the one count of a
-complex product, and that no share can pass 100%."""
+complex product and of a BCJR step, and that no share can pass 100%."""
 import itertools
 
 import pytest
@@ -54,3 +54,31 @@ def test_no_kernel_beats_the_bound(m, k, n):
     for (form, per), (_, rate) in itertools.product(FORMS.items(), RATES.items()):
         fastest = max(per * m * k * n / rate, costs.cgemm_bytes(m, k, n) / P["hbm_bytes_per_s"])
         assert fastest >= bound * (1 - 1e-12), (form, rate)
+
+
+def test_bcjr_step_is_bound_by_its_bytes():
+    assert costs.BCJR_OPS_PER_STEP == 109 and costs.BCJR_BYTES_PER_STEP == 16
+    assert costs.bcjr_bound_s(1.0) == pytest.approx(16 / 3.35e12)
+    assert 109 / P["fp32_flops"] < 16 / P["hbm_bytes_per_s"]
+    # one extrinsic pass at 3,328 blocks of K' 5,827: 0.0926 ms (PERF.md's kernel table)
+    assert costs.bcjr_bound_s(3328 * 5827) == pytest.approx(0.0926e-3, rel=1e-3)
+
+
+def test_harq_steps_count_the_needed_decodes():
+    # 13 blocks of 5,824 and 8 iterations: 16 passes over 13 · 5,827 steps a decode
+    assert costs.harq_bcjr_steps(1, [5824] * 13, 8) == 16 * 13 * 5827
+    assert costs.harq_bcjr_steps(7, [1024], 8) == 7 * 16 * 1027
+    assert costs.harq_bcjr_steps(0, [5824] * 13, 8) == 0
+
+
+@pytest.mark.parametrize("lanes,T,ntx_each", [(256, 4, 1), (256, 4, 4), (4, 4, 2), (1, 1, 1)])
+def test_no_decoder_beats_the_bcjr_bound(lanes, T, ntx_each):
+    """The credited work is at most what the batched decoder launches (every
+    lane decodes every stage, 2·iterations + 1 passes each), and no pass
+    over those steps can move its 16 B a step faster than HBM: the share
+    stays at or below 100%."""
+    blocks = [5824] * 13
+    credited = costs.bcjr_bound_s(costs.harq_bcjr_steps(lanes * ntx_each, blocks, 8))
+    launched_steps = lanes * T * (2 * 8 + 1) * sum(K + 3 for K in blocks)
+    fastest = launched_steps * 16 / P["hbm_bytes_per_s"]
+    assert ntx_each <= T and credited <= fastest

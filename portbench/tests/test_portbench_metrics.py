@@ -1,10 +1,11 @@
 """Each per-layer reader, and the trace reduction, against small synthetic
 traces; the lost-trace rule; and that every `__global__` of the port's
-GEMM sources matches its metric's name patterns."""
+GEMM and BCJR sources matches its metric's name patterns."""
 import json
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 from harness import core, devtrace, inputs
@@ -19,6 +20,7 @@ def metric(name):
 
 class FakeCell:
     traffic = {}
+    entry = core.load_module(BENCH / "entries" / "ber_sweep.py", "t_metrics_ber_entry")
 
 
 def ctx_of(trace, frames=32, symbols=14, taps=0, host=None):
@@ -149,3 +151,65 @@ def test_a_card_only_trace_takes_its_window_from_the_device():
     r = devtrace.reduce_chrome(ev, calls=1, device_window=True)
     assert r.window == (10.0, 40.0)
     assert 1 - r.busy_s / r.window_s == pytest.approx(0.5)
+
+
+def harq_ctx(trace, ntx_per_call):
+    cell = core.Cell("harq75376_awgn", REPO)
+    results = [{"ntx": np.array(n)} for n in ntx_per_call]
+    return core.Context(cell, cell.shape(), trace, None, results)
+
+
+def test_harq_products_are_each_transmissions():
+    ctx = harq_ctx(reduced([]), [])
+    prods = ctx.cell.entry.products(ctx.shape, ctx.costs)
+    assert len(prods) == 12          # TX, RX data, RX pilot, at each of 4 transmissions
+    assert [p[1:] for p in prods[:3]] == [(256 * 38, 999, 2192), (256 * 38, 2048, 999),
+                                           (256 * 3, 2048, 200)]
+    assert prods[3:6] == [(n.replace(".0", ".1"), *d) for n, *d in prods[:3]]
+    m = metric("cmatmul_roofline")
+    assert m.bound_s_per_call(ctx) == pytest.approx(4 * sum(
+        ctx.costs.cgemm_bound_s(*p[1:]) for p in prods[:3]))
+    t = reduced([("x", 0, 1)], window=(0.0, 1e6), calls=1)
+    assert metric("call_mfu").read(harq_ctx(t, [])) == pytest.approx(
+        100 * sum(6.0 * a * b * c for _, a, b, c in prods) / 989e12)
+
+
+def test_turbo_bcjr_roofline_reads_needed_work_over_kernel_time():
+    m = metric("turbo_bcjr_roofline")
+    # two calls, each of the 256 lanes needing 2 transmissions: 512 decodes a call
+    ntx = [[2] * 256] * 2
+    bound = 2 * 512 * 16 * 13 * 5827 * 16 / 3.35e12
+    t = reduced([("void (anonymous namespace)::bcjr_kernel<true, 1>(float const*)", 0,
+                  bound * 4e6 / 2),
+                 ("void (anonymous namespace)::bcjr_kernel<true, 2>(float const*)", 5,
+                  bound * 4e6 / 2),
+                 ("cmatmul_wgmma_tf32x3_kernel", 10, 1e6)], calls=2,
+                counters={"bcjr_half.launches": 136})
+    assert m.read(harq_ctx(t, ntx)) == pytest.approx(25.0)
+
+
+def test_turbo_bcjr_roofline_lost_trace_and_silence():
+    m = metric("turbo_bcjr_roofline")
+    lost = reduced([("elementwise_kernel", 0, 5)], counters={"bcjr_half.launches": 68})
+    with pytest.raises(core.LostTrace):
+        m.read(harq_ctx(lost, [[4, 4, 4, 4]] * 2))
+    with pytest.raises(core.LostTrace):
+        m.read(harq_ctx(reduced([("x", 0, 5)], counters={"bcjr_app.launches": 1}),
+                        [[4, 4, 4, 4]] * 2))
+    assert m.read(harq_ctx(reduced([("elementwise_kernel", 0, 5)]), [[4] * 4] * 2)) is None
+    # results that do not match the traced calls
+    t = reduced([("bcjr_kernel<true, 1>", 0, 5)], calls=2)
+    with pytest.raises(core.LostTrace):
+        m.read(harq_ctx(t, [[4] * 4]))
+
+
+def test_every_bcjr_kernel_matches_the_patterns():
+    m = metric("turbo_bcjr_roofline")
+    found = kernels_in([CSRC / "turbo_bcjr.cu"])
+    assert found
+    for f, name in found:
+        assert m.matches(f"void (anonymous namespace)::{name}<true, 1>(float const*, int)"), name
+    gemm = metric("cmatmul_roofline")
+    for f, name in kernels_in(sorted(CSRC.glob("cmatmul*.cu"))):
+        assert not m.matches(f"void {name}<true, 4>(float const*)"), name
+        assert not gemm.matches(f"void {found[0][1]}<true, 1>(float const*)")

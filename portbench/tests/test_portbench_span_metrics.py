@@ -1,5 +1,5 @@
 """The readers of the program's spans (channel.device_ms, modem.device_ms,
-link.host_syncs) against small synthetic breakdown windows: the sums a
+coding.device_ms, link.host_syncs) against small synthetic breakdown windows: the sums a
 call, the span prefixes, the lost-trace rule, and silence on a program
 that marks no stage."""
 import pytest
@@ -14,6 +14,7 @@ def metric(name):
 
 class FakeCell:
     traffic = {}
+    entry = core.load_module(BENCH / "entries" / "ber_sweep.py", "t_spans_ber_entry")
 
 
 def ctx_of(host):
@@ -52,6 +53,15 @@ def test_device_ms_sums_the_kernels_launched_in_each_layers_spans():
         (900 + 800 + 100 + 200) * 1e-3)
 
 
+def test_coding_device_ms_sums_the_coding_spans():
+    spans = [(core.SWEEP, 0, 1000), ("coding.crc", 10, 20), ("coding.encode", 40, 20),
+             ("modem.tx", 70, 50), ("coding.decode", 200, 300), ("coding.harq_combine", 600, 10)]
+    kernels = [("crc_gemm", 15, 4.0), ("encode", 45, 6.0), ("gemm_tx", 80, 50.0),
+               ("bcjr_kernel", 250, 870.0), ("where", 605, 2.0), ("draw", -40, 9.0)]
+    got = metric("coding.device_ms").read(ctx_of(window(spans, kernels, calls=2)))
+    assert got == pytest.approx((4 + 6 + 870 + 2) * 1e-3 / 2)
+
+
 def test_host_syncs_counts_the_sync_spans_a_call():
     assert metric("link.host_syncs").read(ctx_of(window(SPANS, KERNELS))) == 3.0
     no_sync = [s for s in SPANS if s[0] != "link.host_sync"]
@@ -77,6 +87,7 @@ def test_a_kernel_with_no_launch_record_counts_in_no_span():
 
 @pytest.mark.parametrize("name,drop", [("channel.device_ms", "channel."),
                                        ("modem.device_ms", "modem."),
+                                       ("coding.device_ms", "coding."),
                                        ("link.host_syncs", "link.")])
 def test_a_window_with_kernels_and_no_span_of_the_layer_is_a_lost_trace(name, drop):
     spans = [s for s in SPANS if not s[0].startswith(drop)]
@@ -87,7 +98,8 @@ def test_a_window_with_kernels_and_no_span_of_the_layer_is_a_lost_trace(name, dr
     assert metric(name).read(ctx_of(None)) is None
 
 
-@pytest.mark.parametrize("name", ["channel.device_ms", "modem.device_ms", "link.host_syncs"])
+@pytest.mark.parametrize("name", ["channel.device_ms", "modem.device_ms", "coding.device_ms",
+                                  "link.host_syncs"])
 def test_a_program_without_spans_reads_nothing(name, monkeypatch):
     import ofdm_lte_tpu_torch.utils.profiling as prof
     monkeypatch.delattr(prof, "span")
