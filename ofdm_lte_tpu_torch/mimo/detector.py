@@ -11,7 +11,11 @@ Port of ofdm_lte_tpu/mimo/detector.py:
 Two layouts. The *plane* solvers (`mmse_planes`, `sic_planes`) take the rx
 and layer axes unrolled as Python lists of (..., S, m) planes, so every
 operand keeps the large subcarrier axis minor: the spatial link's route
-for MMSE, ZF and SIC at ranks 1 to 4. The *stacked* detectors take y
+for MMSE, ZF and SIC at ranks 1 to 4. `sic_stacked`, which the link calls
+and `sic_planes` wraps, takes the same planes stacked on leading axes,
+(rx, ...) and (rx, L, ...), and runs the plane arithmetic one launch per
+operation over every (layer, layer) entry, as does the plane solve of
+ranks 1 and 3 (`_solve_s`). The *stacked* detectors take y
 (..., rx) and H (..., rx, L) with the tiny axes trailing and solve through
 cplx.solve: the route of MRC and the unbiased MMSE. σ² is a scalar or one
 value per lane: right-padded against planes, left-aligned against stacked
@@ -192,55 +196,88 @@ def mmse4_planes(y_planes, heff_planes, sigma2) -> List[C]:
     return [s_hi[0], s_hi[1], s_lo[0], s_lo[1]]
 
 
-def _plane_zeros_like(p: C) -> C:
-    z = torch.zeros_like(p.re)
-    return C(z, z)
+def _m2_mul_s(a: C, b: C) -> C:
+    """_m2_mul of 2×2 blocks stacked on the two leading axes, (2, 2, ...):
+    p[i, k, j] = a[i, k]·b[k, j], summed over k in _m2_mul's order."""
+    p = C(a.re[:, :, None], a.im[:, :, None]) * C(b.re[None], b.im[None])
+    return p[:, 0] + p[:, 1]
 
 
-def _solve2_planes(G, z):
-    """Closed-form 2×2 plane-system solve: G a [2][2] nest of C planes
-    (general, not necessarily Hermitian), z [2] planes."""
-    inv = _reciprocal(G[0][0] * G[1][1] - G[0][1] * G[1][0])
-    return [(G[1][1] * z[0] - G[0][1] * z[1]) * inv,
-            (G[0][0] * z[1] - G[1][0] * z[0]) * inv]
+def _m2_vec_s(a: C, v: C) -> C:
+    """_m2_vec of a stacked block a (2, 2, ...) and vector v (2, ...)."""
+    p = a * C(v.re[None], v.im[None])
+    return p[:, 0] + p[:, 1]
 
 
-def _solve4_planes(G, z):
-    """4×4 plane-system solve via the 2×2-block Schur complement: the plane
-    counterpart of cplx.solve's n = 4 path."""
-    A = [[G[0][0], G[0][1]], [G[1][0], G[1][1]]]
-    B = [[G[0][2], G[0][3]], [G[1][2], G[1][3]]]
-    Cm = [[G[2][0], G[2][1]], [G[3][0], G[3][1]]]
-    D = [[G[2][2], G[2][3]], [G[3][2], G[3][3]]]
-    Ainv = _m2_inv(A)
-    Ainv_b1 = _m2_vec(Ainv, z[:2])
-    AinvB = _m2_mul(Ainv, B)
-    S = [[D[i][j] - (Cm[i][0] * AinvB[0][j] + Cm[i][1] * AinvB[1][j])
-          for j in range(2)] for i in range(2)]
-    lo = _m2_vec(Cm, Ainv_b1)
-    x2 = _solve2_planes(S, [z[2] - lo[0], z[3] - lo[1]])
-    x1 = [Ainv_b1[0] - (AinvB[0][0] * x2[0] + AinvB[0][1] * x2[1]),
-          Ainv_b1[1] - (AinvB[1][0] * x2[0] + AinvB[1][1] * x2[1])]
-    return [x1[0], x1[1], x2[0], x2[1]]
+def _pair(a: C, b: C) -> C:
+    return C(torch.stack([a.re, b.re]), torch.stack([a.im, b.im]))
 
 
-def _solve_planes(G, z):
-    """A plane-system solve for L in {1, 2, 3, 4}. L = 3 pads to the 4×4
-    Schur path with a decoupled unit fourth equation."""
-    L = len(z)
+def _m2_inv_s(a: C, sign: torch.Tensor) -> C:
+    """_m2_inv of a stacked block: the adjugate's entries times 1/det, the
+    off-diagonal ones negated (`sign` is [[1, −1], [−1, 1]])."""
+    inv = _reciprocal(a[0, 0] * a[1, 1] - a[0, 1] * a[1, 0])
+    adj = _pair(_pair(a[1, 1], a[0, 1]), _pair(a[1, 0], a[0, 0])) * inv
+    return C(adj.re * sign, adj.im * sign)
+
+
+def _solve2_s(G: C, z: C) -> C:
+    """The closed-form 2×2 solve of a stacked system G (2, 2, ...) (general,
+    not necessarily Hermitian), z (2, ...)."""
+    inv = _reciprocal(G[0, 0] * G[1, 1] - G[0, 1] * G[1, 0])
+    return (_pair(G[1, 1], G[0, 0]) * z - _pair(G[0, 1], G[1, 0]) * _pair(z[1], z[0])) * inv
+
+
+def _solve4_s(G: C, z: C, sign: torch.Tensor) -> C:
+    """A 4×4 solve of a stacked system G (4, 4, ...), z (4, ...) via the
+    2×2-block Schur complement, the plane counterpart of cplx.solve's n = 4
+    path: each block operation one launch over its stacked entries, every
+    sum in the order of the 2×2 plane-matrix helpers above."""
+    A, B, Cm, D = G[:2, :2], G[:2, 2:], G[2:, :2], G[2:, 2:]
+    Ainv = _m2_inv_s(A, sign)
+    Ainv_b1 = _m2_vec_s(Ainv, z[:2])
+    AinvB = _m2_mul_s(Ainv, B)
+    S = D - _m2_mul_s(Cm, AinvB)
+    x2 = _solve2_s(S, z[2:] - _m2_vec_s(Cm, Ainv_b1))
+    return cplx.concatenate([Ainv_b1 - _m2_vec_s(AinvB, x2), x2], axis=0)
+
+
+def _solve_s(G: C, z: C, sign: torch.Tensor) -> C:
+    """A plane-system solve on a stacked system G (L, L, ...), z (L, ...),
+    for L in {1, 2, 3, 4}: L = 3 pads to the 4×4 Schur path with a
+    decoupled unit fourth equation."""
+    L = z.shape[0]
     if L == 1:
-        return [z[0] * _reciprocal(G[0][0])]
+        return z * _reciprocal(G[0, 0])
     if L == 2:
-        return _solve2_planes(G, z)
+        return _solve2_s(G, z)
     if L == 3:
-        zero = _plane_zeros_like(z[0])
-        one = C(torch.ones_like(zero.re), zero.im)
-        G4 = [[G[i][j] if (i < 3 and j < 3) else (one if i == j else zero)
-               for j in range(4)] for i in range(4)]
-        return _solve4_planes(G4, list(z) + [zero])[:3]
+        G4 = cplx.czeros((4, 4) + tuple(z.shape[1:]), z.re.device)
+        G4.re[:3, :3], G4.im[:3, :3] = G.re, G.im
+        G4.re[3, 3] = 1.0
+        z4 = cplx.concatenate([z, cplx.czeros((1,) + tuple(z.shape[1:]), z.re.device)], axis=0)
+        return _solve4_s(G4, z4, sign)[:3]
     if L == 4:
-        return _solve4_planes(G, z)
+        return _solve4_s(G, z, sign)
     raise ValueError(f"plane solve supports L<=4, got {L}")
+
+
+def _sign(ndim: int, device) -> torch.Tensor:
+    """[[1, −1], [−1, 1]] shaped (2, 2, 1, ...) against ndim site axes."""
+    return (torch.eye(2, device=device) * 2.0 - 1.0).reshape((2, 2) + (1,) * ndim)
+
+
+def _solve_planes(G, z) -> List[C]:
+    """A plane-system solve for L in {1, 2, 3, 4}: G a [L][L] nest of C
+    planes, z [L] planes, stacked and solved by _solve_s."""
+    L = len(z)
+    if L > 4:
+        raise ValueError(f"plane solve supports L<=4, got {L}")
+    plane = tuple(z[0].shape)
+    Gs = C(torch.stack([g.re for row in G for g in row]).reshape((L, L) + plane),
+           torch.stack([g.im for row in G for g in row]).reshape((L, L) + plane))
+    s = _solve_s(Gs, cplx.stack(z, axis=0), _sign(len(plane), z[0].re.device))
+    return [s[l] for l in range(L)]
 
 
 def mmse_planes(y_planes, heff_planes, sigma2) -> List[C]:
@@ -263,66 +300,79 @@ def mmse_planes(y_planes, heff_planes, sigma2) -> List[C]:
 
 
 def sic_planes(y_planes, heff_planes, sigma2, modulation: str) -> List[C]:
-    """SIC on per-(rx, layer) channel planes: SINR order from the original
-    columns, per-stage MMSE over the remaining set, hard decision,
-    cancellation against the original H. The per-stage masked MMSE reuses
-    the plane solver with the inactive columns' Gram rows and columns
-    zeroed and their diagonal padded to σ²+1, as the stacked `sic` masks H.
+    """SIC on per-(rx, layer) channel planes: y_planes a list over rx of C
+    planes (..., S, m), heff_planes the nested [rx][layer] planes of the
+    same shape; returns the L layers' hard decisions as planes. The planes
+    are stacked into the layout of `sic_stacked`, which computes them."""
+    rx, L = len(heff_planes), len(heff_planes[0])
+    plane = tuple(y_planes[0].shape)
+    flat = [p for row in heff_planes for p in row]
+    H = C(torch.stack([p.re for p in flat]).reshape((rx, L) + plane),
+          torch.stack([p.im for p in flat]).reshape((rx, L) + plane))
+    s = sic_stacked(cplx.stack(y_planes, axis=0), H, sigma2, modulation)
+    return [s[l] for l in range(L)]
 
-    Two shortcuts (identical math, fewer passes): the masked Gram is the
-    original Gram scaled by a_i·a_j, so the base Gram planes are computed
-    once; and the residual's matched filter updates in the Gram domain,
-    z_i ← z_i − ŝ_hard·g_base[i][sel] (= Hᴴ(y − h_sel·ŝ_hard)), so the rx
-    planes are never re-read after the initial z.
+
+def sic_stacked(y: C, H: C, sigma2, modulation: str) -> C:
+    """SIC with the rx and layer axes leading: y (rx, ...) and the effective
+    channel H (rx, L, ...), the sites (..., S, m) trailing -> the hard
+    decisions (L, ...). SINR order from the original columns, per-stage
+    MMSE over the remaining set, hard decision, cancellation against the
+    original H. The per-stage masked MMSE solves the plane system with the
+    inactive columns' Gram rows and columns zeroed and their diagonal
+    padded to σ²+1, as the stacked `sic` masks H.
+
+    The arithmetic of the plane solvers, element for element and sum for
+    sum, on stacked tensors: each operation is one launch over every
+    (layer, layer) or (rx, layer) entry at once, not one a plane. Two
+    shortcuts (identical math, fewer passes): the masked Gram is the
+    original Gram scaled by a_i·a_j, so the base Gram is computed once; and
+    the residual's matched filter updates in the Gram domain,
+    z_i ← z_i − ŝ_hard·g_base[i][sel] (= Hᴴ(y − h_sel·ŝ_hard)), so y is
+    never re-read after the initial z.
     """
-    L = len(heff_planes[0])
-    s2 = _align_sigma_planes(sigma2, y_planes[0])
+    rx, L = H.shape[0], H.shape[1]
+    dev = y.re.device
+    s2 = _align_sigma_planes(sigma2, y[0])
 
-    # base Gram (no σ², no masks) and matched filter, both stage-invariant
-    g_base = [[None] * L for _ in range(L)]
-    for i in range(L):
-        for j in range(i, L):
-            g = _gram_plane(heff_planes, i, j)
-            g_base[i][j] = g
-            if j != i:
-                g_base[j][i] = g.conj()
-    z = [_matched(y_planes, heff_planes, i) for i in range(L)]
+    # base Gram (no σ², no masks) and matched filter, both stage-invariant,
+    # summed over rx in rx order
+    Hc = H.conj()
+    gram = C(Hc.re[:, :, None], Hc.im[:, :, None]) * C(H.re[:, None], H.im[:, None])
+    g_base = _csum(gram[r] for r in range(rx))                   # (L, L, ...)
+    mf = Hc * C(y.re[:, None], y.im[:, None])
+    z = _csum(mf[r] for r in range(rx))                          # (L, ...)
+    del gram, mf
 
-    colp = [g_base[l][l].re for l in range(L)]
-    total = _csum(colp)
-    sinr = [colp[l] / (total - colp[l] + s2 + 1e-10) for l in range(L)]
+    colp = torch.diagonal(g_base.re, 0, 0, 1).movedim(-1, 0)     # (L, ...)
+    total = _csum(colp[l] for l in range(L))
+    sinr = colp / (total - colp + s2 + 1e-10)
 
-    active = [torch.ones_like(colp[0]) for _ in range(L)]
-    s_hat = [_plane_zeros_like(y_planes[0]) for _ in range(L)]
-    neg_inf = torch.full_like(colp[0], float("-inf"))
+    active = torch.ones_like(colp)
+    s_hat = C(torch.zeros_like(colp), torch.zeros_like(colp))
+    layer = torch.arange(L, device=dev).reshape((L,) + (1,) * (colp.ndim - 1))
+    sign = _sign(colp.ndim - 1, dev)
+    s2_diag = s2[..., None] if _ndim(s2) else s2
 
     for _ in range(L):
         # the stage's layer: argmax of the original SINR among the active
-        # columns, the first index on a tie (a stable descending sort)
-        masked = torch.stack([torch.where(active[l] > 0, sinr[l], neg_inf)
-                              for l in range(L)], dim=-1)
-        sel_idx = torch.argmax(masked, dim=-1)
-        sel = [(sel_idx == l).to(torch.float32) for l in range(L)]
+        # columns, the first index on a tie
+        sel_idx = torch.argmax(torch.where(active > 0, sinr, float("-inf")), dim=0)
+        sel = (sel_idx[None] == layer).to(torch.float32)          # (L, ...)
 
-        G = [[C(g_base[i][j].re * (active[i] * active[j]),
-                g_base[i][j].im * (active[i] * active[j]))
-              for j in range(L)] for i in range(L)]
-        for i in range(L):
-            G[i][i] = C(G[i][i].re + s2 + (1.0 - active[i]), G[i][i].im)
-        zm = [C(z[i].re * active[i], z[i].im * active[i]) for i in range(L)]
-        s_all = _solve_planes(G, zm)
+        aa = active[:, None] * active[None, :]
+        G = C(g_base.re * aa, g_base.im * aa)
+        diag = torch.diagonal(G.re, 0, 0, 1)
+        diag.add_(s2_diag)
+        diag.add_((1.0 - active).movedim(0, -1))
+        s_all = _solve_s(G, C(z.re * active, z.im * active), sign)
 
-        s_sel = _csum(C(s_all[l].re * sel[l], s_all[l].im * sel[l]) for l in range(L))
-        s_hard = qam.detect(s_sel, modulation)
-
-        for l in range(L):
-            s_hat[l] = cplx.where(sel[l] > 0, s_hard, s_hat[l])
+        s_hard = qam.detect(C(s_all.re * sel, s_all.im * sel).sum(axis=0), modulation)
+        s_hat = cplx.where(sel > 0, C(s_hard.re[None], s_hard.im[None]), s_hat)
         # cancel in the Gram domain against the original columns
-        for i in range(L):
-            gsel = _csum(C(g_base[i][l2].re * sel[l2], g_base[i][l2].im * sel[l2])
-                         for l2 in range(L))
-            z[i] = z[i] - gsel * s_hard
-        active = [active[l] * (1.0 - sel[l]) for l in range(L)]
+        gsel = C((g_base.re * sel[None]).sum(dim=1), (g_base.im * sel[None]).sum(dim=1))
+        z = z - gsel * s_hard
+        active = active * (1.0 - sel)
 
     return s_hat
 

@@ -29,6 +29,17 @@ streams and demodulates the data bins and all pilot bins of every symbol.
 `simulate_spatial_multiplexing` is the functional form, which keeps the
 link of its arguments (sim.links). Both run on the CUDA card unless the
 caller passes `device="cpu"`.
+
+Under a torch.profiler `forward` records its stages as sibling spans
+(utils/profiling.span): `modem.tx` (QAM, layer map, precoder, the TX
+GEMM), `modem.papr`, the channel (`channel.multipath`, the links' Jakes
+product and FIR; or `channel.fading`, the flat H and its mix), in the time
+path `modem.rx_dft`, then `channel.awgn` (the bins' noise: P_rx, the
+draws, the sum), `modem.estimate`, the detector (`detector.heff`, the
+effective channel and σ², then `detector.sic` or `detector.mmse` (MMSE,
+IRC, ZF); MRC and the unbiased MMSE `detector.detect` alone), `modem.demap`
+(the layer demap and the hard demap) and `link.errors`. No channel, modem
+or detector span holds another.
 """
 from __future__ import annotations
 
@@ -54,6 +65,7 @@ from ..mimo.rank_adaptation import get_feedback
 from ..ops import ofdm, qam
 from ..ops.ofdm import DemodTables, ModTables
 from ..rx.mimo_estimation import TxEstTables, estimate_per_tx_planes, per_tx_tables
+from ..utils.profiling import span
 from .links import cached_link
 
 CHANNEL_TYPES = ("awgn", "rayleigh_mp")
@@ -245,137 +257,160 @@ class SpatialLink(nn.Module):
         w = W.reshape((self.num_tx,) + (1,) * (layers.ndim - 2) + (L, 1))
         return (w * C(layers.re[None], layers.im[None])).sum(axis=-2)
 
-    # -- the two channel implementations: each takes x (tx, ..., S, m) and
-    # returns the received data bins (rx, ..., S, m), pilot bins
+    # -- the two channel implementations: each takes the precoded layer
+    # symbols x (tx, ..., S, m) and their time symbols sig (tx, ..., S, N+cp)
+    # and returns the received data bins (rx, ..., S, m), pilot bins
     # (rx, ..., S, n_pilot) and PAPR (...,)
-    def _through_bins(self, x: C, snr_db, generator, draws: dict):
+    def _through_bins(self, x: C, sig: C, snr_db, generator, draws: dict):
         num_tx, num_rx = self.num_tx, self.num_rx
         lead = tuple(x.shape[1:-2])
         dev = x.re.device
-        sig = ofdm.modulate_custom_multi(x, self.config, None, None, None,
-                                         self.mod_tables)        # (tx, ..., S, sps)
-        papr = ofdm.papr_db(sig, axis=(-2, -1)).mean(dim=0)
-        H = flat_mimo_matrix(num_rx, num_tx, lead, generator, dev, draws.get("fading"))
-
-        # P_rx[r] = Σ_{t1,t2} Re(H[r,t1]·H*[r,t2]·R[t1,t2]) with the Hermitian
-        # R (..., tx, tx): the big passes run over the planes once per pair
-        # t1 <= t2, the small (rx, tx, tx) contraction as one broadcast sum
-        zero = torch.zeros(lead, dtype=torch.float32, device=dev)
-        R = [[None] * num_tx for _ in range(num_tx)]
-        for t1 in range(num_tx):
-            R[t1][t1] = C(sig[t1].abs2().mean(dim=(-2, -1)), zero)
-            for t2 in range(t1 + 1, num_tx):
-                R[t1][t2] = (sig[t1] * sig[t2].conj()).mean(axis=(-2, -1))
-                R[t2][t1] = R[t1][t2].conj()
-        R = cplx.stack([cplx.stack(row, axis=-1) for row in R], axis=-2)   # (..., tx, tx)
-        HH = C(H.re[..., :, None], H.im[..., :, None]) \
-            * C(H.re[..., None, :], -H.im[..., None, :])            # (..., rx, tx, tx)
-        p_rx = (HH * C(R.re[..., None, :, :], R.im[..., None, :, :])).re.sum(dim=(-2, -1))
-        npow = p_rx.movedim(-1, 0) / snr_linear(snr_db, dev)        # (rx, ...)
-        std = torch.sqrt(npow[..., None, None] / 2.0)
-
+        with span("modem.papr"):
+            papr = ofdm.papr_db(sig, axis=(-2, -1)).mean(dim=0)
         S, n_pilot = x.shape[-2], self.pilot_vals_re.shape[-1]
-        noise = draws.get("noise") or (None, None)
-        n_data = standard_normals((num_rx,) + lead + (S, self.m), generator, dev, noise[0],
-                                  "data noise")
-        n_pil = standard_normals((num_rx,) + lead + (S, n_pilot), generator, dev, noise[1],
-                                 "pilot noise")
-        # the pilot bins carry Σ_t H[r, t]·p_t, the same on every symbol
-        Hr = H.transpose(H.ndim - 2, *range(H.ndim - 2), H.ndim - 1)   # (rx, ..., tx)
-        y_pil = cplx.matmul_small(Hr, self._c("pilot_vals"))[..., None, :]
-        y_pil = C(y_pil.re.expand((num_rx,) + lead + (S, n_pilot)),
-                  y_pil.im.expand((num_rx,) + lead + (S, n_pilot)))
-        y = []
-        for r in range(num_rx):
-            acc = None
-            for t in range(num_tx):
-                term = C(H.re[..., r, t, None, None], H.im[..., r, t, None, None]) * x[t]
-                acc = term if acc is None else acc + term
-            y.append(acc)
-        return (_add_cn(cplx.stack(y, axis=0), std, n_data), _add_cn(y_pil, std, n_pil), papr)
+        with span("channel.fading"):
+            H = flat_mimo_matrix(num_rx, num_tx, lead, generator, dev, draws.get("fading"))
+            # the pilot bins carry Σ_t H[r, t]·p_t, the same on every symbol
+            Hr = H.transpose(H.ndim - 2, *range(H.ndim - 2), H.ndim - 1)   # (rx, ..., tx)
+            y_pil = cplx.matmul_small(Hr, self._c("pilot_vals"))[..., None, :]
+            y_pil = C(y_pil.re.expand((num_rx,) + lead + (S, n_pilot)),
+                      y_pil.im.expand((num_rx,) + lead + (S, n_pilot)))
+            y = []
+            for r in range(num_rx):
+                acc = None
+                for t in range(num_tx):
+                    term = C(H.re[..., r, t, None, None], H.im[..., r, t, None, None]) * x[t]
+                    acc = term if acc is None else acc + term
+                y.append(acc)
+            y = cplx.stack(y, axis=0)
 
-    def _through_time(self, x: C, snr_db, generator, draws: dict):
+        with span("channel.awgn"):
+            # P_rx[r] = Σ_{t1,t2} Re(H[r,t1]·H*[r,t2]·R[t1,t2]) with the Hermitian
+            # R (..., tx, tx): the big passes run over the planes once per pair
+            # t1 <= t2, the small (rx, tx, tx) contraction as one broadcast sum
+            zero = torch.zeros(lead, dtype=torch.float32, device=dev)
+            R = [[None] * num_tx for _ in range(num_tx)]
+            for t1 in range(num_tx):
+                R[t1][t1] = C(sig[t1].abs2().mean(dim=(-2, -1)), zero)
+                for t2 in range(t1 + 1, num_tx):
+                    R[t1][t2] = (sig[t1] * sig[t2].conj()).mean(axis=(-2, -1))
+                    R[t2][t1] = R[t1][t2].conj()
+            R = cplx.stack([cplx.stack(row, axis=-1) for row in R], axis=-2)  # (..., tx, tx)
+            HH = C(H.re[..., :, None], H.im[..., :, None]) \
+                * C(H.re[..., None, :], -H.im[..., None, :])           # (..., rx, tx, tx)
+            p_rx = (HH * C(R.re[..., None, :, :], R.im[..., None, :, :])).re.sum(dim=(-2, -1))
+            npow = p_rx.movedim(-1, 0) / snr_linear(snr_db, dev)       # (rx, ...)
+            std = torch.sqrt(npow[..., None, None] / 2.0)
+            noise = draws.get("noise") or (None, None)
+            n_data = standard_normals((num_rx,) + lead + (S, self.m), generator, dev,
+                                      noise[0], "data noise")
+            n_pil = standard_normals((num_rx,) + lead + (S, n_pilot), generator, dev,
+                                     noise[1], "pilot noise")
+            return _add_cn(y, std, n_data), _add_cn(y_pil, std, n_pil), papr
+
+    def _through_time(self, x: C, sig: C, snr_db, generator, draws: dict):
         lead = tuple(x.shape[1:-2])
         S = x.shape[-2]
         dev = x.re.device
-        sig = ofdm.modulate_custom_multi(x, self.config, None, None, None,
-                                         self.mod_tables)        # (tx, ..., S, sps)
-        # each antenna's symbols lie end to end: the sample streams are a view
-        signals_tx = sig.reshape(
-            (self.num_tx,) + lead + (S * self.config.samples_per_ofdm_symbol,))
-        papr = ofdm.papr_db(signals_tx, axis=-1).mean(dim=0)
-        y, _H, npow = spatial_mix_noiseless(
-            signals_tx, snr_db, self.num_rx, self.channel_type, self.profile, generator,
-            draws.get("phases"), draws.get("fading"))               # (rx, ..., T)
-        # per-RX CN(0, P_rx/snr) at the demodulated bins: the DFT is unitary
-        # and the detector sees only these bins
-        yf = ofdm.frame_stream(y, self.config)                   # (rx, ..., S, sps)
-        std = torch.sqrt(npow[..., None, None] / 2.0)
-        y_data = ofdm.demodulate_bins(yf, self.config, None, self._gemm("demod_data"))
-        y_pil = ofdm.demodulate_bins(yf, self.config, None, self._gemm("demod_pilot"))
-        noise = draws.get("noise") or (None, None)
-        n_data = standard_normals(y_data.shape, generator, dev, noise[0], "data noise")
-        n_pil = standard_normals(y_pil.shape, generator, dev, noise[1], "pilot noise")
-        return _add_cn(y_data, std, n_data), _add_cn(y_pil, std, n_pil), papr
+        with span("modem.papr"):
+            # each antenna's symbols lie end to end: the sample streams are a view
+            signals_tx = sig.reshape(
+                (self.num_tx,) + lead + (S * self.config.samples_per_ofdm_symbol,))
+            papr = ofdm.papr_db(signals_tx, axis=-1).mean(dim=0)
+        with span("channel.multipath" if self.channel_type == "rayleigh_mp"
+                  else "channel.fading"):
+            y, _H, npow = spatial_mix_noiseless(
+                signals_tx, snr_db, self.num_rx, self.channel_type, self.profile, generator,
+                draws.get("phases"), draws.get("fading"))           # (rx, ..., T)
+        with span("modem.rx_dft"):
+            yf = ofdm.frame_stream(y, self.config)               # (rx, ..., S, sps)
+            y_data = ofdm.demodulate_bins(yf, self.config, None, self._gemm("demod_data"))
+            y_pil = ofdm.demodulate_bins(yf, self.config, None, self._gemm("demod_pilot"))
+        with span("channel.awgn"):
+            # per-RX CN(0, P_rx/snr) at the demodulated bins: the DFT is unitary
+            # and the detector sees only these bins
+            std = torch.sqrt(npow[..., None, None] / 2.0)
+            noise = draws.get("noise") or (None, None)
+            n_data = standard_normals(y_data.shape, generator, dev, noise[0], "data noise")
+            n_pil = standard_normals(y_pil.shape, generator, dev, noise[1], "pilot noise")
+            return _add_cn(y_data, std, n_data), _add_cn(y_pil, std, n_pil), papr
+
+    def _detect(self, y_data: C, h_tx: List[C], W: C, snr_db) -> C:
+        """The layers' symbol estimates (..., S, m, L) from the received data
+        bins (rx, ..., S, m) and the per-TX estimates."""
+        L = self.rank_used
+        dt = self.detector_type.upper()
+        if dt in PLANE_DETECTORS and L in (1, 2, 3, 4):
+            with span("detector.heff"):
+                # σ² = 10^(-snr/10) against unit-power symbols, a float or one per lane
+                noise_var = _noise_var(snr_db, y_data.re.device)
+                # effective channel heff[rx, l] = Σ_t h[t][rx]·W[t, l], summed in
+                # t order, every layer at once: (rx, L, ..., S, m)
+                h = cplx.stack(h_tx, axis=0)                       # (tx, rx, ..., S, m)
+                w = W.reshape((self.num_tx, 1, L) + (1,) * (h.ndim - 2))
+                heff = None
+                for t in range(self.num_tx):
+                    term = C(h.re[t][:, None], h.im[t][:, None]) * w[t]
+                    heff = term if heff is None else heff + term
+            if dt == "SIC":
+                with span("detector.sic"):
+                    s = detector.sic_stacked(y_data, heff, noise_var, self.config.modulation)
+                    return C(s.re.movedim(0, -1), s.im.movedim(0, -1))
+            with span("detector.mmse"):
+                # ZF is the same regularized Gram solve with σ² -> ε
+                s_planes = detector.mmse_planes(
+                    [y_data[r] for r in range(self.num_rx)],
+                    [[heff[r, l] for l in range(L)] for r in range(self.num_rx)],
+                    1e-9 if dt == "ZF" else noise_var)
+                return cplx.stack(s_planes, axis=-1)
+        # MRC and the unbiased MMSE: the stacked (..., S, m, rx[, tx]) layout
+        with span("detector.detect"):
+            noise_var = _noise_var(snr_db, y_data.re.device)
+            nr = y_data.ndim
+            y_det = y_data.transpose(*range(1, nr), 0)            # (..., S, m, rx)
+            h_det = cplx.stack(h_tx, axis=-1).transpose(*range(1, nr), 0, nr)
+            return detector.detect(y_det, h_det, noise_var, self.detector_type, W,
+                                   self.config.modulation)
 
     def forward(self, bits: torch.Tensor, snr_db, W=None,
                 generator: Optional[torch.Generator] = None,
                 draws: Optional[dict] = None) -> SpatialResult:
         draws = draws or {}
-        cfg, L, m = self.config, self.rank_used, self.m
+        cfg = self.config
         nd = grid_for(cfg).num_data
         lead = tuple(bits.shape[:-1])
         S = bits.shape[-1] // (nd * cfg.bits_per_symbol)
-        W = self._precoder(W)                                    # (tx, L)
-        x = self.precode(bits, W)                                # (tx, ..., S, m)
+        with span("modem.tx"):
+            W = self._precoder(W)                                # (tx, L)
+            x = self.precode(bits, W)                            # (tx, ..., S, m)
+            sig = ofdm.modulate_custom_multi(x, cfg, None, None, None,
+                                             self.mod_tables)    # (tx, ..., S, sps)
 
         through = self._through_bins if self.channel_impl == "bins" else self._through_time
-        y_data, y_pil, papr = through(x, snr_db, generator, draws)
+        y_data, y_pil, papr = through(x, sig, snr_db, generator, draws)
 
         # ---- per-symbol CRS estimation, all RX at once: [tx] planes of
         # (rx, ..., S, m) with the subcarrier axis minor ----
-        h_tx = estimate_per_tx_planes(y_pil, cfg, self.num_tx, self.data_bins,
-                                      self.pilot_layout, self.per_tx)
-        # σ² = 10^(-snr/10) against unit-power symbols, a float or one per lane
-        noise_var = snr_linear(-snr_db if isinstance(snr_db, torch.Tensor)
-                               else -np.asarray(snr_db, np.float32), bits.device)
+        with span("modem.estimate"):
+            h_tx = estimate_per_tx_planes(y_pil, cfg, self.num_tx, self.data_bins,
+                                          self.pilot_layout, self.per_tx)
 
-        dt = self.detector_type.upper()
-        if dt in PLANE_DETECTORS and L in (1, 2, 3, 4):
-            # effective channel per plane: heff[l] = Σ_t h[t]·W[t, l]
-            heff = []
-            for l in range(L):
-                acc = None
-                for t in range(self.num_tx):
-                    term = h_tx[t] * C(W.re[t, l], W.im[t, l])
-                    acc = term if acc is None else acc + term
-                heff.append(acc)
-            y_planes = [y_data[r] for r in range(self.num_rx)]
-            heff_planes = [[heff[l][r] for l in range(L)] for r in range(self.num_rx)]
-            if dt == "SIC":
-                s_planes = detector.sic_planes(y_planes, heff_planes, noise_var,
-                                               cfg.modulation)
-            else:
-                # ZF is the same regularized Gram solve with σ² -> ε
-                s_planes = detector.mmse_planes(y_planes, heff_planes,
-                                                1e-9 if dt == "ZF" else noise_var)
-            # a new minor axis interleaves the layers back into symbol order
-            syms_rx = cplx.stack(s_planes, axis=-1).reshape(lead + (S, m * L))[..., :nd]
-        else:
-            # MRC and the unbiased MMSE: the stacked (..., S, m, rx[, tx]) layout
-            nr = y_data.ndim
-            y_det = y_data.transpose(*range(1, nr), 0)            # (..., S, m, rx)
-            h_det = cplx.stack(h_tx, axis=-1).transpose(*range(1, nr), 0, nr)
-            layers_rx = detector.detect(y_det, h_det, noise_var, self.detector_type, W,
-                                        cfg.modulation)          # (..., S, m, L)
-            nl = layers_rx.ndim
-            syms_rx = layer_mapper.demap_from_layers(
-                layers_rx.transpose(*range(nl - 2), nl - 1, nl - 2), original_length=nd)
+        layers = self._detect(y_data, h_tx, W, snr_db)           # (..., S, m, L)
+        with span("modem.demap"):
+            # layer demap: the minor layer axis interleaves them into symbol order
+            syms_rx = layers.reshape(lead + (S, self.m * self.rank_used))[..., :nd]
+            bits_rx = qam.demodulate(syms_rx.reshape(lead + (S * nd,)), cfg.modulation)
+        with span("link.errors"):
+            bits_rx = bits_rx.to(bits.dtype)
+            errors = (bits_rx != bits).sum(dim=-1, dtype=torch.int32)
+            ber = errors / bits.shape[-1]
+        return SpatialResult(bits_rx, errors, ber, syms_rx, papr)
 
-        bits_rx = qam.demodulate(syms_rx.reshape(lead + (S * nd,)),
-                                 cfg.modulation).to(bits.dtype)
-        errors = (bits_rx != bits).sum(dim=-1, dtype=torch.int32)
-        return SpatialResult(bits_rx, errors, errors / bits.shape[-1], syms_rx, papr)
+
+def _noise_var(snr_db, device):
+    """σ² = 10^(-snr/10): a float for a scalar SNR, else one value per lane."""
+    return snr_linear(-snr_db if isinstance(snr_db, torch.Tensor)
+                      else -np.asarray(snr_db, np.float32), device)
 
 
 def simulate_spatial_multiplexing(bits: torch.Tensor, snr_db,

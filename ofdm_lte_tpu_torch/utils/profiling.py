@@ -133,6 +133,11 @@ _NO_SPAN = contextlib.nullcontext()
 _profiler_enabled = torch.autograd._profiler_enabled
 
 
+# the layers whose stages `span` marks as `<layer>.<stage>`: the sweeps'
+# link, the modem, the channel, the spatial link's detector, the coded chain
+LAYERS = ("link", "modem", "channel", "detector", "coding")
+
+
 def span(name: str):
     """A host span named `name` (`<layer>.<stage>`) around a stage of the
     program: while a torch.profiler records, a RecordFunction, which lands

@@ -1,8 +1,10 @@
 """The port's layer spans (utils/profiling.span): free and shared when no
 profiler records; under a CPU torch.profiler one `link.sweep` a sweep call,
-the link's stages as siblings inside `link.forward`, channel and modem
-spans never nested in each other, every aten op of the link inside a
-stage, and the sweep's results bit for bit those of an unprofiled call. On
+the link's stages as siblings inside `link.forward` (the SISO link over
+AWGN and multipath, the 4×4 rank-4 SIC spatial link over multipath),
+channel, modem and detector spans never nested in each other, every aten
+op of the link inside a stage, and the sweep's results bit for bit those
+of an unprofiled call. On
 the card (marked `cuda`), the `link.host_sync` spans of each benchmark
 cell's sweep call are the points where torch's sync debug mode sees the
 host wait."""
@@ -26,15 +28,24 @@ LINK_STAGES = {
     "awgn": ["modem.tx", "modem.papr", "channel.awgn", "modem.rx_dft", "channel.awgn",
              "modem.estimate", "modem.demap", "link.errors"],
     "rayleigh_mp": ["modem.tx", "modem.papr", "channel.multipath", "modem.rx_dft",
-                    "modem.estimate", "modem.demap", "link.errors"]}
+                    "modem.estimate", "modem.demap", "link.errors"],
+    "spatial": ["modem.tx", "modem.papr", "channel.multipath", "modem.rx_dft", "channel.awgn",
+                "modem.estimate", "detector.heff", "detector.sic", "modem.demap",
+                "link.errors"]}
+# the sweep's arguments of each link: the SISO link's channels, and the
+# spatial link of the benchmark's sic4x4_peda
+LINKS = {"awgn": dict(channel_type="awgn"), "rayleigh_mp": dict(channel_type="rayleigh_mp"),
+         "spatial": dict(channel_type="rayleigh_mp", pipeline="spatial", num_tx=4, num_rx=4,
+                         detector_type="SIC", rank=4)}
+STAGE_LAYERS = ("channel", "modem", "detector")
 
 
-def sweep(channel_type, seed=5):
-    return ber_sweep(CFG, SNR, frames=2, num_ofdm_symbols=14, channel_type=channel_type,
+def sweep(link, seed=5):
+    return ber_sweep(CFG, SNR, frames=2, num_ofdm_symbols=14, **LINKS[link],
                      generator=torch.Generator().manual_seed(seed), device="cpu")
 
 
-PROGRAM = ("link.", "modem.", "channel.", "coding.")
+PROGRAM = ("link.", "modem.", "channel.", "detector.", "coding.")
 
 
 def is_span(e):
@@ -61,7 +72,7 @@ def span_children(e):
     return out
 
 
-@pytest.fixture(scope="module", params=["awgn", "rayleigh_mp"])
+@pytest.fixture(scope="module", params=sorted(LINKS))
 def traced(request):
     sweep(request.param, seed=1)                       # the link built outside the window
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -97,9 +108,11 @@ def test_a_sweep_call_records_one_link_sweep_with_its_stages(traced):
     assert [c.name for c in span_children(setup)] == ["link.host_sync"]
     assert [c.name for c in span_children(forward)] == LINK_STAGES[channel_type]
     assert [c.name for c in span_children(readback)] == ["link.host_sync"] * 2
-    # every span of the call lies under link.sweep, and a stage holds no span
+    # every span of the call lies under link.sweep, in a layer the program
+    # names, and a stage holds no span
     for e in spans_of(events):
         assert e is top or top in ancestors(e), e.name
+        assert e.name.split(".")[0] in profiling.LAYERS, e.name
     for stage in span_children(forward) + span_children(setup) + span_children(readback):
         assert span_children(stage) == [], stage.name
 
@@ -107,10 +120,9 @@ def test_a_sweep_call_records_one_link_sweep_with_its_stages(traced):
 def test_channel_and_modem_spans_never_nest(traced):
     _, events, _ = traced
     for e in spans_of(events):
-        layer = e.name.split(".")[0]
-        if layer in ("channel", "modem"):
-            other = "modem" if layer == "channel" else "channel"
-            assert not [a.name for a in ancestors(e) if a.name.startswith(other + ".")]
+        if e.name.split(".")[0] in STAGE_LAYERS:
+            assert not [a.name for a in ancestors(e)
+                        if a.name.split(".")[0] in STAGE_LAYERS], e.name
 
 
 def test_every_aten_op_of_the_link_lies_in_a_stage_span(traced):
@@ -123,7 +135,7 @@ def test_every_aten_op_of_the_link_lies_in_a_stage_span(traced):
         if any(a.name == "link.forward" for a in spans):
             under += 1
             assert spans[0].name != "link.forward", (e.name, [a.name for a in spans])
-            assert spans[0].name.split(".")[0] in ("channel", "modem", "link")
+            assert spans[0].name.split(".")[0] in STAGE_LAYERS + ("link",)
     assert under > 20
 
 
