@@ -93,7 +93,11 @@ gather, the BCJR pass, the extrinsic) is one launch of `turbo_bcjr`
    computes a BCJR pass, so its library time is null; and a whole decode
    (8 max-log iterations, 17 launches) at both shapes through the kernel
    and through the plain half-iteration, with equal bits required and the
-   BER inside the JAX package's band at that σ (JAX_DECODE_BER);
+   BER inside the JAX package's band at that σ (JAX_DECODE_BER); the
+   multipath channel stage, and the fused multipath pass
+   (csrc/multipath_fir.cu) at the SISO and the 4×4 link's shapes against
+   its plain version (FIR_TOL), beside its bound, the plain version's time
+   and the unfused path's (the Jakes product and the addcmul_ taps);
 7. drive the command-line interface (ofdm_lte_tpu_torch/cli.py) in-process
    with no --device, so on the card, at 20 MHz 64-QAM, each command timed
    on the host's clock with its kernel launches counted: `info` (the CPU's
@@ -153,7 +157,8 @@ gather, the BCJR pass, the extrinsic) is one launch of `turbo_bcjr`
    (phase 5's bits, draws and bands; DEFAULT_EXCLUDED names a path left out
    of its band, none), and under `high` in both forms and `default` in the
    Gauss form the flagship, `lte_rayleigh_mp` and `coded_6000_awgn`, each
-   with its launches of the one kernel of its precision and form; the
+   with its launches of the one kernel of its precision and form and of
+   the fused multipath pass (fp32 under every setting); the
    flagship at 15 and 60 dB under the same bits and draws at each
    precision, with the share of bit decisions that differ from `highest`'s
    (0 at 60 dB); (c) VALIDATION.md's anchors (ANCHORS) at each precision
@@ -217,27 +222,29 @@ BER_15DB = (0.0836, 0.0880)
 # most the mean BER may be at 60 dB (0 where the link is clean; over multipath
 # the CRS interpolation leaves a floor in deep fades, in the JAX package too;
 # None where per-sample fading leaves nothing to detect); launches:
-# complex-GEMM launches a step that the code implies (TX, Jakes taps, RX data,
-# RX pilot, SC-FDM precode and decode).
+# complex-GEMM launches a step that the code implies (TX, RX data, RX pilot,
+# SC-FDM precode and decode); fir: launches a step of the fused multipath pass
+# (ops/multipath_fir), which makes the Jakes taps where the Jakes product did,
+# in fp32 at every GEMM policy and form.
 PATHS = {
     "scfdm_awgn": dict(kind="siso", kw=dict(mode="sc-fdm"), snr=15.0, ber60=0.0, launches=5),
     "simple_awgn": dict(kind="siso", kw=dict(mode="simple"), snr=15.0, ber60=0.0, launches=2),
     "lte_rayleigh_mp": dict(kind="siso", kw=dict(channel_type="rayleigh_mp",
                                                  itu_profile="Pedestrian_A"),
-                            snr=25.0, ber60=1e-2, launches=4),
+                            snr=25.0, ber60=1e-2, launches=3, fir=1),
     "lte_fading": dict(kind="siso", kw=dict(channel_type="fading"), snr=20.0, ber60=None,
                        launches=3),
     "simo_1x2_rayleigh_mp": dict(kind="simo", kw=dict(num_rx=2, channel_type="rayleigh_mp",
                                                       itu_profile="Pedestrian_A"),
-                                 snr=20.0, ber60=1e-3, launches=4),
+                                 snr=20.0, ber60=1e-3, launches=3, fir=1),
     "sfbc_2x2_awgn": dict(kind="sfbc", kw=dict(num_rx=2), snr=15.0, ber60=0.0, launches=3),
     "sfbc_2x2_rayleigh_mp": dict(kind="sfbc", kw=dict(num_rx=2, channel_type="rayleigh_mp",
                                                       itu_profile="Pedestrian_A"),
-                                 snr=15.0, ber60=1e-3, launches=4),
+                                 snr=15.0, ber60=1e-3, launches=3, fir=1),
     # TM4 spatial multiplexing (kind "spatial": sim.spatial.SpatialLink). The
     # flat channel at the bins launches the TX GEMM alone; the time path adds
-    # RX data and the per-symbol RX pilot GEMM; multipath adds the Jakes
-    # product; the extended CRS layout one tap-basis GEMM per TX antenna.
+    # RX data and the per-symbol RX pilot GEMM; multipath the fused pass; the
+    # extended CRS layout one tap-basis GEMM per TX antenna.
     "spatial_4x2_r2_mmse": dict(kind="spatial", kw=dict(
         num_tx=4, num_rx=2, rank_used=2, detector_type="MMSE"),
         snr=25.0, ber60=0.0, launches=1),
@@ -246,11 +253,11 @@ PATHS = {
         snr=25.0, ber60=0.0, launches=3),
     "spatial_4x4_r4_sic_rayleigh_mp": dict(kind="spatial", kw=dict(
         num_tx=4, num_rx=4, rank_used=4, detector_type="SIC", channel_type="rayleigh_mp",
-        itu_profile="Pedestrian_A"), snr=20.0, ber60=8e-2, launches=4),
+        itu_profile="Pedestrian_A"), snr=20.0, ber60=8e-2, launches=3, fir=1),
     "spatial_8x4_r2_mmse_ext_rayleigh_mp": dict(kind="spatial", kw=dict(
         num_tx=8, num_rx=4, rank_used=2, detector_type="MMSE", channel_type="rayleigh_mp",
         itu_profile="Pedestrian_A", pilot_layout="extended"),
-        snr=25.0, ber60=1e-3, launches=12),
+        snr=25.0, ber60=1e-3, launches=11, fir=1),
     # TM6 rank-1 beamforming with PMI feedback (kind "beamforming":
     # sim.beamforming.BeamformingLink), the frequency-domain link y = H·W s + n
     # with MRC: the static flat channel launches no GEMM; the Jakes channel
@@ -701,6 +708,13 @@ def kernel_registers(log: str, pattern: str, label) -> str:
     return "; ".join(found) or "not in the build log"
 
 
+def fir_registers(log: str) -> str:
+    """multipath_fir's instantiations: D distinct table rows, V samples a
+    thread, RXC RX legs a block."""
+    return kernel_registers(log, r"multipath_fir_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+                            lambda m: f"D {m[1]} V {m[2]} RXC {m[3]}")
+
+
 def bcjr_registers(log: str) -> str:
     """turbo_bcjr's instantiations: max-log or log-MAP, mode 0 APP, 1
     extrinsic, 2 hard."""
@@ -976,6 +990,68 @@ def cli_on_card(card: str, zero_counts) -> tuple:
     return gemms, {k: v for k, v in passes.items() if v}
 
 
+# the fused multipath pass timed at the cells' link shapes: (RX legs, TX
+# antennas, km/h) over Pedestrian A, LANES lanes of SYMBOLS symbols
+FIR_SHAPES = {"siso": (1, 1, None), "4x4": (4, 4, 3.0)}
+# kernel against plain, max|d| / max|y| (tests/test_torch_cuda.py)
+FIR_TOL = 4e-6
+
+
+def fir_timings(card: str, dev, cfg, T: int, gen) -> list:
+    """csrc/multipath_fir.cu at each of FIR_SHAPES: against its plain version
+    (within FIR_TOL), its time beside its bound (x read and y written once,
+    the phase rows and the table's distinct rows, at 3.35 TB/s; or its FFMAs,
+    4 a distinct table row and 4 for the multiply-add a (link, tap, sample),
+    at the fp32 rate), the plain version's time and the unfused path's (the
+    Jakes product through tf32x3 and the addcmul_ taps, and the sum over TX)."""
+    from ofdm_lte_tpu_torch.channel import rayleigh
+    from ofdm_lte_tpu_torch.cplx import C
+    from ofdm_lte_tpu_torch.ops.multipath_fir import multipath_fir, multipath_fir_plain
+    rows_out = []
+    for shape, (n_rx, n_tx, kmh) in FIR_SHAPES.items():
+        prof = rayleigh.make_profile("Pedestrian_A", cfg.fs, velocity_kmh=kmh)
+        gen.manual_seed(17)
+        x = C(torch.randn((n_tx, LANES, T), generator=gen, device=dev),
+              torch.randn((n_tx, LANES, T), generator=gen, device=dev))
+        rows = rayleigh.jakes_rows(prof, (n_rx, n_tx, LANES), gen, dev).reshape(
+            n_rx, n_tx, LANES, prof.num_taps, 16)
+        fold = rayleigh.jakes_fold(prof.doppler_hz, prof.fs, T, 1, dev)
+        args = (prof.delays_samples, prof.gains_linear, 1)
+        out = {}
+        t_k = cuda_ms(lambda: out.__setitem__("kernel", multipath_fir(x, rows, fold, *args)),
+                      PATH_STEPS)
+        t_p = cuda_ms(lambda: out.__setitem__("plain", multipath_fir_plain(x, rows, fold, *args)),
+                      2)
+        got, want = out["kernel"], out["plain"]
+        scale = max(want.re.abs().max().item(), want.im.abs().max().item())
+        err = max((got.re - want.re).abs().max().item(),
+                  (got.im - want.im).abs().max().item()) / scale
+        del out, got, want
+        if err > FIR_TOL:
+            raise AssertionError(f"multipath_fir at {shape}: max|d|/max|y| {err:.3e} against "
+                                 f"its plain version (tol {FIR_TOL:.0e})")
+        unfused_x = x if n_tx > 1 else x[0]
+        links = (n_rx,) if n_rx > 1 else ()
+        t_u = cuda_ms(lambda: rayleigh.multipath_unfused(unfused_x, prof, generator=gen,
+                                                         links=links, sum_tx=n_tx > 1), 3)
+        ffma = n_rx * n_tx * LANES * prof.num_taps * T * (4 * fold.groups + 4)
+        moved = 8 * (LANES * T * (n_tx + n_rx) + rows.re.numel() + fold.groups * T)
+        bound, by = max((1e3 * moved / HBM_BYTES_PER_S, "bytes"),
+                        (1e3 * 2 * ffma / PEAK_FLOPS["fp32"], "operations"))
+        print(f"[{card}] multipath_fir {shape} ({n_rx} rx x {n_tx} tx x {LANES} lanes x "
+              f"{prof.num_taps} taps x {T} samples, {fold.groups} distinct table rows): kernel "
+              f"{t_k:.4f} ms, bound {bound:.4f} ms by {by} ({2 * ffma / 1e9:.2f} GFLOP, "
+              f"{moved / 1e6:.1f} MB; share reached {bound / t_k:.3f}), plain {t_p:.4f} ms, "
+              f"unfused (jakes_taps + addcmul_) {t_u:.4f} ms, max|d|/max|y| {err:.2e}")
+        rows_out.append({"shape": shape, "n_rx": n_rx, "n_tx": n_tx, "lanes": LANES,
+                         "taps": prof.num_taps, "T": T, "groups": fold.groups, "ms": t_k,
+                         "bound_ms": bound, "bound_by": by, "plain_ms": t_p,
+                         "unfused_ms": t_u, "max_rel_err": err})
+        del x, rows
+        torch.cuda.empty_cache()
+    return rows_out
+
+
 def host_ms(fn, reps: int) -> float:
     """Mean host-clock time of fn() over reps runs after one warm-up run."""
     fn()
@@ -1216,6 +1292,7 @@ def main() -> None:
     from ofdm_lte_tpu_torch.coding import crc, turbo
     from ofdm_lte_tpu_torch.cplx import C
     from ofdm_lte_tpu_torch.ops import bcjr, ofdm, qam
+    from ofdm_lte_tpu_torch.ops.multipath_fir import multipath_fir, multipath_fir_plain
     from ofdm_lte_tpu_torch.ops.cmatmul import (PLAIN, _kernel_for, _ld, cmatmul, cmatmul_plain,
                                                 cmatmul_plain_gauss_tf32x3,
                                                 cmatmul_plain_tf32x3,
@@ -1252,6 +1329,7 @@ def main() -> None:
         for k in cmatmul.launches_by_kernel:
             cmatmul.launches_by_kernel[k] = 0
         bcjr.bcjr_app.launches = bcjr.bcjr_half.launches = crc.crc_torch.launches = 0
+        multipath_fir.launches = 0
 
     def path_link(name: str):
         spec = PATHS[name]
@@ -1613,17 +1691,19 @@ def main() -> None:
         zero_counts()
         res = getattr(sim, method)(tx_bits, 30.0, num_rx=2)
         print(f"facade OFDMSimulator.{method} over rayleigh_mp at 30 dB: ber {res['ber']:.6g} "
-              f"papr_db {res['papr_db']:.3f} launches {cmatmul.launches} copies {cmatmul.copies}")
-        if not (0 <= res["ber"] < 0.1) or cmatmul.launches != per_call or cmatmul.copies:
+              f"papr_db {res['papr_db']:.3f} launches {cmatmul.launches} copies "
+              f"{cmatmul.copies} multipath_fir {multipath_fir.launches}")
+        if not (0 <= res["ber"] < 0.1) or cmatmul.launches != per_call or cmatmul.copies \
+                or multipath_fir.launches != 1:
             raise AssertionError(f"facade {method}: {res['ber']}, launches {cmatmul.launches}")
     zero_counts()
     res = sim.simulate_spatial_multiplexing(host_bits, 30.0, num_tx=4, num_rx=4, rank=2,
                                             detector_type="SIC")
     print(f"facade OFDMSimulator.simulate_spatial_multiplexing 4x4 rank 2 SIC over rayleigh_mp "
           f"at 30 dB: ber {res['ber']:.6g} papr_db {res['papr_db']:.3f} launches "
-          f"{cmatmul.launches} copies {cmatmul.copies}")
-    if not (0 <= res["ber"] < 0.1) or cmatmul.launches != 4 or cmatmul.copies \
-            or res["mode"] != "Spatial Multiplexing TM4":
+          f"{cmatmul.launches} copies {cmatmul.copies} multipath_fir {multipath_fir.launches}")
+    if not (0 <= res["ber"] < 0.1) or cmatmul.launches != 3 or cmatmul.copies \
+            or multipath_fir.launches != 1 or res["mode"] != "Spatial Multiplexing TM4":
         raise AssertionError(f"facade simulate_spatial_multiplexing: {res['ber']}, launches "
                              f"{cmatmul.launches}")
     for model, per_call in (("static", 0), ("jakes", 1)):
@@ -1761,6 +1841,7 @@ def main() -> None:
     print(f"paths: {LANES} lanes x {SYMBOLS} symbols each")
     paprs = {}
     bcjr_launches_by_path = {}
+    fir_launches_by_path = {}
     for name, spec in PATHS.items():
         plink = path_link(name)
         is_coded = spec["kind"] == "coded"
@@ -1812,7 +1893,7 @@ def main() -> None:
         print(f"path {name}: BER@{clean:g}dB {bers[clean]:.6g} (at most {spec['ber60']}), "
               f"BER@{spec['snr']:g}dB {bers[spec['snr']]:.6g} (JAX {JAX_BER[name]['mean']:.6g}, "
               f"band [{lo:.6g}, {hi:.6g}]), PAPR {paprs[name]:.3f} dB{extra}, launches {counts}, "
-              f"copies {cmatmul.copies}")
+              f"copies {cmatmul.copies}, multipath_fir {multipath_fir.launches}")
         if spec["ber60"] is not None and not bers[clean] <= spec["ber60"]:
             raise AssertionError(f"{name}: BER {bers[clean]} at {clean} dB, over {spec['ber60']}")
         if not (lo <= bers[spec["snr"]] <= hi):
@@ -1820,6 +1901,11 @@ def main() -> None:
         if counts["tf32x3"] != 2 * spec["launches"] or sum(counts.values()) != counts["tf32x3"]:
             raise AssertionError(f"{name}: launches {counts}, expected "
                                  f"{2 * spec['launches']} of tf32x3 alone")
+        if spec.get("fir"):
+            fir_launches_by_path[name] = multipath_fir.launches
+        if multipath_fir.launches != 2 * spec.get("fir", 0):
+            raise AssertionError(f"{name}: {multipath_fir.launches} launches of multipath_fir, "
+                                 f"expected {2 * spec.get('fir', 0)}")
         if cmatmul.copies != 2 * spec.get("copies", 0):
             raise AssertionError(f"{name}: the wrapper copied {cmatmul.copies} operand planes, "
                                  f"expected {2 * spec.get('copies', 0)}")
@@ -1972,6 +2058,7 @@ def main() -> None:
         profile_steps(step)
     del pool
 
+    fir_rows = []
     for name, spec in PATHS.items():
         plink = path_link(name)
         ppool = [random_bits(LANES, 2000 + i, path_bits(name)) for i in range(PATH_STEPS)]
@@ -1995,26 +2082,30 @@ def main() -> None:
             profile_steps(pstep, crc_gemm_kernels=crc_gemm_kernels(plink, LANES)
                           if spec["kind"] == "coded" else 0)
         if name == "lte_rayleigh_mp":
-            # the channel stage alone: what one fused pass (taps made on the
-            # fly, delayed multiply-adds, noise) would have to beat. Fused, it
-            # reads x and writes y once: 4 planes of LANES·T floats.
-            # the sinusoid table is kept: a step multiplies by it, as here
+            # the channel stage alone: the fused pass (apply_multipath at
+            # `highest`), the unfused one (the Jakes product and the addcmul_
+            # taps) and the noise on top; then the fused kernel at the SISO
+            # shape and at the 4x4 link's, beside its bound, its plain version
+            # and the unfused path. The sinusoid table is kept, as in a step.
             sig, prof = plink.transmit(ppool[0]), plink.profile
             stages = {
                 "jakes_taps": lambda: rayleigh.jakes_taps(
                     prof, T, (LANES,), generator=gen, device=dev),
-                "apply_multipath (taps + FIR)": lambda: rayleigh.apply_multipath(
+                "multipath_unfused (taps + FIR)": lambda: rayleigh.multipath_unfused(
                     sig, prof, generator=gen),
-                "rayleigh_multipath (taps + FIR + noise)": lambda: rayleigh.rayleigh_multipath(
+                "apply_multipath (fused)": lambda: rayleigh.apply_multipath(
+                    sig, prof, generator=gen),
+                "rayleigh_multipath (fused + noise)": lambda: rayleigh.rayleigh_multipath(
                     sig, spec["snr"], prof, -1, gen),
             }
-            fused = 1e3 * 4 * LANES * T * 4 / HBM_BYTES_PER_S
             for stage, fn in stages.items():
                 print(f"[{card}] stage {stage}, {LANES} lanes x {prof.num_taps} taps x {T} "
-                      f"samples: {cuda_ms(fn, PATH_STEPS):.4f} ms of the step's {t:.4f} ms; "
-                      f"one fused pass moves {4 * LANES * T * 4 / 1e6:.1f} MB, at least "
-                      f"{fused:.4f} ms")
+                      f"samples: {cuda_ms(fn, PATH_STEPS):.4f} ms of the step's {t:.4f} ms")
             del sig
+            print(f"multipath_fir registers and spill (ptxas): "
+                  f"{fir_registers(_build.build_log)}")
+            fir_rows.extend(fir_timings(card, dev, cfg, T, gen))
+            torch.cuda.empty_cache()
         if name in ("spatial_4x2_r2_mmse", "spatial_4x4_r4_sic_rayleigh_mp"):
             # the detector chain alone, elementwise PyTorch on planes: what a
             # fused pass would have to beat
@@ -2352,10 +2443,13 @@ def main() -> None:
                                  f"dB, over {spec['ber60']}")
         if not excluded and not lo <= ber <= hi:
             raise AssertionError(f"{name} at {precision}/{form}: BER {ber} outside [{lo}, {hi}]")
-        if counts[kernel] != 2 * spec["launches"] \
+        # the fused multipath pass makes the taps under every policy and form
+        want, fir = 2 * spec["launches"], 2 * spec.get("fir", 0)
+        if counts[kernel] != want or multipath_fir.launches != fir \
                 or sum(counts.values()) != counts[kernel] or copies != 2 * spec.get("copies", 0):
-            raise AssertionError(f"{name} at {precision}/{form}: launches {counts}, copies "
-                                 f"{copies}; expected {2 * spec['launches']} of {kernel} alone")
+            raise AssertionError(f"{name} at {precision}/{form}: launches {counts}, "
+                                 f"multipath_fir {multipath_fir.launches}, copies {copies}; "
+                                 f"expected {want} of {kernel} alone and {fir} fused passes")
 
     repeated = ("main", "lte_rayleigh_mp", "coded_6000_awgn")
     combos = (("default", "fma4"), ("high", "fma4"), ("high", "gauss"), ("default", "gauss"))
@@ -2576,6 +2670,23 @@ def main() -> None:
                           "hard/pi_inv"],
         "by_shape": bcjr_rows,
         "decode_by_shape": decode_rows,
+    })
+    kernels.append({
+        "name": "multipath_fir",
+        "route": "cuda",
+        "source": "ofdm_lte_tpu_torch/csrc/multipath_fir.cu",
+        "replaces": None,     # fuses the Jakes product's call site with the FIR
+        "launches": sum(fir_launches_by_path.values()),
+        "max_rel_err": max(row["max_rel_err"] for row in fir_rows),
+        "ms": sum(row["ms"] for row in fir_rows),
+        "plain_ms": sum(row["plain_ms"] for row in fir_rows),
+        "bound_ms": sum(row["bound_ms"] for row in fir_rows),
+        "bound_by": max(("bytes", "operations"), key=lambda by: sum(
+            row["bound_ms"] for row in fir_rows if row["bound_by"] == by)),
+        "library_ms": None,
+        "unfused_ms": sum(row["unfused_ms"] for row in fir_rows),
+        "launches_by_path": fir_launches_by_path,
+        "by_shape": fir_rows,
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

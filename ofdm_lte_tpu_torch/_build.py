@@ -135,5 +135,8 @@ def library() -> ctypes.CDLL:
         lib.cmatmul_tf32x3_smem_bytes.restype = i
         lib.turbo_bcjr.argtypes = [p, p, p, p, i, p, p, i, i, i, i, p]
         lib.turbo_bcjr.restype = i
+        ip, fp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)
+        lib.multipath_fir.argtypes = [p] * 8 + [i] * 8 + [ip, ip, ip, fp, p]
+        lib.multipath_fir.restype = i
         _lib = lib
     return _lib

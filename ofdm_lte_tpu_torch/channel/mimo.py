@@ -16,7 +16,9 @@ Port of ofdm_lte_tpu/channel/mimo.py:
 
 Antennas are a leading array axis: where the JAX package maps a function
 over per-leg keys, the port makes one draw with a leading antenna axis
-from one generator, and all links go through the Jakes GEMM in one call.
+from one generator, and all links go through one Jakes product and FIR
+(or, on the card at `highest`, one launch of the fused multipath pass, which
+also sums the TX antennas).
 """
 from __future__ import annotations
 
@@ -111,9 +113,8 @@ def _multipath_links(signals_tx: C, num_rx: int, profile: MultipathProfile, gene
     """Independent multipath fading per (rx, tx) link, summed over tx:
     signals_tx (tx, ..., T) -> (rx, ..., T). `phases` is
     (num_rx·num_tx·lanes·taps, 16), the links in (rx, tx, lane, tap) order."""
-    faded = apply_multipath(signals_tx, profile, generator=generator, phases=phases,
-                            links=(num_rx,))                   # (rx, tx, ..., T)
-    return faded.sum(axis=1)
+    return apply_multipath(signals_tx, profile, generator=generator, phases=phases,
+                           links=(num_rx,), sum_tx=True)
 
 
 def mimo_mix_noiseless(signals_tx: C, snr_db, num_rx: int, channel_type: str,

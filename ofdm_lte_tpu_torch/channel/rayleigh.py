@@ -12,8 +12,13 @@ Port of ofdm_lte_tpu/channel/rayleigh.py:
   (8·L·T bytes) is what bounds it.
 
 - Multipath: y(t) = Σ_i g_i · h_i(t) · x(t − d_i) with integer-sample static
-  delays d_i = round(delay·fs) and linear amplitudes g_i. Each tap is added
-  into a zeroed buffer from sample d_i on; no padded copy of x is made.
+  delays d_i = round(delay·fs) and linear amplitudes g_i. On a CUDA tensor
+  one launch of ops/multipath_fir makes each tap value in registers at its
+  output sample, in fp32 whatever the GEMM policy, from the same phase rows
+  and the kept table's distinct rows, and sums the taps (and the TX
+  antennas) there: no tap plane is written. On a CPU tensor the taps are the
+  product above and each is added into a zeroed buffer from sample d_i on;
+  no padded copy of x is made.
 
 - SNR is applied against the measured post-fading power.
 
@@ -34,6 +39,7 @@ from .. import cplx
 from ..cplx import C
 from ..config import ITU_CHANNEL_MODELS, ITU_DEFAULT_VELOCITY_KMH, doppler_hz
 from ..device import kept
+from ..ops.multipath_fir import SinusoidFold, multipath_fir, sinusoid_fold
 from ..ops.ofdm import _cmm
 from .awgn import awgn, standard_normals
 
@@ -115,12 +121,26 @@ def jakes_table(doppler_hz: float, fs: float, num_samples: int, sample_stride: i
     sees one or two frame lengths), so a multipath step multiplies by E and
     does not rebuild it. It is evaluated in fp32 on the CPU, so every device
     multiplies by the same numbers."""
-    def make():
-        t = torch.arange(num_samples, dtype=torch.float32) * (sample_stride / fs)
-        return cplx.expi(torch.as_tensor(_omega(doppler_hz))[:, None] * t[None, :])
-
     return _kept((float(doppler_hz), float(fs), int(num_samples), int(sample_stride)),
-                 make, device)
+                 lambda: _jakes_table_cpu(doppler_hz, fs, num_samples, sample_stride), device)
+
+
+def _jakes_table_cpu(doppler_hz: float, fs: float, num_samples: int, sample_stride: int) -> C:
+    t = torch.arange(num_samples, dtype=torch.float32) * (sample_stride / fs)
+    return cplx.expi(torch.as_tensor(_omega(doppler_hz))[:, None] * t[None, :])
+
+
+def jakes_fold(doppler_hz: float, fs: float, num_samples: int, sample_stride: int = 1,
+               device=None) -> SinusoidFold:
+    """The `jakes_table` of these arguments folded (ops/multipath_fir.
+    sinusoid_fold): its distinct rows on `device`, and each sinusoid's row and
+    sign, found in the CPU table. Kept beside the tables, in the same dict."""
+    def to_device(dev):
+        fold = sinusoid_fold(_jakes_table_cpu(doppler_hz, fs, num_samples, sample_stride))
+        return fold._replace(cos=fold.cos.to(dev), sin=fold.sin.to(dev))
+
+    return kept(_tables, MAX_TABLES, ("fold", float(doppler_hz), float(fs), int(num_samples),
+                                      int(sample_stride)), to_device, device)
 
 
 def symbol_table(doppler_hz: float, num_symbols: int, symbol_duration_s: float,
@@ -157,32 +177,82 @@ def jakes_taps(profile: MultipathProfile, num_samples: int, batch_shape: tuple =
     in radians, replaces the generator's draws. The scale √(2/Ns) is applied
     to P, not to the product: one pass over L·Ns values instead of L·T.
     """
-    T, ns = num_samples, N_SINUSOIDS
+    T = num_samples
     table = jakes_table(profile.doppler_hz, profile.fs, T, sample_stride, device)
-    L = int(np.prod(batch_shape, dtype=int)) * profile.num_taps
-    P = cplx.expi(_phases((L, ns), generator, device, phases)) * float(np.sqrt(2.0 / ns))
+    P = jakes_rows(profile, batch_shape, generator, device, phases)
     H = _cmm(P, table)                                         # (L, T)
     return H.reshape(tuple(batch_shape) + (profile.num_taps, T))
 
 
+def jakes_rows(profile: MultipathProfile, batch_shape: tuple = (),
+               generator: Optional[torch.Generator] = None, device=None, phases=None) -> C:
+    """The scaled phase rows P = exp(jφ)·√(2/Ns), (batch·taps, Ns), of the
+    Jakes taps: the generator's U(0, 2π) draws, or `phases` in radians."""
+    L = int(np.prod(batch_shape, dtype=int)) * profile.num_taps
+    ns = N_SINUSOIDS
+    return cplx.expi(_phases((L, ns), generator, device, phases)) * float(np.sqrt(2.0 / ns))
+
+
 def apply_multipath(x: C, profile: MultipathProfile, hold: int = 1,
                     generator: Optional[torch.Generator] = None, phases=None,
-                    links: tuple = ()) -> C:
+                    links: tuple = (), sum_tx: bool = False) -> C:
     """Faded signal y(t) = Σ_i g_i h_i(t) x(t−d_i); x: (..., T) -> (*links, ..., T).
 
     Fresh fading per call. `links` adds leading axes of independent
     channels that all carry x (one per antenna leg). hold: generate the
     taps every `hold` samples and hold them inside the block (1 = a tap
     value per sample, the exact form). A hold that does not divide T is
-    rounded down to the largest divisor of T.
+    rounded down to the largest divisor of T. sum_tx: x's first axis is the
+    TX antennas, each with its own links, and the result is their sum,
+    (*links, x.shape[1:]); `phases` stay (links, tx, lanes, taps) rows.
+
+    On a CUDA tensor `multipath_fused` (one launch of ops/multipath_fir,
+    under every GEMM policy and form); on a CPU tensor `multipath_unfused`.
     """
+    route = multipath_fused if x.re.device.type == "cuda" else multipath_unfused
+    return route(x, profile, hold, generator, phases, links, sum_tx)
+
+
+def multipath_fused(x: C, profile: MultipathProfile, hold: int = 1,
+                    generator: Optional[torch.Generator] = None, phases=None,
+                    links: tuple = (), sum_tx: bool = False) -> C:
+    """apply_multipath as one multipath_fir call: the phase rows drawn as
+    `jakes_taps` draws them, the kept table's fold, x and y as (tx or 1,
+    lanes, T) and (links, lanes, T). On a CPU tensor multipath_fir runs its
+    plain version."""
+    dev = x.re.device
     T = x.shape[-1]
-    batch = tuple(links) + tuple(x.shape[:-1])
+    hold = _divisor_hold(hold, T)
+    lanes = tuple(x.shape[1:-1]) if sum_tx else tuple(x.shape[:-1])
+    n_tx, n_lanes = (x.shape[0] if sum_tx else 1), int(np.prod(lanes, dtype=int))
+    n_rx = int(np.prod(links, dtype=int))
+    rows = jakes_rows(profile, tuple(links) + tuple(x.shape[:-1]), generator, dev, phases)
+    y = multipath_fir(C(x.re.reshape(n_tx, n_lanes, T).contiguous(),
+                        x.im.reshape(n_tx, n_lanes, T).contiguous()),
+                      rows.reshape(n_rx, n_tx, n_lanes, profile.num_taps, N_SINUSOIDS),
+                      jakes_fold(profile.doppler_hz, profile.fs, T // hold, hold, dev),
+                      profile.delays_samples, profile.gains_linear, hold)
+    return y.reshape(tuple(links) + lanes + (T,))
+
+
+def _divisor_hold(hold: int, T: int) -> int:
     hold = max(1, int(hold))
     if hold > 1 and T % hold:
         hold = next(h for h in range(min(hold, T), 0, -1) if T % h == 0)
-    Tg = T // hold
-    taps = jakes_taps(profile, Tg, batch, sample_stride=hold, generator=generator,
+    return hold
+
+
+def multipath_unfused(x: C, profile: MultipathProfile, hold: int = 1,
+                      generator: Optional[torch.Generator] = None, phases=None,
+                      links: tuple = (), sum_tx: bool = False) -> C:
+    """apply_multipath as the Jakes product (`jakes_taps`) and a FIR over its
+    tap planes: each tap added into a zeroed (*links, ..., T) buffer, then
+    the sum over TX. The path of a CPU tensor, which the JAX-parity tests
+    hold."""
+    T = x.shape[-1]
+    batch = tuple(links) + tuple(x.shape[:-1])
+    hold = _divisor_hold(hold, T)
+    taps = jakes_taps(profile, T // hold, batch, sample_stride=hold, generator=generator,
                       device=x.re.device, phases=phases)       # (..., taps, Tg)
 
     y = cplx.czeros(batch + (T,), x.re.device)
@@ -199,7 +269,7 @@ def apply_multipath(x: C, profile: MultipathProfile, hold: int = 1,
         xr, xi = x.re[..., :T - d], x.im[..., :T - d]
         y.re[..., d:].addcmul_(hr, xr, value=g).addcmul_(hi, xi, value=-g)
         y.im[..., d:].addcmul_(hr, xi, value=g).addcmul_(hi, xr, value=g)
-    return y
+    return y.sum(axis=len(links)) if sum_tx else y
 
 
 def rayleigh_multipath(x: C, snr_db, profile: MultipathProfile, measure_axes=None,

@@ -33,13 +33,14 @@ caller passes `device="cpu"`.
 Under a torch.profiler `forward` records its stages as sibling spans
 (utils/profiling.span): `modem.tx` (QAM, layer map, precoder, the TX
 GEMM), `modem.papr`, the channel (`channel.multipath`, the links' Jakes
-product and FIR; or `channel.fading`, the flat H and its mix), in the time
-path `modem.rx_dft`, then `channel.awgn` (the bins' noise: P_rx, the
-draws, the sum), `modem.estimate`, the detector (`detector.heff`, the
-effective channel and σ², then `detector.sic` or `detector.mmse` (MMSE,
-IRC, ZF); MRC and the unbiased MMSE `detector.detect` alone), `modem.demap`
-(the layer demap and the hard demap) and `link.errors`. No channel, modem
-or detector span holds another.
+taps and FIR, one fused pass on a card; or `channel.fading`, the flat H
+and its mix), in the time path `modem.rx_dft`, then `channel.awgn` (the
+bins' noise: P_rx, the draws, the sum), `modem.estimate`, the detector
+(`detector.heff`, the effective channel and σ², then `detector.sic`, one
+CUDA-graph replay on a card, or `detector.mmse` (MMSE, IRC, ZF); MRC and
+the unbiased MMSE `detector.detect` alone), `modem.demap` (the layer demap
+and the hard demap) and `link.errors`. No channel, modem or detector span
+holds another.
 """
 from __future__ import annotations
 
@@ -354,7 +355,7 @@ class SpatialLink(nn.Module):
                     heff = term if heff is None else heff + term
             if dt == "SIC":
                 with span("detector.sic"):
-                    s = detector.sic_stacked(y_data, heff, noise_var, self.config.modulation)
+                    s = detector.sic_replay(y_data, heff, noise_var, self.config.modulation)
                     return C(s.re.movedim(0, -1), s.im.movedim(0, -1))
             with span("detector.mmse"):
                 # ZF is the same regularized Gram solve with σ² -> ε

@@ -13,6 +13,7 @@ from chip_smoke import WGMMA_SOURCES
 from ofdm_lte_tpu_torch import LTEConfig
 from ofdm_lte_tpu_torch.cplx import C
 from ofdm_lte_tpu_torch.ops import cmatmul as cm
+from ofdm_lte_tpu_torch.ops.multipath_fir import multipath_fir
 from ofdm_lte_tpu_torch.sim import siso
 
 
@@ -476,8 +477,9 @@ def test_new_paths_on_card_match_cpu_with_same_draws(path, cuda_device):
             kw = {"channel_type": "rayleigh_mp",
                   "draws": {"phases": rng.uniform(0, 2 * np.pi, (lanes * 4, 16)),
                             "noise": normals(lanes, T)}}
-    before = cm.cmatmul.copies
+    before, fir_before = cm.cmatmul.copies, multipath_fir.launches
     on_card = run(torch.from_numpy(bits), 18.0, cfg, **kw)
+    assert multipath_fir.launches == fir_before + (path == "rayleigh_mp")
     on_cpu = run(torch.from_numpy(bits), 18.0, cfg, device="cpu", **kw)
     assert on_card.bits_rx.is_cuda and cm.cmatmul.copies == before
     assert int((on_card.bits_rx.cpu() != on_cpu.bits_rx).sum()) <= 1e-4 * bits.size
@@ -531,21 +533,138 @@ def test_flat_mimo_time_varying_launches_the_kernel_once(cuda_device):
 
 
 @pytest.mark.cuda
-def test_jakes_table_is_kept_on_the_card(cuda_device):
+@pytest.mark.parametrize("kept", ["table", "fold"])
+def test_jakes_table_is_kept_on_the_card(kept, cuda_device):
+    """The sinusoid table is made once on the CPU and kept on the card, equal
+    to the CPU's bit for bit: the plain table, which `jakes_taps` multiplies
+    by, and its distinct rows (the fold), which a multipath step reads."""
     from ofdm_lte_tpu_torch.channel import rayleigh
     cfg = LTEConfig(1.25, modulation="QPSK")
     link = siso.SisoLink(cfg, channel_type="rayleigh_mp")
-    bits = torch.zeros((2, siso.bits_per_frame(cfg, 14)), dtype=torch.int32, device=cuda_device)
-    rayleigh._tables.clear()
-    link(bits, 20.0)
-    link(bits, 20.0)
-    (key, table), = rayleigh._tables.items()
     T = 14 * cfg.samples_per_ofdm_symbol
-    assert key[2:] == (T, 1, table.re.device) and table.re.is_cuda and table.im.is_cuda
-    assert rayleigh.jakes_table(link.profile.doppler_hz, link.profile.fs, T,
-                                device="cuda") is table
-    on_cpu = rayleigh.jakes_table(link.profile.doppler_hz, link.profile.fs, T, device="cpu")
-    assert torch.equal(table.re.cpu(), on_cpu.re) and torch.equal(table.im.cpu(), on_cpu.im)
+    prof = link.profile
+    rayleigh._tables.clear()
+    if kept == "table":
+        for _ in range(2):
+            rayleigh.jakes_taps(prof, T, (2,), device=cuda_device)
+    else:
+        bits = torch.zeros((2, siso.bits_per_frame(cfg, 14)), dtype=torch.int32,
+                           device=cuda_device)
+        link(bits, 20.0)
+        link(bits, 20.0)
+    (key, entry), = rayleigh._tables.items()
+    on_cpu = rayleigh.jakes_table(prof.doppler_hz, prof.fs, T, device="cpu")
+    if kept == "table":
+        assert key[2:] == (T, 1, entry.re.device) and entry.re.is_cuda and entry.im.is_cuda
+        assert rayleigh.jakes_table(prof.doppler_hz, prof.fs, T, device="cuda") is entry
+        assert torch.equal(entry.re.cpu(), on_cpu.re) and torch.equal(entry.im.cpu(), on_cpu.im)
+        return
+    assert key[0] == "fold" and key[3:] == (T, 1, entry.cos.device)
+    assert entry.cos.is_cuda and entry.sin.is_cuda
+    assert rayleigh.jakes_fold(prof.doppler_hz, prof.fs, T, device="cuda") is entry
+    for n, (k, sign) in enumerate(zip(entry.group, entry.sign)):
+        assert torch.equal(entry.cos[k].cpu(), on_cpu.re[n])
+        assert torch.equal(sign * entry.sin[k].cpu(), on_cpu.im[n])
+
+
+# the fused multipath pass at the cells' shapes (RX legs, TX antennas, lanes,
+# T, profile, km/h, hold), a held tap under a TX sum, and eight RX legs (two
+# chunks of four) over a table whose rows fold into none (D = 16)
+FIR_SHAPES = {
+    "siso_peda_256": (1, 1, 256, 14 * 2192, "Pedestrian_A", None, 1),
+    "4x4_peda_256": (4, 4, 256, 14 * 2192, "Pedestrian_A", 3.0, 1),
+    "2x3_veha_hold4": (2, 3, 5, 2 * 2192, "Vehicular_A", 30.0, 4),
+    "8x1_bad_urban_unfolded": (8, 1, 3, 2000, "Bad_Urban", 10.0, 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(FIR_SHAPES))
+def test_multipath_fir_kernel_matches_plain(name, cuda_device):
+    """The kernel against multipath_fir_plain on the card, one launch. Both
+    sum the same fp32 terms in the same order; the kernel's fmaf rounds a
+    multiply-add once where the plain version rounds the product and the sum,
+    so they part by some 30 roundings of terms below max|y|: 4e-6 of it (the
+    CPU tests hold the plain version within 3e-7 of a float64 sum)."""
+    from ofdm_lte_tpu_torch.channel import rayleigh
+    from ofdm_lte_tpu_torch.ops import multipath_fir as fir
+    n_rx, n_tx, lanes, T, prof_name, kmh, hold = FIR_SHAPES[name]
+    prof = rayleigh.make_profile(prof_name, 30.72e6, velocity_kmh=kmh)
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(T + lanes)
+    x = C(torch.randn((n_tx, lanes, T), generator=g, device=cuda_device),
+          torch.randn((n_tx, lanes, T), generator=g, device=cuda_device))
+    rows = rayleigh.jakes_rows(prof, (n_rx, n_tx, lanes), g, cuda_device).reshape(
+        n_rx, n_tx, lanes, prof.num_taps, 16)
+    if name.endswith("unfolded"):
+        phase = torch.rand((16, T // hold), generator=g, device=cuda_device) * (2 * np.pi)
+        fold = fir.sinusoid_fold(C(torch.cos(phase), torch.sin(phase)))
+        assert fold.groups == 16
+    else:
+        fold = rayleigh.jakes_fold(prof.doppler_hz, prof.fs, T // hold, hold, cuda_device)
+        assert fold.groups == 6
+    args = (prof.delays_samples, prof.gains_linear, hold)
+    before = fir.multipath_fir.launches
+    got = fir.multipath_fir(x, rows, fold, *args)
+    assert fir.multipath_fir.launches == before + 1
+    want = fir.multipath_fir_plain(x, rows, fold, *args)
+    torch.cuda.synchronize()
+    assert got.shape == (n_rx, lanes, T) and _rel_diff(got, want) <= 4e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,form", [("highest", "fma4"), ("high", "fma4"),
+                                            ("highest", "gauss"), ("default", "fma4")])
+def test_multipath_step_takes_the_fused_pass_under_every_setting(precision, form, cuda_device,
+                                                                 monkeypatch):
+    """A SISO multipath step on the card: the fused pass once and no Jakes
+    product (TX, RX data and RX pilot GEMMs alone) whatever the GEMM policy
+    and form, since the pass computes in fp32 under all of them."""
+    monkeypatch.setenv("OFDM_LTE_TPU_TORCH_MATMUL_PRECISION", precision)
+    monkeypatch.setenv("OFDM_LTE_TPU_TORCH_CMATMUL", form)
+    cfg = LTEConfig(5.0, modulation="16-QAM")
+    link = siso.SisoLink(cfg, channel_type="rayleigh_mp")
+    bits = torch.zeros((3, siso.bits_per_frame(cfg, 14)), dtype=torch.int32, device=cuda_device)
+    before, fir_before = cm.cmatmul.launches, multipath_fir.launches
+    link(bits, 20.0)
+    assert cm.cmatmul.launches == before + 3
+    assert multipath_fir.launches == fir_before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_rx,L", [(4, 4), (2, 2)])
+def test_sic_replay_matches_sic_stacked_on_the_card(num_rx, L, cuda_device):
+    """The SIC detector's CUDA-graph replay against sic_stacked run eagerly,
+    bit for bit, on two inputs of one shape (one graph, replayed with the
+    second's data); the first result is a copy the second replay leaves as
+    it was; a scalar σ² runs eagerly and captures nothing."""
+    from ofdm_lte_tpu_torch.mimo import detector
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(31 + L)
+    lanes, S, m = 8, 14, 250
+
+    def system():
+        y = C(*(torch.randn((num_rx, lanes, S, m), generator=g, device=cuda_device)
+                for _ in range(2)))
+        H = C(*(torch.randn((num_rx, L, lanes, S, m), generator=g, device=cuda_device)
+                for _ in range(2)))
+        s2 = torch.rand((lanes,), generator=g, device=cuda_device) * 0.3
+        return y, H, s2
+
+    detector._GRAPHS.clear()
+    first, second = system(), system()
+    got1 = detector.sic_replay(*first, "64-QAM")
+    kept = (got1.re.clone(), got1.im.clone())
+    got2 = detector.sic_replay(*second, "64-QAM")
+    assert len(detector._GRAPHS) == 1
+    for got, args in ((got1, first), (got2, second)):
+        want = detector.sic_stacked(*args, "64-QAM")
+        assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
+    assert torch.equal(got1.re, kept[0]) and torch.equal(got1.im, kept[1])
+    y, H, _ = first
+    eager = detector.sic_replay(y, H, 0.05, "64-QAM")
+    want = detector.sic_stacked(y, H, 0.05, "64-QAM")
+    assert torch.equal(eager.re, want.re) and len(detector._GRAPHS) == 1
 
 
 SPATIAL_CASES = {
@@ -559,9 +678,11 @@ SPATIAL_CASES = {
                                channel_type="rayleigh_mp", pilot_layout="extended"),
 }
 # complex-GEMM launches a step: TX; + RX data and RX pilot on the time path;
-# + Jakes over multipath; + one tap-basis product a TX antenna
-SPATIAL_LAUNCHES = {"4x2_r2_mmse_bins": 1, "4x2_r2_sic_time": 3, "4x4_r4_sic_mp": 4,
-                    "4x4_r3_zf_bins": 1, "4x2_r1_mrc_bins": 1, "8x4_r2_mmse_ext_mp": 12}
+# + one tap-basis product a TX antenna. Over multipath the Jakes taps are made
+# inside the one fused pass (FIR_LAUNCHES), not by a product.
+SPATIAL_LAUNCHES = {"4x2_r2_mmse_bins": 1, "4x2_r2_sic_time": 3, "4x4_r4_sic_mp": 3,
+                    "4x4_r3_zf_bins": 1, "4x2_r1_mrc_bins": 1, "8x4_r2_mmse_ext_mp": 11}
+FIR_LAUNCHES = {"4x4_r4_sic_mp": 1, "8x4_r2_mmse_ext_mp": 1}
 
 
 @pytest.mark.cuda
@@ -590,9 +711,11 @@ def test_spatial_link_on_card_matches_cpu_with_same_draws(name, cuda_device, mon
     bits = rng.integers(0, 2, (lanes, spatial.bits_per_frame(cfg, S))).astype(np.int32)
     snr = np.array([12.0, 20.0, 30.0], np.float32)
     before, copies = cm.cmatmul.launches, cm.cmatmul.copies
+    fir_before = multipath_fir.launches
     on_card = spatial.simulate_spatial_multiplexing(torch.from_numpy(bits), snr, cfg,
                                                     draws=draws, **kw)
     assert cm.cmatmul.launches == before + SPATIAL_LAUNCHES[name]
+    assert multipath_fir.launches == fir_before + FIR_LAUNCHES.get(name, 0)
     assert cm.cmatmul.copies == copies and on_card.bits_rx.is_cuda
     on_cpu = spatial.simulate_spatial_multiplexing(torch.from_numpy(bits), snr, cfg,
                                                    device="cpu", draws=draws, **kw)

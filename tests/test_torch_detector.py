@@ -173,3 +173,19 @@ def test_detect_rejects_what_jax_rejects(rng):
                                                       jcplx.from_numpy(H), 0.1))
     with pytest.raises(ValueError, match="L<=4"):
         tdet._solve_planes([[None] * 5] * 5, [None] * 5)
+
+
+@pytest.mark.parametrize("sigma", list(SIGMAS))
+def test_sic_replay_off_the_card_is_sic_stacked(sigma, rng):
+    """On a CPU tensor sic_replay is sic_stacked itself: the same decisions
+    bit for bit, and no graph captured."""
+    y, H, s = _system(rng, 4, 4)
+    yt = tcplx.from_numpy(np.moveaxis(y, -1, 0))                      # (rx, ..., S, m)
+    Ht = tcplx.from_numpy(np.moveaxis(H, (-2, -1), (0, 1)))          # (rx, L, ..., S, m)
+    s2 = SIGMAS[sigma]
+    s2 = torch.from_numpy(s2) if isinstance(s2, np.ndarray) else s2
+    graphs = len(tdet._GRAPHS)
+    got = tdet.sic_replay(yt, Ht, s2, "16-QAM")
+    want = tdet.sic_stacked(yt, Ht, s2, "16-QAM")
+    assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
+    assert len(tdet._GRAPHS) == graphs

@@ -2,6 +2,8 @@
 taps, the multipath FIR and the responses under the same phases (drawn by
 jax.random with the test's key and fed to the port's seam), and the Jakes
 statistics of tests/test_channel_stats.py on the port's own generator."""
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -208,3 +210,168 @@ def test_path_loss_matches_jax_under_same_shadowing():
     gen.manual_seed(0)
     a = tray.path_loss_linear(np.full(200, 100.0), generator=gen).mean()
     assert 0.01 < float(a) < 0.1
+
+
+# -- the one-pass multipath FIR (ops/multipath_fir) against the unfused path --
+
+from ofdm_lte_tpu_torch.ops import multipath_fir as tfir  # noqa: E402
+
+# (RX legs, TX antennas summed or None, profile, fs, velocity, hold, T, lanes)
+FIR_CASES = {
+    "1x1_peda": ((), None, "Pedestrian_A", 30.72e6, 3.0, 1, 1200, (3,)),
+    "2x1_simo_peda_hold4": ((2,), None, "Pedestrian_A", 30.72e6, 5.0, 4, 1200, (3,)),
+    "4x4_tx_sum_veha": ((4,), 4, "Vehicular_A", 7.68e6, 30.0, 1, 900, (2,)),
+    "4x4_tx_sum_peda_hold6": ((4,), 4, "Pedestrian_A", 30.72e6, 3.0, 6, 1200, (2,)),
+    "1x1_delay_past_T": ((), None, "Pedestrian_A", 30.72e6, 3.0, 1, 12, (5,)),
+}
+
+
+def _fir_case(name, rng):
+    links, n_tx, prof_name, fs, v, hold, T, lanes = FIR_CASES[name]
+    prof = tray.make_profile(prof_name, fs, velocity_kmh=v)
+    shape = ((n_tx,) if n_tx else ()) + lanes + (T,)
+    x = tcplx.from_numpy(rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+    batch = tuple(links) + shape[:-1]
+    phi = rng.uniform(0, 2 * np.pi, (int(np.prod(batch)) * prof.num_taps, 16)).astype(np.float32)
+    n_rx, B = int(np.prod(links)), int(np.prod(lanes))
+    rows = tray.jakes_rows(prof, batch, device="cpu", phases=phi).reshape(
+        n_rx, n_tx or 1, B, prof.num_taps, 16)
+    x3 = x.reshape(n_tx or 1, B, T)
+    fold = tray.jakes_fold(prof.doppler_hz, prof.fs, T // hold, hold, "cpu")
+    return prof, x, x3, rows, phi, fold, links, n_tx, hold
+
+
+def _fir64(x3: tcplx.C, rows: tcplx.C, table: tcplx.C, delays, gains, hold: int):
+    """Σ_tx Σ_i g_i·(P @ E)(t // hold)·x(t − d_i) in float64 from the fp32
+    operands: the sum the fused and the unfused forms both approximate."""
+    x = x3.to_numpy().astype(np.complex128)
+    h = rows.to_numpy().astype(np.complex128) @ table.to_numpy().astype(np.complex128)
+    h = np.repeat(h, hold, axis=-1)                          # (rx, tx, lanes, taps, T)
+    T = x.shape[-1]
+    y = np.zeros((h.shape[0],) + x.shape[1:], np.complex128)
+    for i, (d, g) in enumerate(zip(delays, gains)):
+        if d < T:
+            y[..., d:] += g * np.einsum("rtbs,tbs->rbs", h[..., i, d:], x[..., :T - d])
+    return y
+
+
+@pytest.mark.parametrize("name", list(FIR_CASES))
+def test_multipath_fir_plain_matches_apply_multipath(name, rng):
+    """The plain version of the fused pass against today's unfused path (the
+    Jakes product, the addcmul_ taps, the sum over TX) under the same phases,
+    and both against float64: the fused pass regroups the same fp32 sum."""
+    prof, x, x3, rows, phi, fold, links, n_tx, hold = _fir_case(name, rng)
+    unfused = tray.apply_multipath(x, prof, hold, phases=phi, links=links,
+                                   sum_tx=n_tx is not None)
+    if n_tx:
+        legs = tray.apply_multipath(x, prof, hold, phases=phi, links=links)
+        assert torch.equal(unfused.re, legs.sum(axis=1).re)
+        assert torch.equal(unfused.im, legs.sum(axis=1).im)
+    plain = tfir.multipath_fir_plain(x3, rows, fold, prof.delays_samples, prof.gains_linear, hold)
+    assert tuple(plain.shape) == (max(1, int(np.prod(links))),) + tuple(x3.shape[1:])
+    plain = plain.reshape(*unfused.shape)
+    table = tray.jakes_table(prof.doppler_hz, prof.fs, x.shape[-1] // hold, hold, "cpu")
+    y64 = _fir64(x3, rows, table, prof.delays_samples, prof.gains_linear, hold).reshape(
+        unfused.shape)
+    scale = np.abs(y64).max()
+    # fp32 sums of some 16·taps·n_tx terms of |P|·|x| ≤ 1.4·5: a few ulps of the scale
+    for y in (plain, unfused):
+        assert np.abs(y.to_numpy() - y64).max() <= 2e-6 * scale
+    assert np.abs(plain.to_numpy() - unfused.to_numpy()).max() <= 2e-6 * scale
+
+
+@pytest.mark.parametrize("table_of", ["random", "static"])
+def test_multipath_fir_plain_holds_any_fold(table_of, rng):
+    """A table with no symmetry keeps 16 single rows (D = 16); a static
+    channel (f_D = 0) folds into one row, padded to D = 6."""
+    T, lanes, taps = 40, 3, 2
+    if table_of == "random":
+        table = tcplx.from_numpy(np.exp(1j * rng.uniform(0, 2 * np.pi, (16, T))))
+    else:
+        table = tray.jakes_table(0.0, 1e6, T, device="cpu")
+    fold = tfir.sinusoid_fold(table)
+    assert (fold.groups, fold.cos.shape[0]) == ((16, 16) if table_of == "random" else (1, 6))
+    rows = tcplx.from_numpy(rng.standard_normal((2, 3, lanes, taps, 16))
+                            + 1j * rng.standard_normal((2, 3, lanes, taps, 16)))
+    x3 = tcplx.from_numpy(rng.standard_normal((3, lanes, T))
+                          + 1j * rng.standard_normal((3, lanes, T)))
+    delays, gains = (0, 5), (1.1, 0.7)
+    y = tfir.multipath_fir_plain(x3, rows, fold, delays, gains)
+    y64 = _fir64(x3, rows, table, delays, gains, 1)
+    assert np.abs(y.to_numpy() - y64).max() <= 2e-6 * np.abs(y64).max()
+
+
+# the groups of n = 1..16 (a minus: the conjugate row) at the cells' Dopplers:
+# sic4x4_peda at 3 km/h, siso64_peda at Pedestrian A's default 5 km/h
+CELL_GROUPS = [[1, -7, -9, 15], [2, -6, -10, 14], [3, -5, -11, 13], [4], [8, -16], [12]]
+
+
+@pytest.mark.parametrize("velocity", [3.0, None])
+def test_sinusoid_fold_finds_the_cells_groups(velocity):
+    prof = tray.make_profile("Pedestrian_A", 30.72e6, velocity_kmh=velocity)
+    T = 14 * 2192
+    fold = tray.jakes_fold(prof.doppler_hz, prof.fs, T, device="cpu")
+    groups = [[(n + 1) * s for n, (g, s) in enumerate(zip(fold.group, fold.sign)) if g == k]
+              for k in range(fold.groups)]
+    assert groups == CELL_GROUPS and fold.cos.shape == (6, T)
+    table = tray.jakes_table(prof.doppler_hz, prof.fs, T, device="cpu")
+    for n, (k, s) in enumerate(zip(fold.group, fold.sign)):
+        assert torch.equal(table.re[n], fold.cos[k]) and torch.equal(table.im[n], s * fold.sin[k])
+    assert tray.jakes_fold(prof.doppler_hz, prof.fs, T, device="cpu") is fold
+
+
+def test_multipath_fir_on_cpu_is_its_plain_version(rng):
+    prof, x, x3, rows, phi, fold, links, n_tx, hold = _fir_case("4x4_tx_sum_peda_hold6", rng)
+    before = tfir.multipath_fir.launches
+    args = (prof.delays_samples, prof.gains_linear, hold)
+    got = tfir.multipath_fir(x3, rows, fold, *args)
+    want = tfir.multipath_fir_plain(x3, rows, fold, *args)
+    assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
+    assert tfir.multipath_fir.launches == before
+    with pytest.raises(ValueError):
+        tfir.multipath_fir(x3[:2], rows, fold, *args)         # a TX antenna short
+    with pytest.raises(ValueError):
+        tfir.multipath_fir(x3, rows, fold, prof.delays_samples[:2], prof.gains_linear, hold)
+    with pytest.raises(ValueError):
+        tfir.multipath_fir(x3, rows, fold, prof.delays_samples, prof.gains_linear, 4)
+
+
+@pytest.mark.parametrize("precision,form", [("highest", "fma4"), ("highest", "gauss"),
+                                            ("high", "fma4"), ("default", "fma4")])
+def test_apply_multipath_routes_by_device_alone(precision, form, rng, monkeypatch):
+    """Under every GEMM policy and form a CPU tensor takes multipath_unfused
+    (bit for bit, no fused launch) and a CUDA tensor multipath_fused."""
+    monkeypatch.setenv("OFDM_LTE_TPU_TORCH_MATMUL_PRECISION", precision)
+    monkeypatch.setenv("OFDM_LTE_TPU_TORCH_CMATMUL", form)
+    prof, x, x3, rows, phi, fold, links, n_tx, hold = _fir_case("2x1_simo_peda_hold4", rng)
+    before = tfir.multipath_fir.launches
+    got = tray.apply_multipath(x, prof, hold, phases=phi, links=links)
+    want = tray.multipath_unfused(x, prof, hold, phases=phi, links=links)
+    assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
+    assert tfir.multipath_fir.launches == before
+    taken = []
+    monkeypatch.setattr(tray, "multipath_fused", lambda *a: taken.append("fused"))
+    monkeypatch.setattr(tray, "multipath_unfused", lambda *a: taken.append("unfused"))
+    on_card = SimpleNamespace(re=SimpleNamespace(device=torch.device("cuda", 0)))
+    tray.apply_multipath(on_card, prof)
+    tray.apply_multipath(x, prof)
+    assert taken == ["fused", "unfused"]
+
+
+@pytest.mark.parametrize("name", list(FIR_CASES))
+def test_apply_multipath_fused_route_matches_unfused(name, rng):
+    """The fused route (multipath_fused: its reshapes around multipath_fir,
+    here the plain version on the CPU) against multipath_unfused, same
+    phases; the generator's draws are the same on both routes."""
+    prof, x, x3, rows, phi, fold, links, n_tx, hold = _fir_case(name, rng)
+    sum_tx = n_tx is not None
+    fused = tray.multipath_fused(x, prof, hold, phases=phi, links=links, sum_tx=sum_tx)
+    unfused = tray.multipath_unfused(x, prof, hold, phases=phi, links=links, sum_tx=sum_tx)
+    assert fused.shape == unfused.shape
+    scale = unfused.abs().max().item()
+    assert (fused.re - unfused.re).abs().max().item() <= 2e-6 * scale
+    assert (fused.im - unfused.im).abs().max().item() <= 2e-6 * scale
+    g1, g2 = (torch.Generator().manual_seed(7) for _ in range(2))
+    fused = tray.multipath_fused(x, prof, hold, generator=g1, links=links, sum_tx=sum_tx)
+    unfused = tray.multipath_unfused(x, prof, hold, generator=g2, links=links, sum_tx=sum_tx)
+    assert (fused.re - unfused.re).abs().max().item() <= 2e-6 * scale
