@@ -16,16 +16,15 @@ transport block a lane, one transmission; a 75,376-bit one with HARQ over
 rv 0-3; 8 max-log iterations), see PATHS. Every complex GEMM of every path goes through
 the tensor-core kernel `cmatmul_tf32x3` (`tc`, 4-dot form, `highest`: wgmma
 fed by TMA, csrc/cmatmul_wgmma_tf32x3.cu); the mma.sync tensor-core Gauss
-kernel `cmatmul_tf32x3_gauss` and the CUDA-core kernel
-`cmatmul_f32` (`ffma`: 4-dot and Gauss forms) are driven beside it on the
-main path, and the kernels of the `high` and `default` precisions on the
+kernel `cmatmul_tf32x3_gauss` is driven beside it on the main path, and
+the kernels of the `high` and `default` precisions on the
 paths of phase 9; every half-iteration of the turbo decoder (the a-priori's QPP
 gather, the BCJR pass, the extrinsic) is one launch of `turbo_bcjr`
 (csrc/turbo_bcjr.cu), 17 a decode. Phases, each of which raises on failure:
 
 1. require a CUDA card; print its name and power limit;
 2. build the CUDA kernels from ofdm_lte_tpu_torch/csrc into build/;
-3. hold the four kernels against their plain PyTorch versions (fp32, TF32
+3. hold the two kernels of `highest` against their plain PyTorch versions (fp32, TF32
    off) at every GEMM shape of every path, with the strided operands the
    paths make (CP-stripped and slot-start views, a leading antenna axis),
    (the coded paths' TX, RX data and RX pilot products too) and at two
@@ -35,8 +34,7 @@ gather, the BCJR pass, the extrinsic) is one launch of `turbo_bcjr`
    workspace query against ops.cmatmul.wgmma_workspace_floats and its
    registers, spills and shared memory printed, the tensor-core Gauss
    kernel against
-   `cmatmul_plain(gauss=True)` and `cmatmul_plain_gauss_tf32x3`, `ffma`
-   4-dot and Gauss against `cmatmul_plain` of the same form. Print each
+   `cmatmul_plain(gauss=True)` and `cmatmul_plain_gauss_tf32x3`. Print each
    one's error against a float64 product (a yardstick). Run the split-K
    pilot GEMM twice through each tensor-core kernel and require identical
    bits. Hold `turbo_bcjr` on the card at K' 43, 1027, 5827, 6083 and
@@ -76,14 +74,13 @@ gather, the BCJR pass, the extrinsic) is one launch of `turbo_bcjr`
    equals the CPU's under the same draws at 5 MHz QPSK (1,000- and
    12,000-bit transport blocks, 4 lanes): bits, CRC outcomes, transmissions;
 6. time each path (CUDA events, bits and seed changed every step), the main
-   one through each of the four kernels in turns, and each GEMM shape
-   through the four kernels, the plain versions and one library call
+   one through each of the two kernels of `highest` in turns, and each GEMM
+   shape through those two kernels, the plain versions and one library call
    (torch.matmul on complex64 operands made before the timed window),
    beside its bound: the larger of bytes moved over 3.35 TB/s and
    operations over the peak rate of their type (TF32 tensor cores 495
    TFLOP/s for the two tensor-core kernels, which do three TF32 products
-   per fp32 product: 3 x 8·M·K·N for `tc`, 3 x 6·M·K·N for Gauss; fp32
-   CUDA cores 67 TFLOP/s for `ffma`); the coded paths' transport blocks
+   per fp32 product: 3 x 8·M·K·N for 4-dot, 3 x 6·M·K·N for Gauss); the coded paths' transport blocks
    and information bits a second, and the BCJR kernel's time a pass at the
    paths' shapes (256 × K' 6083, 3,328 × K' 5827) in its APP and extrinsic
    modes, there equal to its plain versions as floats, beside its bound
@@ -187,7 +184,7 @@ device time goes: all kernels, the GEMM kernels, the number of kernels a
 step (for the coded paths: 17 BCJR launches a decode and the rest), and
 the device's idle share of the traced wall time. It fails if a
 device kernel whose name holds `gemm` or `cutlass` ran (every product of a
-driven path belongs to the four hand-written kernels) beyond the CRC
+driven path belongs to the hand-written kernels) beyond the CRC
 products of the coded paths (`coding.crc.crc_torch`, a torch.matmul as the
 JAX package's plain XLA dot: as many library GEMM kernels as its launches
 in the window times the kernels one call launches), or an eigensolver's
@@ -206,7 +203,7 @@ import time
 import numpy as np
 import torch
 
-# the GEMM kernels with the variant, precision and form of each
+# the GEMM kernels with the precision and form of each
 from ofdm_lte_tpu_torch.ops.cmatmul import KERNELS as CMATMUL_KERNELS
 # the card's peaks, and what a BCJR pass moves and does a step a block
 from ofdm_lte_tpu_torch.utils.profiling import (BCJR_BYTES_PER_STEP, BCJR_OPS_PER_STEP,
@@ -372,19 +369,18 @@ JAX_BFCOMPARE_SFBC_BER = {
 CLI_RUN_GEMMS = {"siso": 3, "siso-coded": 3, "harq": 3, "simo": 3, "miso": 3, "mimo": 3,
                  "beamforming": 0, "spatial": 1}
 
-# max|Δ| / max|C| against the plain version of the same form. tc and ffma
-# 4-dot: the same products in another sum order; Gauss (either kernel): one
-# extra rounding and a fold, t3 − t1 − t2, that cancels. The kernels at
+# max|Δ| / max|C| against the plain version of the same form. 4-dot: the
+# same products in another sum order; Gauss: one extra rounding and a fold, t3 − t1 − t2, that cancels. The kernels at
 # `high` (tf32) and `default` (bf16) against the plain versions that round
 # the operands as they do (ops.cmatmul.PLAIN): the same exact products in
 # another sum order, so the same tolerances.
-TOL = {"tf32x3": 1e-5, "tf32x3_gauss": 1e-4, "f32_fma4": 1e-5, "f32_gauss": 1e-4,
-       "tf32": 1e-5, "tf32_gauss": 1e-4, "bf16": 1e-5, "bf16_gauss": 1e-4}
+TOL = {"tf32x3": 1e-5, "tf32x3_gauss": 1e-4, "tf32": 1e-5, "tf32_gauss": 1e-4,
+       "bf16": 1e-5, "bf16_gauss": 1e-4}
 # the kernels of `highest`, which phases 3, 5 and 6 drive; phase 9 drives the
 # kernels of `high` and `default`
-HIGHEST = ("tf32x3", "tf32x3_gauss", "f32_fma4", "f32_gauss")
+HIGHEST = ("tf32x3", "tf32x3_gauss")
 PRECISION_KERNELS = ("tf32", "tf32_gauss", "bf16", "bf16_gauss")
-PRECISION = {kernel: CMATMUL_KERNELS[kernel][1] for kernel in TOL}
+PRECISION = {kernel: CMATMUL_KERNELS[kernel][0] for kernel in TOL}
 # turbo_bcjr against bcjr_plain under log-MAP, max|Δ| over the largest path
 # metric Σ_k (|L_sys| + |L_par| + |L_apr|)/2 (the metrics are not renormalised;
 # expf/logf and the 8-state sum order differ by ulps). Max-log: equal.
@@ -395,8 +391,7 @@ BCJR_LOGMAP_TOL = 1e-6
 # than those of all rows, so bins on the decision boundary round either way
 # (3 of 21.5 M bits in a first run on the card)
 MAX_SPLIT_ORDER_FLIPS = 1e-6
-GAUSS = {kernel: CMATMUL_KERNELS[kernel][2] for kernel in TOL}
-TENSOR_CORE = {kernel: CMATMUL_KERNELS[kernel][0] == "tc" for kernel in TOL}
+GAUSS = {kernel: CMATMUL_KERNELS[kernel][1] for kernel in TOL}
 HBM_BYTES_PER_S = DATASHEET["hbm"]
 # name fragments of cuSOLVER's and MAGMA's Hermitian eigensolver kernels
 # (Jacobi, and the tridiagonal reduction, solve and back-transform of syevd)
@@ -548,17 +543,14 @@ def crc_gemm_kernels(link, lanes: int) -> int:
 
 def bound_ms(kernel: str, M: int, K: int, N: int):
     """(ms, which) — the least time the card could take: every plane of A and
-    B read once (and the CUDA-core Gauss kernel's `bsum` plane) and C written
-    once, against the operations at their peak: fp32 CUDA cores for `ffma`;
-    on the tensor cores three TF32 products per fp32 product at `highest`,
+    B read once and C written once, against the operations at their peak on
+    the tensor cores: three TF32 products per fp32 product at `highest`,
     one at `high`, one bf16 product at `default`. The planes are fp32 in
     device memory at every precision."""
-    planes = 2 * M * K + 2 * K * N + 2 * M * N + (K * N if kernel == "f32_gauss" else 0)
+    planes = 2 * M * K + 2 * K * N + 2 * M * N
     t_bytes = 4 * planes / HBM_BYTES_PER_S
     flops = (6 if GAUSS[kernel] else 8) * M * K * N
-    if not TENSOR_CORE[kernel]:
-        t_ops = flops / PEAK_FLOPS["fp32"]
-    elif PRECISION[kernel] == "default":
+    if PRECISION[kernel] == "default":
         t_ops = flops / PEAK_FLOPS["bf16"]
     else:
         t_ops = (3 if PRECISION[kernel] == "highest" else 1) * flops / PEAK_FLOPS["tf32"]
@@ -609,7 +601,7 @@ def draw_errors(kernels, seeds: int, card: str, dev) -> dict:
         y = ofdm.frame_stream(link.transmit(bits), cfg)
         gemms = {"tx": (qam.modulate(bits, cfg.modulation).reshape(256, 14, -1),
                         link.mod_tables.b),
-                 "rx_data": (y[..., cfg.cp_length:], link.rx_tables.data.g)}
+                 "rx_data": (y[..., cfg.cp_length:], link.rx_tables.data)}
         for name, (a, b) in gemms.items():
             shapes[name] = (a.re.numel() // a.shape[-1], a.shape[-1], b.re.shape[1])
             for kernel in kernels:
@@ -1296,7 +1288,7 @@ def main() -> None:
     from ofdm_lte_tpu_torch.ops.cmatmul import (PLAIN, _kernel_for, _ld, cmatmul, cmatmul_plain,
                                                 cmatmul_plain_gauss_tf32x3,
                                                 cmatmul_plain_tf32x3,
-                                                cmatmul_plain_wgmma_slabs, default_variant,
+                                                cmatmul_plain_wgmma_slabs,
                                                 rounding_bound, wgmma_a_needs_copy,
                                                 wgmma_workspace_floats)
     from ofdm_lte_tpu_torch.rx import alamouti
@@ -1374,9 +1366,9 @@ def main() -> None:
     y = ofdm.frame_stream(link.transmit(bits), cfg)                 # (L, S, N+cp)
     rx = link.rx_tables
     gemms = {
-        "tx": (data, link.mod_tables.b, link.mod_tables.bsum),
-        "rx_data": (y[..., cfg.cp_length:], rx.data.g, rx.data.gsum),
-        "rx_pilot": (y[..., ::SLOT_SIZE, cfg.cp_length:], rx.pilot.g, rx.pilot.gsum),
+        "tx": (data, link.mod_tables.b),
+        "rx_data": (y[..., cfg.cp_length:], rx.data),
+        "rx_pilot": (y[..., ::SLOT_SIZE, cfg.cp_length:], rx.pilot),
     }
     # the other paths' call sites: SFBC TX (both antennas folded into M), SFBC
     # and SIMO RX under a leading antenna axis (data on the CP-stripped view,
@@ -1408,16 +1400,16 @@ def main() -> None:
     scfdm_w = scfdm_link._gemm("scfdm_w")
     simple_rx = simple_link.rx_tables.data
     new_gemms = {
-        "sfbc_tx": (sfbc_syms, st.mod.b, st.mod.bsum),
-        "sfbc_rx_data": (y2[..., cfg.cp_length:], st.data.g, st.data.gsum),
-        "sfbc_rx_pilot": (y2[..., ::SLOT_SIZE, cfg.cp_length:], st.pilot.g, st.pilot.gsum),
-        "scfdm": (data, scfdm_w.g, scfdm_w.gsum),
-        "simple_tx": (simple_syms, simple_link.mod_tables.b, simple_link.mod_tables.bsum),
-        "simple_rx": (y[..., cfg.cp_length:], simple_rx.g, simple_rx.gsum),
-        "simo_rx_data": (y_simo[..., cfg.cp_length:], rx.data.g, rx.data.gsum),
-        "jakes": (jakes_rows(1), jakes_e, None),
-        "simo_jakes": (jakes_rows(2), jakes_e, None),
-        "sfbc_mp_jakes": (jakes_rows(4), jakes_e, None),
+        "sfbc_tx": (sfbc_syms, st.mod.b),
+        "sfbc_rx_data": (y2[..., cfg.cp_length:], st.data),
+        "sfbc_rx_pilot": (y2[..., ::SLOT_SIZE, cfg.cp_length:], st.pilot),
+        "scfdm": (data, scfdm_w),
+        "simple_tx": (simple_syms, simple_link.mod_tables.b),
+        "simple_rx": (y[..., cfg.cp_length:], simple_rx),
+        "simo_rx_data": (y_simo[..., cfg.cp_length:], rx.data),
+        "jakes": (jakes_rows(1), jakes_e),
+        "simo_jakes": (jakes_rows(2), jakes_e),
+        "sfbc_mp_jakes": (jakes_rows(4), jakes_e),
     }
     # the spatial paths' call sites, each with the operands one step of that
     # path makes: the TX GEMM over num_tx antennas and m = 500 (rank 2) or 250
@@ -1433,17 +1425,17 @@ def main() -> None:
                         ("spatial_8x4_ext_mp", "spatial_8x4_r2_mmse_ext_rayleigh_mp")):
         sl = path_link(name)
         x_tx = sl.precode(bits)                                     # (tx, L, S, m)
-        sp_gemms[f"{short}_tx"] = (x_tx, sl.mod_tables.b, sl.mod_tables.bsum)
+        sp_gemms[f"{short}_tx"] = (x_tx, sl.mod_tables.b)
         sig = ofdm.modulate_custom_multi(x_tx, cfg, None, None, None, sl.mod_tables)
         gen.manual_seed(5)
         y_sp, _, _ = mimo.spatial_mix_noiseless(
             sig.reshape(sl.num_tx, LANES, -1), PATHS[name]["snr"], sl.num_rx, sl.channel_type,
             sl.profile, generator=gen)
         y_sp = ofdm.frame_stream(y_sp, cfg)[..., cfg.cp_length:]    # (rx, L, S, N)
-        sp_gemms[f"{short}_rx_data"] = (y_sp, *sl._gemm("demod_data"))
-        sp_gemms[f"{short}_rx_pilot"] = (y_sp, *sl._gemm("demod_pilot"))
+        sp_gemms[f"{short}_rx_data"] = (y_sp, sl._c("demod_data"))
+        sp_gemms[f"{short}_rx_pilot"] = (y_sp, sl._c("demod_pilot"))
         if sl.profile is not None:
-            sp_gemms[f"{short}_jakes"] = (jakes_rows(sl.num_rx * sl.num_tx), jakes_e, None)
+            sp_gemms[f"{short}_jakes"] = (jakes_rows(sl.num_rx * sl.num_tx), jakes_e)
         if sl.pilot_layout == "extended":
             n_comb = sl.pilot_seq0_re.shape[0]
             gen.manual_seed(6)
@@ -1451,7 +1443,7 @@ def main() -> None:
                                    device=dev),
                        torch.randn((sl.num_rx, LANES, SYMBOLS, n_comb), generator=gen,
                                    device=dev))
-            sp_gemms[f"{short}_tap_basis"] = (h_comb, *sl._gemm("tap_basis0"))
+            sp_gemms[f"{short}_tap_basis"] = (h_comb, sl._c("tap_basis0"))
         del sl, sig
         torch.cuda.empty_cache()      # the multipath tap planes run to gigabytes
     new_gemms.update(sp_gemms)
@@ -1462,7 +1454,7 @@ def main() -> None:
     new_gemms["bf_jakes_8x1"] = (
         rayleigh.symbol_table(bf_kw["doppler_hz"], SYMBOLS, 1.0 / 15000.0, dev),
         cplx.expi(torch.rand((rayleigh.N_SINUSOIDS, bf_links), generator=gen, device=dev)
-                  * (2 * np.pi)), None)
+                  * (2 * np.pi)))
 
     g = torch.Generator(device=dev)
     g.manual_seed(7)
@@ -1472,10 +1464,10 @@ def main() -> None:
                  torch.randn(shape, generator=g, device=dev))
 
     unaligned = randc(28, 999)          # A 4 bytes past a 16-byte boundary, lda 999
-    ragged = {"ragged_28x999x300": (randc(28, 999), randc(999, 300), None),
-              "ragged_5x7x3": (randc(5, 7), randc(7, 3), None),
+    ragged = {"ragged_28x999x300": (randc(28, 999), randc(999, 300)),
+              "ragged_5x7x3": (randc(5, 7), randc(7, 3)),
               "unaligned_28x998x300": (C(unaligned.re[:, 1:], unaligned.im[:, 1:]),
-                                       randc(998, 300), None)}
+                                       randc(998, 300))}
 
     # the coded paths' call sites: TX over the frame of S symbols the
     # transport block fills, RX data on the CP-stripped view and RX pilot on
@@ -1492,10 +1484,10 @@ def main() -> None:
         y_c = ofdm.frame_stream(randc(LANES, S_c * cfg.samples_per_ofdm_symbol), cfg)
         pil = y_c[..., ::SLOT_SIZE, cfg.cp_length:]
         coded_gemms[f"{name}_tx"] = (randc(LANES, S_c, siso.grid_for(cfg).num_data),
-                                     link.mod_tables.b, link.mod_tables.bsum)
-        coded_gemms[f"{name}_rx_data"] = (y_c[..., cfg.cp_length:], rx.data.g, rx.data.gsum)
+                                     link.mod_tables.b)
+        coded_gemms[f"{name}_rx_data"] = (y_c[..., cfg.cp_length:], rx.data)
         coded_gemms[f"{name}_rx_pilot"] = (C(pil.re.contiguous(), pil.im.contiguous()),
-                                           rx.pilot.g, rx.pilot.gsum)
+                                           rx.pilot)
     clear_link_cache()
 
     def c128(x: C) -> torch.Tensor:
@@ -1504,12 +1496,9 @@ def main() -> None:
     def max_diff(x, y) -> float:
         return max((x.re - y.re).abs().max().item(), (x.im - y.im).abs().max().item())
 
-    def run_kernel(kernel, a, b, bsum):
-        # only the CUDA-core Gauss kernel reads the tables' bsum plane
+    def run_kernel(kernel, a, b):
         with precision_knobs(PRECISION[kernel]):
-            return cmatmul(a, b, gauss=GAUSS[kernel],
-                           bsum=bsum if kernel == "f32_gauss" else None,
-                           variant="tc" if TENSOR_CORE[kernel] else "ffma")
+            return cmatmul(a, b, gauss=GAUSS[kernel])
 
     def mkn(a, b):
         return int(np.prod(a.shape[:-1])), b.shape[0], b.shape[1]
@@ -1524,7 +1513,7 @@ def main() -> None:
           f"block: {kernel_lib.cmatmul_tf32x3_smem_bytes()} B")
     max_err = dict.fromkeys(TOL, 0.0)
     zero_counts()
-    for name, (a, b, bsum) in {**gemms, **new_gemms, **coded_gemms, **ragged}.items():
+    for name, (a, b) in {**gemms, **new_gemms, **coded_gemms, **ragged}.items():
         M, K, N = mkn(a, b)
         a2 = C(a.re.reshape(M, K), a.im.reshape(M, K))
         # the workspace that the wgmma kernel asks for, against its formula
@@ -1539,7 +1528,7 @@ def main() -> None:
         # each kernel once at the whole shape, the operand with the strides the
         # path gives it; the plain versions and the float64 product follow in
         # blocks of rows, so that the largest outputs (8 GB) fit beside them
-        outs = {kernel: run_kernel(kernel, a, b, bsum).reshape(M, N) for kernel in HIGHEST}
+        outs = {kernel: run_kernel(kernel, a, b).reshape(M, N) for kernel in HIGHEST}
         torch.cuda.synchronize()
         rows = max(1, min(M, (1 << 27) // N))
         errs, ref_max, err64, scale = {}, {}, {}, 0.0
@@ -1584,12 +1573,12 @@ def main() -> None:
 
     # the pilot GEMM's grid is split along K; its partial sums are added in a
     # fixed order, so two runs give the same bits
-    a, b, _ = gemms["rx_pilot"]
+    a, b = gemms["rx_pilot"]
     M, K, N = mkn(a, b)
     for kernel in ("tf32x3", "tf32x3_gauss"):
         splits = getattr(_build.library(), f"cmatmul_{kernel}_splits")(
             M, N, K, torch.cuda.get_device_properties(dev).multi_processor_count)
-        first, second = run_kernel(kernel, a, b, None), run_kernel(kernel, a, b, None)
+        first, second = run_kernel(kernel, a, b), run_kernel(kernel, a, b)
         torch.cuda.synchronize()
         same = torch.equal(first.re, second.re) and torch.equal(first.im, second.im)
         print(f"determinism rx_pilot {kernel}: K split {splits} ways, two runs identical: "
@@ -1802,29 +1791,28 @@ def main() -> None:
 
     # -- 5. the main path, once per kernel ----------------------------------
     def main_path_through(kernel):
-        """Context in which the link's GEMMs go to `kernel`."""
+        """Send the link's GEMMs to `kernel` (both are `highest`'s: by form)."""
         os.environ["OFDM_LTE_TPU_TORCH_CMATMUL"] = "gauss" if GAUSS[kernel] else "fma4"
-        return contextlib.nullcontext() if TENSOR_CORE[kernel] else default_variant("ffma")
 
     launches = {}
     launches_by_path = {}
     for kernel in HIGHEST:
-        with main_path_through(kernel):
-            zero_counts()
-            bers = {}
-            for step, snr in enumerate((60.0, 15.0)):
-                bits = random_bits(LANES, 100 + step)
-                gen.manual_seed(200 + step)
-                # no device named: the functional form takes the card and moves
-                # the bits there, from the host too
-                r = siso.simulate_siso(bits.cpu() if step else bits, snr, cfg, generator=gen)
-                if r.bits_rx.shape != bits.shape or r.bits_rx.dtype != bits.dtype:
-                    raise AssertionError(f"bits_rx {r.bits_rx.shape} {r.bits_rx.dtype}")
-                if not r.bits_rx.is_cuda or r.ber.shape != (LANES,) \
-                        or not torch.isfinite(r.papr_db).all():
-                    raise AssertionError("device, ber shape or non-finite PAPR")
-                bers[snr] = r.ber.mean().item()
-            counts = dict(cmatmul.launches_by_kernel)
+        main_path_through(kernel)
+        zero_counts()
+        bers = {}
+        for step, snr in enumerate((60.0, 15.0)):
+            bits = random_bits(LANES, 100 + step)
+            gen.manual_seed(200 + step)
+            # no device named: the functional form takes the card and moves
+            # the bits there, from the host too
+            r = siso.simulate_siso(bits.cpu() if step else bits, snr, cfg, generator=gen)
+            if r.bits_rx.shape != bits.shape or r.bits_rx.dtype != bits.dtype:
+                raise AssertionError(f"bits_rx {r.bits_rx.shape} {r.bits_rx.dtype}")
+            if not r.bits_rx.is_cuda or r.ber.shape != (LANES,) \
+                    or not torch.isfinite(r.papr_db).all():
+                raise AssertionError("device, ber shape or non-finite PAPR")
+            bers[snr] = r.ber.mean().item()
+        counts = dict(cmatmul.launches_by_kernel)
         launches[kernel] = counts[kernel]
         launches_by_path[f"main/{kernel}"] = counts[kernel]
         print(f"main path {kernel}: {LANES} lanes x {SYMBOLS} symbols, BER@60dB "
@@ -2045,8 +2033,8 @@ def main() -> None:
     cuda_ms(step, STEPS)
     passes = {kernel: [] for kernel in HIGHEST}
     for kernel in HIGHEST + HIGHEST[::-1]:
-        with main_path_through(kernel):
-            passes[kernel].append(cuda_ms(step, STEPS))
+        main_path_through(kernel)
+        passes[kernel].append(cuda_ms(step, STEPS))
     os.environ["OFDM_LTE_TPU_TORCH_CMATMUL"] = "fma4"
     ms_step = {kernel: sum(ts) / len(ts) for kernel, ts in passes.items()}
     for kernel, t in ms_step.items():
@@ -2253,7 +2241,7 @@ def main() -> None:
     bound_by = {kernel: {"bytes": 0.0, "operations": 0.0} for kernel in TOL}
     by_shape = {kernel: [] for kernel in TOL}
     library_ms = 0.0
-    for name, (a, b, bsum) in {**gemms, **new_gemms, **coded_gemms}.items():
+    for name, (a, b) in {**gemms, **new_gemms, **coded_gemms}.items():
         M, K, N = mkn(a, b)
         # the library call: one cuBLAS cgemm on interleaved complex64; the
         # planar -> interleaved conversion happens here, outside the timing
@@ -2263,7 +2251,7 @@ def main() -> None:
                 "plain_gauss": lambda: cmatmul_plain(a, b, gauss=True),
                 "library": lambda: torch.matmul(ac, bc)}
         for kernel in HIGHEST:
-            runs[kernel] = (lambda kernel=kernel: run_kernel(kernel, a, b, bsum))
+            runs[kernel] = (lambda kernel=kernel: run_kernel(kernel, a, b))
         # one interleaved sequence, there and back; each time is its mean
         t = dict.fromkeys(runs, 0.0)
         for which in list(runs) + list(reversed(runs)):
@@ -2295,7 +2283,7 @@ def main() -> None:
     prec_launches = {kernel: {} for kernel in ("tf32x3",) + PRECISION_KERNELS}
     for precision in ("high", "default"):
         source = WGMMA_SOURCES[precision][0]
-        smem = getattr(kernel_lib, f"cmatmul_{_kernel_for(False, 'tc', precision)}_smem_bytes")
+        smem = getattr(kernel_lib, f"cmatmul_{_kernel_for(False, precision)}_smem_bytes")
         print(f"`{precision}` kernels (csrc/{source}) registers and spill (ptxas): "
               f"{wgmma_registers(_build.build_log, precision)}; dynamic shared memory a block: "
               f"4-dot {smem(0)} B, Gauss {smem(1)} B")
@@ -2304,7 +2292,7 @@ def main() -> None:
     # against the exact product of the unrounded operands within the bound
     # that its rounding allows (ops.cmatmul.rounding_bound, elementwise)
     bound_share = dict.fromkeys(PRECISION_KERNELS, 0.0)
-    for name, (a, b, _) in {**gemms, **new_gemms, **coded_gemms, **ragged}.items():
+    for name, (a, b) in {**gemms, **new_gemms, **coded_gemms, **ragged}.items():
         M, K, N = mkn(a, b)
         a2 = C(a.re.reshape(M, K), a.im.reshape(M, K))
         # the workspace that the wgmma kernels ask for, against its formula
@@ -2320,7 +2308,7 @@ def main() -> None:
                 raise AssertionError(f"{kernel} at {name}: workspace {got} floats, the "
                                      f"formula {want}")
         zero_counts()
-        outs = {kernel: run_kernel(kernel, a, b, None).reshape(M, N)
+        outs = {kernel: run_kernel(kernel, a, b).reshape(M, N)
                 for kernel in PRECISION_KERNELS}
         torch.cuda.synchronize()
         if [cmatmul.launches_by_kernel[k] for k in PRECISION_KERNELS] != [1] * 4 \
@@ -2370,12 +2358,12 @@ def main() -> None:
         if not e <= TOL[kernel]:
             raise AssertionError(f"{kernel} at the flagship's {name}: max|d|/max|C| {e:.3e} "
                                  f"over 8 draws, against its tolerance {TOL[kernel]:.0e}")
-    a, b, _ = gemms["rx_pilot"]
+    a, b = gemms["rx_pilot"]
     M, K, N = mkn(a, b)
     for kernel in PRECISION_KERNELS:
         splits = getattr(_build.library(), f"cmatmul_{kernel}_splits")(
             M, N, K, torch.cuda.get_device_properties(dev).multi_processor_count)
-        first, second = run_kernel(kernel, a, b, None), run_kernel(kernel, a, b, None)
+        first, second = run_kernel(kernel, a, b), run_kernel(kernel, a, b)
         torch.cuda.synchronize()
         same = torch.equal(first.re, second.re) and torch.equal(first.im, second.im)
         print(f"determinism rx_pilot {kernel}: K split {splits} ways, two runs identical: "
@@ -2391,7 +2379,7 @@ def main() -> None:
 
     def prec_path(name: str, plink, precision: str, form: str) -> None:
         spec = main_spec if name == "main" else PATHS[name]
-        kernel = _kernel_for(form == "gauss", "tc", precision)
+        kernel = _kernel_for(form == "gauss", precision)
         is_coded = spec["kind"] == "coded"
         clean = CODED_CLEAN_SNR if is_coded else 60.0
         nb = n_bits if name == "main" else path_bits(name)
@@ -2470,7 +2458,7 @@ def main() -> None:
             zero_counts()
             with precision_knobs(precision, "fma4"):
                 decided[precision] = link(bits, snr, generator=gen).bits_rx
-            kernel = _kernel_for(False, "tc", precision)
+            kernel = _kernel_for(False, precision)
             launches[kernel] += cmatmul.launches_by_kernel[kernel]
             prec_launches[kernel][f"prec/{precision}/main_{snr:g}dB"] = \
                 cmatmul.launches_by_kernel[kernel]
@@ -2551,7 +2539,7 @@ def main() -> None:
     # block form [Ar | Ai] (M, 2K') @ [[Br, Bi], [-Bi, Br]] (2K', 2N'), K and N
     # padded to multiples of 8 with zeros (built outside the timed window);
     # at each shape the faster is the yardstick
-    M, K, N = mkn(*gemms["tx"][:2])
+    M, K, N = mkn(*gemms["tx"])
     lib_names = library_kernel_names(M, K, N)
     for setting, names in lib_names.items():
         print(f"library kernels at ({M}x{K})@({K}x{N}), {setting}: {names or 'none traced'}")
@@ -2563,7 +2551,7 @@ def main() -> None:
              "bf16 kernel"))
     library_ms_at = {"high": 0.0, "default": 0.0}
     library_default_by_shape = []
-    for name, (a, b, _) in {**gemms, **new_gemms, **coded_gemms}.items():
+    for name, (a, b) in {**gemms, **new_gemms, **coded_gemms}.items():
         M, K, N = mkn(a, b)
         ac = torch.complex(a.re, a.im).reshape(M, K).contiguous()
         bc = torch.complex(b.re, b.im).contiguous()
@@ -2582,7 +2570,7 @@ def main() -> None:
             runs.update(bf16_stand_ins(C(a.re.reshape(M, K), a.im.reshape(M, K)), b))
         stand_ins = [which for which in runs if which != "library_high"]
         for kernel in PRECISION_KERNELS:
-            runs[kernel] = lambda kernel=kernel: run_kernel(kernel, a, b, None)
+            runs[kernel] = lambda kernel=kernel: run_kernel(kernel, a, b)
             runs["plain_" + kernel] = lambda kernel=kernel: PLAIN[kernel](a, b)
         t = dict.fromkeys(runs, 0.0)
         for which in list(runs) + list(reversed(runs)):
@@ -2615,8 +2603,6 @@ def main() -> None:
 
     sources = {"tf32x3": ("cmatmul_tf32x3", "cmatmul_wgmma_tf32x3.cu", "41"),
                "tf32x3_gauss": ("cmatmul_tf32x3_gauss", "cmatmul_tc_gauss.cu", "56"),
-               "f32_fma4": ("cmatmul_f32 (fma4)", "cmatmul.cu", "41"),
-               "f32_gauss": ("cmatmul_f32 (gauss)", "cmatmul.cu", "56"),
                "tf32": ("cmatmul_tf32", "cmatmul_wgmma_tf32.cu", "41"),
                "tf32_gauss": ("cmatmul_tf32_gauss", "cmatmul_wgmma_tf32.cu", "56"),
                "bf16": ("cmatmul_bf16", "cmatmul_bf16.cu", "41"),
@@ -2644,7 +2630,7 @@ def main() -> None:
         "precision": PRECISION[kernel],
         # phase 9's flagship step at the kernel's precision and form
         "main_step_ms": {f"{p}/{f}": t for (p, f), t in step_ms.items()
-                         if TENSOR_CORE[kernel] and p == PRECISION[kernel]
+                         if p == PRECISION[kernel]
                          and (f == "gauss") == GAUSS[kernel]},
         "by_shape": by_shape[kernel],
     } for kernel in TOL]

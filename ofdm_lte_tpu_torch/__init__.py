@@ -3,10 +3,9 @@
 A second package beside the JAX package `ofdm_lte_tpu`, which stays the
 reference it is tested against. It imports torch and NumPy and never JAX.
 Complex values are planar (`C`, a pair of float32 tensors); the modem's
-complex GEMMs run in hand-written Hopper kernels (ops/cmatmul.py,
-csrc/cmatmul_wgmma_tf32x3.cu on the tensor cores, csrc/cmatmul.cu on the
-CUDA cores)
-and each BCJR pass of the turbo decoder in another (ops/bcjr.py,
+complex GEMMs run in hand-written Hopper tensor-core kernels
+(ops/cmatmul.py, csrc/cmatmul_wgmma_tf32x3.cu and its siblings) and each
+BCJR pass of the turbo decoder in another (ops/bcjr.py,
 csrc/turbo_bcjr.cu) on CUDA tensors, and in plain PyTorch on CPU tensors.
 Its objects run on the CUDA card unless the caller passes `device="cpu"`
 (device.py).

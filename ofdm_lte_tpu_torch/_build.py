@@ -29,10 +29,10 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# the tensor-core complex GEMMs, each exported as cmatmul_<name> and
-# cmatmul_<name>_splits with one C signature: highest (3xTF32; 4-dot: wgmma
-# and TMA, csrc/cmatmul_wgmma_tf32x3.cu; Gauss: mma.sync,
-# csrc/cmatmul_tc_gauss.cu), high (TF32, wgmma and TMA:
+# the complex GEMMs, one for each form and precision, each exported as
+# cmatmul_<name> and cmatmul_<name>_splits with one C signature: highest
+# (3xTF32; 4-dot: wgmma and TMA, csrc/cmatmul_wgmma_tf32x3.cu; Gauss:
+# mma.sync, csrc/cmatmul_tc_gauss.cu), high (TF32, wgmma and TMA:
 # csrc/cmatmul_wgmma_tf32.cu) and default (bf16, wgmma and TMA:
 # csrc/cmatmul_bf16.cu), each in the 4-dot and the Gauss form
 TC_KERNELS = ("tf32x3", "tf32x3_gauss", "tf32", "tf32_gauss", "bf16", "bf16_gauss")
@@ -114,8 +114,6 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.cmatmul_f32.argtypes = [p, p, i, p, p, p, i, p, p, i, i, i, i, i, p]
-        lib.cmatmul_f32.restype = i
         for name in TC_KERNELS:
             fn = getattr(lib, "cmatmul_" + name)
             fn.argtypes = [p, p, i, p, p, i, p, p, i, i, i, i, p, i, p]

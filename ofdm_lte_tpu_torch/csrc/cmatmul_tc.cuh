@@ -21,42 +21,22 @@
 
 namespace {
 
-// Choices of the design that the compiler's command line can set, so that
-// tools/tune_cmatmul_tc.py can time them against each other; the defaults
-// are what the package builds. cmatmul_tc_gauss.cu lists its own beside
-// these.
-#ifndef TC_SPLIT_CVT
-#define TC_SPLIT_CVT 0    // 1: split with cvt.rna.tf32.f32 instead of integer arithmetic
-#endif
-#ifndef TC_SPLIT_TRUNC
-#define TC_SPLIT_TRUNC 0  // 1: the head is x itself, which the tensor core cuts to TF32 (one instruction less)
-#endif
-#ifndef TC_STAGES
-#define TC_STAGES 2       // shared-memory stages of the cp.async ring: 2, 3 or 4
-#endif
-#ifndef TC_NO_COPIES
-#define TC_NO_COPIES 0    // 1: copy the first slabs only (wrong results; times the multiply alone)
-#endif
-
-constexpr int STAGES = TC_STAGES;
+constexpr int STAGES = 2;    // shared-memory stages of the cp.async ring
 
 // A block of WARPS_M x WARPS_N warps computes a BM x BN tile of C; each warp
 // a (16·MF) x (8·NF) tile of MF x NF mma fragments. A warp tile of two row
-// fragments needs about 250 registers a thread, so 8 warps fit an SM; one
-// row fragment fits in 128, and 16 warps do.
-template <int WARPS_M_, int WARPS_N_, int NF_, int MF_ = 2>
+// fragments needs about 250 registers a thread, so 8 warps fit an SM: two
+// blocks of four.
 struct Tile {
-  static constexpr int WARPS_M = WARPS_M_;
-  static constexpr int WARPS_N = WARPS_N_;
-  static constexpr int MF = MF_;                     // m16 fragments a warp
-  static constexpr int NF = NF_;                     // n8 fragments a warp
-  static constexpr int WARPS_PER_SM = MF == 1 ? 16 : 8;
+  static constexpr int WARPS_M = 2;
+  static constexpr int WARPS_N = 2;
+  static constexpr int MF = 2;                       // m16 fragments a warp
+  static constexpr int NF = 4;                       // n8 fragments a warp
   static constexpr int BM = 16 * MF * WARPS_M;       // rows of C per block
   static constexpr int BN = 8 * NF * WARPS_N;        // columns of C per block
   static constexpr int BK = 32;                      // depth of one staged slab
   static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
-  static constexpr int BLOCKS_PER_SM =
-      WARPS_PER_SM / (WARPS_M * WARPS_N) > 0 ? WARPS_PER_SM / (WARPS_M * WARPS_N) : 1;
+  static constexpr int BLOCKS_PER_SM = 8 / (WARPS_M * WARPS_N);
   static constexpr int AP = BK + 4;                  // A pitch: banks 4g+t
   static constexpr int BP = BN + 8;                  // B pitch: banks 8t+g
   static constexpr int A_PLANE = BM * AP;
@@ -94,17 +74,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // (cvt.rna.tf32.f32 gives the same hi, but conversions run at a quarter
 // of the integer rate, and two a value made them the kernel's limit.)
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-#if TC_SPLIT_CVT
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  const float rest = x - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
-#elif TC_SPLIT_TRUNC
-  hi = __float_as_uint(x);
-  lo = __float_as_uint(x - __uint_as_float(hi & 0xffffe000u));
-#else
   hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
   lo = __float_as_uint(x - __uint_as_float(hi));
-#endif
 }
 
 // d += a (16x8, row) · b (8x8, col). With g = lane >> 2, t = lane & 3:

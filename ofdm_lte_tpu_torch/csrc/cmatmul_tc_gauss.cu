@@ -13,9 +13,7 @@
 // MMA wrappers, split-K). It was built beside an mma.sync kernel of the 4-dot
 // form ("the 4-dot kernel" below), which cmatmul_wgmma_tf32x3.cu (wgmma and
 // TMA) has since replaced; the `high` (TF32) Gauss kernel is in
-// cmatmul_wgmma_tf32.cu, the `default` (bf16) one in cmatmul_bf16.cu; the
-// fp32 CUDA-core Gauss kernel of cmatmul.cu (`cmatmul_f32<true>`) stays as
-// `variant="ffma"` and as the yardstick.
+// cmatmul_wgmma_tf32.cu, the `default` (bf16) one in cmatmul_bf16.cu.
 //
 // What bounds it here: operations, on the tensor cores: three real products
 // of three TF32 MMAs each (hi·lo, lo·hi, hi·hi), so 3 x 6·M·K·N over the
@@ -27,17 +25,17 @@
 // Ar+Ai) where 4-dot splits two, so a warp k step runs 72 MMAs beside
 // some 280 other instructions (4-dot: 96 beside 180), and with 8 warps an
 // SM the two kinds overlap little; the copies into shared memory cost
-// another 18-20% of its time. chip_smoke.py and tools/tune_cmatmul_tc.py
-// measure these; PERF.md records them.
+// another 18-20% of its time. chip_smoke.py measures these; PERF.md
+// records them.
 //
 // What the design does:
-//   - no fifth plane. The CUDA-core kernel stages Br+Bi from a plane the
-//     caller precomputes, which made it shared-memory bound. Here the block
-//     stages the four planes [Ar | Ai | Br | Bi] exactly as the 4-dot kernel
-//     does (same 64x64 tile, same 73,728 bytes for 2 stages, 2 blocks an
-//     SM), and each thread forms Ar+Ai and Br+Bi from the fragments it has
-//     loaded: one rounded fp32 add a value, the same bits as the caller's
-//     b.re + b.im. The kernel takes no `bsum` argument;
+//   - no fifth plane. Staging Br+Bi from a plane the caller precomputes
+//     made an fp32 CUDA-core Gauss kernel shared-memory bound. Here the
+//     block stages the four planes [Ar | Ai | Br | Bi] exactly as the 4-dot
+//     kernel does (same 64x64 tile, same 73,728 bytes for 2 stages, 2
+//     blocks an SM), and each thread forms Ar+Ai and Br+Bi from the
+//     fragments it has loaded: one rounded fp32 add a value, the same bits
+//     as b.re + b.im;
 //   - registers are the scarce resource: 247-254 a thread, 0 bytes of spill.
 //     The warp tile is 32x32 complex as in the 4-dot kernel. Three running
 //     sums (t1, t2, t3: 96 a thread) beside three chain sums (96) and the
@@ -50,12 +48,13 @@
 //     cores' own adder truncates, which over all of K costs a digit, and
 //     the fold cancels, so the chains stay one slab long. The fold is
 //     linear, so a K split stores two partial planes like the 4-dot kernel.
-//     TCG_COLS, TCG_CHAIN, TCG_ACC3 and the tile switches select the layouts
-//     that were timed against this one and lost: chains of one or two k
-//     steps (more adds), chains for one or two of the warp's four columns at
-//     a time (fewer chain registers, but with chains longer than a k step
-//     the A fragments are loaded and split again), three running sums folded
-//     once at the end (spills), a 16-row warp tile with 16 warps an SM;
+//     Layouts timed against this one on an H100 that lost: chains of one or
+//     two k steps (more adds), chains for one or two of the warp's four
+//     columns at a time (fewer chain registers, but with chains longer than
+//     a k step the A fragments are loaded and split again), three running
+//     sums folded once at the end (spills), a 16-row warp tile with 16 warps
+//     an SM; and, in the TF32 split, cvt.rna.tf32.f32 or a head left for the
+//     tensor core to cut, 3 or 4 stages of the ring (PERF.md);
 //   - everything else is the 4-dot kernel's: pitches 36 and 72 (no bank
 //     conflicts), a 2-stage cp.async ring, copies 4 or 16 bytes wide by each
 //     operand's alignment with zero fill on every edge (K included), A read
@@ -66,38 +65,9 @@
 
 namespace {
 
-// This kernel's own compile-time choices (see cmatmul_tc.cuh for the shared
-// ones); the defaults are what the package builds.
-#ifndef TCG_WARPS_M
-#define TCG_WARPS_M 2     // warps along M
-#endif
-#ifndef TCG_WARPS_N
-#define TCG_WARPS_N 2     // warps along N
-#endif
-#ifndef TCG_MF
-#define TCG_MF 2          // m16 fragments a warp: 2 (8 warps an SM) or 1 (16 warps an SM)
-#endif
-#ifndef TCG_NF
-#define TCG_NF 4          // n8 fragments a warp: 4 (32x32 warp tile) or 2 (32x16)
-#endif
-#ifndef TCG_COLS
-#define TCG_COLS 4        // n8 columns whose chains run together: 4 (the warp's whole width), 2 or 1
-#endif
-#ifndef TCG_CHAIN
-#define TCG_CHAIN 4       // k steps summed inside the tensor cores: 4 (one slab), 2 or 1
-#endif
-#ifndef TCG_ACC3
-#define TCG_ACC3 0        // 0: running sums Cr, Ci, folded after every chain; 1: t1, t2, t3, folded at the end
-#endif
-
-using T = Tile<TCG_WARPS_M, TCG_WARPS_N, TCG_NF, TCG_MF>;
+using T = Tile;
 constexpr int MF = T::MF, NF = T::NF;
 constexpr int BM = T::BM, BN = T::BN, BK = T::BK, AP = T::AP, BP = T::BP;
-constexpr int COLS = TCG_COLS;
-constexpr int CHAIN = TCG_CHAIN;
-constexpr int NACC = TCG_ACC3 ? 3 : 2;
-static_assert(NF % COLS == 0, "TCG_COLS divides TCG_NF");
-static_assert(CHAIN == 1 || CHAIN == 2 || CHAIN == 4, "TCG_CHAIN is 1, 2 or 4");
 
 template <bool AVEC, bool BVEC>
 __global__ void __launch_bounds__(T::THREADS, T::BLOCKS_PER_SM)
@@ -124,10 +94,10 @@ cmatmul_tc_gauss_kernel(const float* __restrict__ ar, const float* __restrict__ 
   const int slab_lo = blockIdx.z * slabs_per_split;
   const int n_slabs = max(min(n_slabs_all - slab_lo, slabs_per_split), 0);
 
-  // running sums: Cr, Ci (or t1, t2, t3 with TCG_ACC3=1)
-  float acc[NACC][MF][NF][4];
+  // running sums: Cr, Ci
+  float acc[2][MF][NF][4];
 #pragma unroll
-  for (int p = 0; p < NACC; ++p)
+  for (int p = 0; p < 2; ++p)
 #pragma unroll
     for (int i = 0; i < MF; ++i)
 #pragma unroll
@@ -146,7 +116,7 @@ cmatmul_tc_gauss_kernel(const float* __restrict__ ar, const float* __restrict__ 
   for (int s = 0; s < n_slabs; ++s) {
     cp_async_wait<STAGES - 2>();      // slab s has landed (this thread's part)
     __syncthreads();                  // ... everyone's; and slab s-1 is consumed
-    if (!TC_NO_COPIES && s + STAGES - 1 < n_slabs)
+    if (s + STAGES - 1 < n_slabs)
       issue_slab<T, AVEC, BVEC>(smem + ((s + STAGES - 1) % STAGES) * T::STAGE_FLOATS,
                                 ar, ai, lda, br, bi, ldb, row0, col0,
                                 (slab_lo + s + STAGES - 1) * BK, M, N, K, tid);
@@ -158,85 +128,68 @@ cmatmul_tc_gauss_kernel(const float* __restrict__ ar, const float* __restrict__ 
     const float* s_br = stage + 2 * T::A_PLANE;
     const float* s_bi = stage + 2 * T::A_PLANE + T::B_PLANE;
 
+    // One chain: the products of the slab's BK / 8 k steps for the warp's NF
+    // columns, summed inside the tensor cores from zero, the small terms of
+    // each k step first; then added to the running sums in rounded fp32.
+    float chain[3][MF][NF][4];                      // [t1, t2, t3]
 #pragma unroll
-    for (int kc = 0; kc < BK / 8; kc += CHAIN) {
+    for (int q = 0; q < BK / 8; ++q) {
+      const int kk = q * 8;
       // the warp's A fragments of one k step, split: planes Ar, Ai, Ar+Ai
       uint32_t a_hi[3][MF][4], a_lo[3][MF][4];      // [plane][fragment][register]
-      auto load_a = [&](int kk) {
 #pragma unroll
-        for (int i = 0; i < MF; ++i) {
-          const int base = (wm + 16 * i + g) * AP + kk + t;
+      for (int i = 0; i < MF; ++i) {
+        const int base = (wm + 16 * i + g) * AP + kk + t;
 #pragma unroll
-          for (int v = 0; v < 4; ++v) {
-            const int off = base + (v & 1) * 8 * AP + (v >> 1) * 4;
-            const float xr = s_ar[off], xi = s_ai[off];
-            split_tf32(xr, a_hi[0][i][v], a_lo[0][i][v]);
-            split_tf32(xi, a_hi[1][i][v], a_lo[1][i][v]);
-            split_tf32(__fadd_rn(xr, xi), a_hi[2][i][v], a_lo[2][i][v]);
-          }
+        for (int v = 0; v < 4; ++v) {
+          const int off = base + (v & 1) * 8 * AP + (v >> 1) * 4;
+          const float xr = s_ar[off], xi = s_ai[off];
+          split_tf32(xr, a_hi[0][i][v], a_lo[0][i][v]);
+          split_tf32(xi, a_hi[1][i][v], a_lo[1][i][v]);
+          split_tf32(__fadd_rn(xr, xi), a_hi[2][i][v], a_lo[2][i][v]);
         }
-      };
-      if constexpr (CHAIN == 1) load_a(kc * 8);     // else per chain, inside
-
+      }
 #pragma unroll
-      for (int j0 = 0; j0 < NF; j0 += COLS) {
-        // One chain: the products of CHAIN k steps for COLS columns, summed
-        // inside the tensor cores from zero, the small terms of each k step
-        // first; then added to the running sums in rounded fp32.
-        float chain[3][MF][COLS][4];                // [t1, t2, t3]
+      for (int j = 0; j < NF; ++j) {
+        uint32_t b_hi[3][2], b_lo[3][2];            // [Br, Bi, Br+Bi][register]
+        const int base = (kk + t) * BP + wn + 8 * j + g;
 #pragma unroll
-        for (int q = 0; q < CHAIN; ++q) {
-          const int kk = (kc + q) * 8;
-          if constexpr (CHAIN > 1) load_a(kk);
-#pragma unroll
-          for (int jj = 0; jj < COLS; ++jj) {
-            uint32_t b_hi[3][2], b_lo[3][2];        // [Br, Bi, Br+Bi][register]
-            const int base = (kk + t) * BP + wn + 8 * (j0 + jj) + g;
-#pragma unroll
-            for (int v = 0; v < 2; ++v) {
-              const float xr = s_br[base + 4 * BP * v], xi = s_bi[base + 4 * BP * v];
-              split_tf32(xr, b_hi[0][v], b_lo[0][v]);
-              split_tf32(xi, b_hi[1][v], b_lo[1][v]);
-              split_tf32(__fadd_rn(xr, xi), b_hi[2][v], b_lo[2][v]);
-            }
-#pragma unroll
-            for (int p = 0; p < 3; ++p)
-#pragma unroll
-              for (int i = 0; i < MF; ++i) {
-                if (q == 0)
-                  mma_tf32_from_zero(chain[p][i][jj], a_hi[p][i], b_lo[p]);
-                else
-                  mma_tf32(chain[p][i][jj], a_hi[p][i], b_lo[p]);
-              }
-#pragma unroll
-            for (int p = 0; p < 3; ++p)
-#pragma unroll
-              for (int i = 0; i < MF; ++i) mma_tf32(chain[p][i][jj], a_lo[p][i], b_hi[p]);
-#pragma unroll
-            for (int p = 0; p < 3; ++p)
-#pragma unroll
-              for (int i = 0; i < MF; ++i) mma_tf32(chain[p][i][jj], a_hi[p][i], b_hi[p]);
-          }
+        for (int v = 0; v < 2; ++v) {
+          const float xr = s_br[base + 4 * BP * v], xi = s_bi[base + 4 * BP * v];
+          split_tf32(xr, b_hi[0][v], b_lo[0][v]);
+          split_tf32(xi, b_hi[1][v], b_lo[1][v]);
+          split_tf32(__fadd_rn(xr, xi), b_hi[2][v], b_lo[2][v]);
         }
 #pragma unroll
-        for (int i = 0; i < MF; ++i)
+        for (int p = 0; p < 3; ++p)
 #pragma unroll
-          for (int jj = 0; jj < COLS; ++jj)
+          for (int i = 0; i < MF; ++i) {
+            if (q == 0)
+              mma_tf32_from_zero(chain[p][i][j], a_hi[p][i], b_lo[p]);
+            else
+              mma_tf32(chain[p][i][j], a_hi[p][i], b_lo[p]);
+          }
 #pragma unroll
-            for (int v = 0; v < 4; ++v) {
-              const float t1 = chain[0][i][jj][v], t2 = chain[1][i][jj][v];
-              const float t3 = chain[2][i][jj][v];
-              if constexpr (TCG_ACC3) {
-                acc[0][i][j0 + jj][v] += t1;
-                acc[1][i][j0 + jj][v] += t2;
-                acc[2][i][j0 + jj][v] += t3;
-              } else {
-                acc[0][i][j0 + jj][v] += t1 - t2;
-                acc[1][i][j0 + jj][v] += t3 - t1 - t2;
-              }
-            }
+        for (int p = 0; p < 3; ++p)
+#pragma unroll
+          for (int i = 0; i < MF; ++i) mma_tf32(chain[p][i][j], a_lo[p][i], b_hi[p]);
+#pragma unroll
+        for (int p = 0; p < 3; ++p)
+#pragma unroll
+          for (int i = 0; i < MF; ++i) mma_tf32(chain[p][i][j], a_hi[p][i], b_hi[p]);
       }
     }
+#pragma unroll
+    for (int i = 0; i < MF; ++i)
+#pragma unroll
+      for (int j = 0; j < NF; ++j)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const float t1 = chain[0][i][j][v], t2 = chain[1][i][j][v];
+          const float t3 = chain[2][i][j][v];
+          acc[0][i][j][v] += t1 - t2;
+          acc[1][i][j][v] += t3 - t1 - t2;
+        }
   }
 
   float* out_r = cr + (int64_t)blockIdx.z * split_stride;
@@ -251,14 +204,8 @@ cmatmul_tc_gauss_kernel(const float* __restrict__ ar, const float* __restrict__ 
         const int n = col0 + wn + 8 * j + 2 * t + (v & 1);
         if (r < M && n < N) {
           const int64_t off = (int64_t)r * ldc + n;
-          if constexpr (TCG_ACC3) {
-            const float t1 = acc[0][i][j][v], t2 = acc[1][i][j][v];
-            out_r[off] = t1 - t2;
-            out_i[off] = acc[2][i][j][v] - t1 - t2;
-          } else {
-            out_r[off] = acc[0][i][j][v];
-            out_i[off] = acc[1][i][j][v];
-          }
+          out_r[off] = acc[0][i][j][v];
+          out_i[off] = acc[1][i][j][v];
         }
       }
 }

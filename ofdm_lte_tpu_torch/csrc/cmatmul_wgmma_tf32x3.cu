@@ -18,7 +18,7 @@
 // so the kernel differs from its plain version (cmatmul_plain_tf32x3) only in
 // the order of the sums. The Gauss form at `highest` is cmatmul_tc_gauss.cu
 // (mma.sync), `high` (TF32) cmatmul_wgmma_tf32.cu, `default` (bf16)
-// cmatmul_bf16.cu; the fp32 CUDA-core kernel of cmatmul.cu is the yardstick.
+// cmatmul_bf16.cu.
 //
 // What bounds it here: operations, on the tensor cores at the TF32 rate (495
 // TFLOP/s dense): 3 x 8·M·K·N. A 32-deep slab of the 128x64 complex tile is

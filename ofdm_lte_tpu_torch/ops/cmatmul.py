@@ -13,20 +13,17 @@ the precision that OFDM_LTE_TPU_TORCH_MATMUL_PRECISION names
 - on a CUDA tensor it launches a hand-written kernel, built on first use
   (see _build.py), or raises. It never falls back to a plain version, to a
   library GEMM or to another precision's kernel. Which kernel serves a call
-  is the rule in `_kernel_for`. `variant="tc"`, the default, goes to the
-  tensor cores: at `highest` three TF32 products per real product, as
-  accurate as fp32 (`tf32x3`: wgmma with TMA, csrc/cmatmul_wgmma_tf32x3.cu;
-  `tf32x3_gauss`: mma.sync, csrc/cmatmul_tc_gauss.cu); at `high` one TF32
-  product of the operands rounded to TF32 (wgmma with TMA; `tf32`,
-  `tf32_gauss`: csrc/cmatmul_wgmma_tf32.cu); at `default` bf16 operands with
-  fp32 sums (wgmma with TMA; `bf16`, `bf16_gauss`: csrc/cmatmul_bf16.cu).
+  is the rule in `_kernel_for`, by form and precision alone: at `highest`
+  three TF32 tensor-core products per real product, as accurate as fp32
+  (`tf32x3`: wgmma with TMA, csrc/cmatmul_wgmma_tf32x3.cu; `tf32x3_gauss`:
+  mma.sync, csrc/cmatmul_tc_gauss.cu); at `high` one TF32 product of the
+  operands rounded to TF32 (wgmma with TMA; `tf32`, `tf32_gauss`:
+  csrc/cmatmul_wgmma_tf32.cu); at `default` bf16 operands with fp32 sums
+  (wgmma with TMA; `bf16`, `bf16_gauss`: csrc/cmatmul_bf16.cu).
   The wgmma kernels share their main loop (csrc/wgmma_cmatmul.cuh) and
   prepare B (and, at `default`, A) per call in a workspace that this
-  wrapper allocates (see `wgmma_prep_b`, `wgmma_prep_a`).
-  `variant="ffma"` goes to the fp32 CUDA-core kernel
-  csrc/cmatmul.cu (`cmatmul_f32`, either form), at `highest` only: the
-  CUDA cores have no TF32 or bf16 product. Each call that launches adds one
-  to `cmatmul.launches` and to its kernel's entry in
+  wrapper allocates (see `wgmma_prep_b`, `wgmma_prep_a`). Each call that
+  launches adds one to `cmatmul.launches` and to its kernel's entry in
   `cmatmul.launches_by_kernel` (a split-K call counts once), and each
   operand plane whose leading axes do not fold into one row stride, which
   `reshape` then copies, adds one to `cmatmul.copies` (see `fold_rows`).
@@ -43,7 +40,7 @@ exact one within `rounding_bound`.
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -51,39 +48,17 @@ from .. import cplx
 from ..cplx import C
 from ..precision import matmul_precision_name
 
-VARIANTS = ("tc", "ffma")
-_default_variant = "tc"
-
-
-@contextlib.contextmanager
-def default_variant(variant: str):
-    """Within the block, calls of `cmatmul` that name no variant use this one
-    (how a whole link is driven through the CUDA-core kernel)."""
-    global _default_variant
-    if variant not in VARIANTS:
-        raise ValueError(f"cmatmul: variant {variant!r}; pick from {VARIANTS}")
-    saved, _default_variant = _default_variant, variant
-    try:
-        yield
-    finally:
-        _default_variant = saved
-
-
-# every kernel: (variant, precision, gauss) of the calls it serves
-KERNELS = {"tf32x3": ("tc", "highest", False), "tf32x3_gauss": ("tc", "highest", True),
-           "tf32": ("tc", "high", False), "tf32_gauss": ("tc", "high", True),
-           "bf16": ("tc", "default", False), "bf16_gauss": ("tc", "default", True),
-           "f32_fma4": ("ffma", "highest", False), "f32_gauss": ("ffma", "highest", True)}
+# every kernel: (precision, gauss) of the calls it serves, one for each mode
+# of the JAX package's Pallas kernel
+KERNELS = {"tf32x3": ("highest", False), "tf32x3_gauss": ("highest", True),
+           "tf32": ("high", False), "tf32_gauss": ("high", True),
+           "bf16": ("default", False), "bf16_gauss": ("default", True)}
 _KERNEL_OF = {call: kernel for kernel, call in KERNELS.items()}
 
 
-def _kernel_for(gauss: bool, variant: str, precision: str = "highest") -> str:
+def _kernel_for(gauss: bool, precision: str = "highest") -> str:
     """The one rule that says which kernel serves a CUDA call."""
-    if (variant, precision, gauss) not in _KERNEL_OF:
-        raise ValueError(f"cmatmul: variant {variant!r} has no kernel at precision "
-                         f"{precision!r}: the CUDA cores (ffma) multiply in fp32 alone; "
-                         f"`high` and `default` run on the tensor cores (tc)")
-    return _KERNEL_OF[variant, precision, bool(gauss)]
+    return _KERNEL_OF[precision, bool(gauss)]
 
 
 @contextlib.contextmanager
@@ -208,9 +183,7 @@ def cmatmul_plain_gauss_bf16(a: C, b: C) -> C:
 # the plain version that repeats each kernel's arithmetic
 PLAIN = {"tf32x3": cmatmul_plain_tf32x3, "tf32x3_gauss": cmatmul_plain_gauss_tf32x3,
          "tf32": cmatmul_plain_tf32, "tf32_gauss": cmatmul_plain_gauss_tf32,
-         "bf16": cmatmul_plain_bf16, "bf16_gauss": cmatmul_plain_gauss_bf16,
-         "f32_fma4": lambda a, b: cmatmul_plain(a, b),
-         "f32_gauss": lambda a, b: cmatmul_plain(a, b, gauss=True)}
+         "bf16": cmatmul_plain_bf16, "bf16_gauss": cmatmul_plain_gauss_bf16}
 
 # The wgmma kernels of `highest` (4-dot: csrc/cmatmul_wgmma_tf32x3.cu), `high`
 # (csrc/cmatmul_wgmma_tf32.cu) and `default` (csrc/cmatmul_bf16.cu) read
@@ -426,22 +399,13 @@ def _ld(x2: torch.Tensor) -> int:
     return x2.stride(0) if x2.shape[0] > 1 else x2.shape[1]
 
 
-def cmatmul(a: C, b: C, gauss: bool = False, bsum: torch.Tensor = None,
-            variant: Optional[str] = None) -> C:
+def cmatmul(a: C, b: C, gauss: bool = False) -> C:
     """Complex matmul a (..., M0, K) @ b (K, N) -> (..., M0, N).
 
-    gauss=True selects the 3-dot Gauss form. `variant` picks the CUDA
-    kernel: "tc" (tensor cores; the default) or "ffma" (CUDA cores, at
-    `highest` only: ValueError under `high` or `default`, on any device).
-    The precision is OFDM_LTE_TPU_TORCH_MATMUL_PRECISION's, read at each
-    call. `bsum` is b.re + b.im, precomputed by a caller whose B is a
-    constant: only the CUDA-core Gauss kernel reads it (formed here if
-    None); the tensor-core ones add the planes in registers. A CPU tensor
-    ignores both, and the precision: it multiplies in true fp32."""
-    variant = _default_variant if variant is None else variant
-    if variant not in VARIANTS:
-        raise ValueError(f"cmatmul: variant {variant!r}; pick from {VARIANTS}")
-    kernel = _kernel_for(gauss, variant, matmul_precision_name())
+    gauss=True selects the 3-dot Gauss form. The precision is
+    OFDM_LTE_TPU_TORCH_MATMUL_PRECISION's, read at each call. A CPU tensor
+    ignores the precision: it multiplies in true fp32."""
+    kernel = _kernel_for(gauss, matmul_precision_name())
     dev = a.re.device
     if dev.type == "cpu":
         return cmatmul_plain(a, b, gauss)
@@ -461,13 +425,6 @@ def cmatmul(a: C, b: C, gauss: bool = False, bsum: torch.Tensor = None,
     br, bi = _plane_2d(b.re, N, "b.re"), _plane_2d(b.im, N, "b.im")
     if _ld(ar) != _ld(ai) or _ld(br) != _ld(bi):
         raise ValueError("cmatmul: the re and im planes need the same strides")
-    if kernel == "f32_gauss":
-        bsum = (b.re + b.im) if bsum is None else bsum
-        if bsum.shape != b.re.shape or bsum.device != dev:
-            raise ValueError(f"cmatmul: bsum {tuple(bsum.shape)} on {bsum.device}")
-        bsum = _plane_2d(bsum, N, "bsum")
-        if _ld(bsum) != _ld(br):
-            raise ValueError("cmatmul: bsum needs the strides of b")
     M = ar.shape[0]
     lda, ldb = _ld(ar), _ld(br)
     if max(M, N, K, lda, ldb) >= 2 ** 31:
@@ -482,30 +439,23 @@ def cmatmul(a: C, b: C, gauss: bool = False, bsum: torch.Tensor = None,
     lib = library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if variant == "tc":
-            # a tile grid smaller than the card is split along K into partial
-            # sums, which the kernel's second pass adds in a fixed order; the
-            # scratch of a kernel of WORKSPACE_KERNELS (the wgmma kernels) is a
-            # workspace that also holds B prepared and A prepared (`default`)
-            # or, where TMA cannot read it in place, copied
-            run = getattr(lib, "cmatmul_" + kernel)
-            sms = torch.cuda.get_device_properties(dev).multi_processor_count
-            splits = getattr(lib, f"cmatmul_{kernel}_splits")(M, N, K, sms)
-            if kernel in WORKSPACE_KERNELS:
-                floats = getattr(lib, f"cmatmul_{kernel}_workspace")(
-                    ar.data_ptr(), ai.data_ptr(), lda, M, N, K, splits)
-            else:
-                floats = 2 * splits * M * N if splits > 1 else 0
-            scratch = torch.empty(floats, dtype=torch.float32, device=dev) if floats else None
-            rc = run(ar.data_ptr(), ai.data_ptr(), lda, br.data_ptr(), bi.data_ptr(), ldb,
-                     cr.data_ptr(), ci.data_ptr(), N, M, N, K,
-                     scratch.data_ptr() if floats else None, splits, stream)
+        # a tile grid smaller than the card is split along K into partial
+        # sums, which the kernel's second pass adds in a fixed order; the
+        # scratch of a kernel of WORKSPACE_KERNELS (the wgmma kernels) is a
+        # workspace that also holds B prepared and A prepared (`default`) or,
+        # where TMA cannot read it in place, copied
+        run = getattr(lib, "cmatmul_" + kernel)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        splits = getattr(lib, f"cmatmul_{kernel}_splits")(M, N, K, sms)
+        if kernel in WORKSPACE_KERNELS:
+            floats = getattr(lib, f"cmatmul_{kernel}_workspace")(
+                ar.data_ptr(), ai.data_ptr(), lda, M, N, K, splits)
         else:
-            rc = lib.cmatmul_f32(ar.data_ptr(), ai.data_ptr(), lda,
-                                 br.data_ptr(), bi.data_ptr(),
-                                 bsum.data_ptr() if gauss else None, ldb,
-                                 cr.data_ptr(), ci.data_ptr(), N,
-                                 M, N, K, int(gauss), stream)
+            floats = 2 * splits * M * N if splits > 1 else 0
+        scratch = torch.empty(floats, dtype=torch.float32, device=dev) if floats else None
+        rc = run(ar.data_ptr(), ai.data_ptr(), lda, br.data_ptr(), bi.data_ptr(), ldb,
+                 cr.data_ptr(), ci.data_ptr(), N, M, N, K,
+                 scratch.data_ptr() if floats else None, splits, stream)
     if rc != 0:
         raise RuntimeError(f"cmatmul kernel {kernel} launch failed: CUDA error {rc} "
                            f"(M={M}, N={N}, K={K})")

@@ -39,18 +39,16 @@ from .cmatmul import cmatmul
 _CMATMUL_FORMS = ("fma4", "gauss")
 
 
-def _cmm(a: C, b: C, bsum: Optional[torch.Tensor] = None) -> C:
+def _cmm(a: C, b: C) -> C:
     """Complex matmul for the modem, a (..., K) @ b (K, N).
 
     The form follows OFDM_LTE_TPU_TORCH_CMATMUL ∈ {fma4, gauss}, default
     `fma4`: the 4-multiply, float-faithful form. `gauss` is the 3-multiply
-    form (−25% FLOPs, one extra rounding in the imaginary part); `bsum` is
-    the constant b.re + b.im, which only the CUDA-core Gauss kernel reads
-    (the tensor-core one adds the planes in registers)."""
+    form (−25% FLOPs, one extra rounding in the imaginary part)."""
     form = os.environ.get("OFDM_LTE_TPU_TORCH_CMATMUL", "fma4").lower()
     if form not in _CMATMUL_FORMS:
         raise ValueError(f"OFDM_LTE_TPU_TORCH_CMATMUL={form!r}; pick from {_CMATMUL_FORMS}")
-    return cmatmul(a, b, gauss=(form == "gauss"), bsum=bsum)
+    return cmatmul(a, b, gauss=(form == "gauss"))
 
 
 @functools.lru_cache(maxsize=None)
@@ -123,16 +121,9 @@ def _full_idft_consts(N: int, cp: int):
 
 
 class ModTables(NamedTuple):
-    """Device tables of modulate_symbols: B, its Gauss sum, the pilot wave."""
+    """Device tables of modulate_symbols: B and the pilot wave."""
     b: C
-    bsum: torch.Tensor
     pilot_wave: C
-
-
-class DemodTables(NamedTuple):
-    """Device tables of demodulate_bins: G and its Gauss sum."""
-    g: C
-    gsum: torch.Tensor
 
 
 def _planes(re: np.ndarray, im: np.ndarray, device) -> C:
@@ -144,14 +135,12 @@ def _planes(re: np.ndarray, im: np.ndarray, device) -> C:
 
 def mod_tables(config: LTEConfig, cell_id: int = 0, device=None) -> ModTables:
     Bre, Bim, pw_re, pw_im = _mod_consts(config.N, config.Nc, config.cp_length, cell_id)
-    b = _planes(Bre, Bim, device)
-    return ModTables(b, b.re + b.im, _planes(pw_re, pw_im, device))
+    return ModTables(_planes(Bre, Bim, device), _planes(pw_re, pw_im, device))
 
 
-def demod_tables(config: LTEConfig, bins, device=None) -> DemodTables:
-    Gre, Gim = _demod_consts(config.N, config.cp_length, _int_tuple(bins))
-    g = _planes(Gre, Gim, device)
-    return DemodTables(g, g.re + g.im)
+def demod_tables(config: LTEConfig, bins, device=None) -> C:
+    """G of demodulate_bins on `device`."""
+    return _planes(*_demod_consts(config.N, config.cp_length, _int_tuple(bins)), device)
 
 
 def _int_tuple(bins) -> tuple:
@@ -162,8 +151,7 @@ def mod_tables_custom(config: LTEConfig, data_bins, pilot_bins, cell_id: int,
                       device=None) -> ModTables:
     Bre, Bim, pw_re, pw_im = _mod_consts_custom(
         config.N, config.cp_length, _int_tuple(data_bins), _int_tuple(pilot_bins), cell_id)
-    b = _planes(Bre, Bim, device)
-    return ModTables(b, b.re + b.im, _planes(pw_re, pw_im, device))
+    return ModTables(_planes(Bre, Bim, device), _planes(pw_re, pw_im, device))
 
 
 def mod_tables_multi(config: LTEConfig, data_bins, pilot_bins_per_tx, cell_ids,
@@ -172,13 +160,13 @@ def mod_tables_multi(config: LTEConfig, data_bins, pilot_bins_per_tx, cell_ids,
     b = mod_tables_custom(config, data_bins, (), 0, device)
     pw = [_pilot_wave_const(config.N, config.cp_length, _int_tuple(p), int(c))
           for p, c in zip(pilot_bins_per_tx, cell_ids)]
-    return ModTables(b.b, b.bsum, _planes(np.stack([w[0] for w in pw]),
-                                          np.stack([w[1] for w in pw]), device))
+    return ModTables(b.b, _planes(np.stack([w[0] for w in pw]),
+                                  np.stack([w[1] for w in pw]), device))
 
 
-def idft_tables(config: LTEConfig, device=None) -> DemodTables:
-    f = _planes(*_full_idft_consts(config.N, config.cp_length), device)
-    return DemodTables(f, f.re + f.im)
+def idft_tables(config: LTEConfig, device=None) -> C:
+    """F of modulate_grid on `device`."""
+    return _planes(*_full_idft_consts(config.N, config.cp_length), device)
 
 
 def modulate_symbols(data: C, config: LTEConfig, cell_id: int = 0,
@@ -189,7 +177,7 @@ def modulate_symbols(data: C, config: LTEConfig, cell_id: int = 0,
     """
     if tables is None:
         tables = mod_tables(config, cell_id, data.re.device)
-    out = _cmm(data, tables.b, tables.bsum)
+    out = _cmm(data, tables.b)
     return C(out.re + tables.pilot_wave.re, out.im + tables.pilot_wave.im)
 
 
@@ -200,7 +188,7 @@ def modulate_custom(data: C, config: LTEConfig, data_bins, pilot_bins, cell_id: 
     data: C (..., S, len(data_bins)) -> C (..., S, N+cp). One complex GEMM."""
     if tables is None:
         tables = mod_tables_custom(config, data_bins, pilot_bins, cell_id, data.re.device)
-    out = _cmm(data, tables.b, tables.bsum)
+    out = _cmm(data, tables.b)
     return C(out.re + tables.pilot_wave.re, out.im + tables.pilot_wave.im)
 
 
@@ -217,20 +205,20 @@ def modulate_custom_multi(data: C, config: LTEConfig, data_bins, pilot_bins_per_
     if tables is None:
         tables = mod_tables_multi(config, data_bins, pilot_bins_per_tx, cell_ids,
                                   data.re.device)
-    out = _cmm(data, tables.b, tables.bsum)
+    out = _cmm(data, tables.b)
     pw = tables.pilot_wave.reshape((data.shape[0],) + (1,) * (out.ndim - 2) + (-1,))
     return C(out.re + pw.re, out.im + pw.im)
 
 
-def modulate_grid(grid: C, config: LTEConfig, tables: Optional[DemodTables] = None) -> C:
+def modulate_grid(grid: C, config: LTEConfig, tables: Optional[C] = None) -> C:
     """IDFT·√N + CP of an explicit full N-bin grid (..., S, N) -> (..., S, N+cp)."""
     if tables is None:
         tables = idft_tables(config, grid.re.device)
-    return _cmm(grid, tables.g, tables.gsum)
+    return _cmm(grid, tables)
 
 
 def demodulate_bins(y: C, config: LTEConfig, bins,
-                    tables: Optional[DemodTables] = None) -> C:
+                    tables: Optional[C] = None) -> C:
     """CP strip + DFT/√N restricted to `bins`.
 
     y: C (..., S, N+cp) time-domain symbols -> C (..., S, len(bins)). The
@@ -239,10 +227,10 @@ def demodulate_bins(y: C, config: LTEConfig, bins,
     ysig = y[..., config.cp_length:]
     if tables is None:
         tables = demod_tables(config, bins, y.re.device)
-    return _cmm(ysig, tables.g, tables.gsum)
+    return _cmm(ysig, tables)
 
 
-def demodulate_full(y: C, config: LTEConfig, tables: Optional[DemodTables] = None) -> C:
+def demodulate_full(y: C, config: LTEConfig, tables: Optional[C] = None) -> C:
     """CP strip + full-N DFT/√N: (..., S, N+cp) -> (..., S, N)."""
     return demodulate_bins(y, config, np.arange(config.N), tables)
 

@@ -15,7 +15,7 @@ from typing import Optional
 import numpy as np
 
 from ..cplx import C
-from .ofdm import DemodTables, _cmm, _planes
+from .ofdm import _cmm, _planes
 
 
 @functools.lru_cache(maxsize=None)
@@ -26,21 +26,20 @@ def _dft_consts(M: int, inverse: bool):
     return W.real.astype(np.float32), W.imag.astype(np.float32)
 
 
-def dft_tables(M: int, inverse: bool, device=None) -> DemodTables:
-    """W (or its inverse) and its Gauss sum on `device`."""
-    w = _planes(*_dft_consts(M, inverse), device)
-    return DemodTables(w, w.re + w.im)
+def dft_tables(M: int, inverse: bool, device=None) -> C:
+    """W (or its inverse) on `device`."""
+    return _planes(*_dft_consts(M, inverse), device)
 
 
-def precode(symbols: C, M: int, tables: Optional[DemodTables] = None) -> C:
+def precode(symbols: C, M: int, tables: Optional[C] = None) -> C:
     """Unitary M-point DFT along the last axis: (..., M) -> (..., M)."""
     if tables is None:
         tables = dft_tables(M, False, symbols.re.device)
-    return _cmm(symbols, tables.g, tables.gsum)
+    return _cmm(symbols, tables)
 
 
-def decode(symbols: C, M: int, tables: Optional[DemodTables] = None) -> C:
+def decode(symbols: C, M: int, tables: Optional[C] = None) -> C:
     """Unitary M-point IDFT along the last axis (receiver side)."""
     if tables is None:
         tables = dft_tables(M, True, symbols.re.device)
-    return _cmm(symbols, tables.g, tables.gsum)
+    return _cmm(symbols, tables)

@@ -6,13 +6,12 @@ Selected by the environment variable
 
 and read at each call. The names are the JAX package's, and each is what it
 is on this card: `highest` is a product as accurate as fp32 with fp32
-accumulation (true fp32 products on the CUDA cores, or three TF32 products
-per fp32 product on the tensor cores); `high` is one TF32 product of the
-operands rounded to TF32; `default` is bf16 operands with fp32
-accumulation. The complex-GEMM kernels (ops/cmatmul.py) implement all
-three on the tensor cores, in both forms; the CUDA-core kernel `highest`
-alone. On the CPU the knob is inert, as in the JAX package: a CPU product
-is true fp32 at every level.
+accumulation (three TF32 products per fp32 product on the tensor cores);
+`high` is one TF32 product of the operands rounded to TF32; `default` is
+bf16 operands with fp32 accumulation. The complex-GEMM kernels
+(ops/cmatmul.py) implement all three on the tensor cores, in both forms.
+On the CPU the knob is inert, as in the JAX package: a CPU product is true
+fp32 at every level.
 
 The port's default is `highest` until the H100 benchmark's cells (ROADMAP
 A8) pick another; the JAX package's TPU precision study does not carry
@@ -22,12 +21,7 @@ from __future__ import annotations
 
 import os
 
-# policy name -> torch.set_float32_matmul_precision name
-_LEVELS = {
-    "highest": "highest",
-    "high": "high",
-    "default": "medium",
-}
+_LEVELS = ("highest", "high", "default")
 
 
 def matmul_precision_name() -> str:
@@ -37,8 +31,3 @@ def matmul_precision_name() -> str:
         raise ValueError(
             f"OFDM_LTE_TPU_TORCH_MATMUL_PRECISION={name!r}; pick from {list(_LEVELS)}")
     return name
-
-
-def matmul_precision() -> str:
-    """Current policy as a torch float32 matmul precision name."""
-    return _LEVELS[matmul_precision_name()]

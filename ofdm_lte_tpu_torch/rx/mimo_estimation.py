@@ -24,7 +24,7 @@ from .. import cplx
 from ..cplx import C
 from ..config import LTEConfig
 from ..grid import grid_for, pilot_sequence, pilot_step
-from ..ops.ofdm import DemodTables, _cmm, _planes
+from ..ops.ofdm import _cmm, _planes
 from . import estimation as est
 
 
@@ -58,7 +58,7 @@ class TxEstTables(NamedTuple):
     """Device tables of one TX antenna's estimate."""
     known: C            # that TX's CRS pilot sequence
     interp: Optional[tuple]                # (left, right, w), comb -> output bins
-    basis: Optional[DemodTables] = None    # the tap-basis A (P, n_out), row-major
+    basis: Optional[C] = None              # the tap-basis A (P, n_out), row-major
 
 
 def _uses_tap_basis(num_tx: int, layout: str) -> bool:
@@ -76,8 +76,7 @@ def per_tx_tables(config: LTEConfig, num_tx: int, out_bins: np.ndarray,
         if _uses_tap_basis(num_tx, layout):
             A = _tap_basis_projection(tuple(int(b) for b in idx),
                                       tuple(int(b) for b in out_bins), config.N)
-            a = _planes(A.real, A.imag, device)
-            tables.append(TxEstTables(known, None, DemodTables(a, a.re + a.im)))
+            tables.append(TxEstTables(known, None, _planes(A.real, A.imag, device)))
         else:
             tables.append(TxEstTables(
                 known, est.interp_tables(config, out_bins, device, pilot_idx=idx)))
@@ -101,7 +100,7 @@ def estimate_per_tx_planes(pilot_bins_rx: C, config: LTEConfig, num_tx: int,
         h_p = rx_p * tables[tx].known.conj()     # unit-modulus pilots: Y/X = Y·X*
         if tables[tx].basis is not None:
             # sparse comb: reconstruct through the delay-domain LS basis
-            per_tx.append(_cmm(h_p, tables[tx].basis.g, tables[tx].basis.gsum))
+            per_tx.append(_cmm(h_p, tables[tx].basis))
         else:
             per_tx.append(est.interpolate(h_p, config, table=tables[tx].interp))
     return per_tx

@@ -34,7 +34,7 @@ from ..config import LTEConfig
 from ..device import resolve_device
 from ..grid import grid_for
 from ..ops import ofdm, qam
-from ..ops.ofdm import DemodTables, ModTables
+from ..ops.ofdm import ModTables
 from ..rx import alamouti
 from ..rx import estimation as est
 from ..rx.mimo_estimation import TxEstTables, estimate_per_tx, per_tx_tables
@@ -159,8 +159,8 @@ def sfbc_bits_per_frame(config: LTEConfig, num_ofdm_symbols: int) -> int:
 class SfbcTables(NamedTuple):
     """Device tables of the SFBC link."""
     mod: ModTables            # B over the SFBC data bins, pilot wave (2, N+cp)
-    data: DemodTables         # DFT to the SFBC data bins
-    pilot: DemodTables        # DFT to all CRS pilot bins
+    data: C                   # DFT to the SFBC data bins
+    pilot: C                  # DFT to all CRS pilot bins
     per_tx: list              # [2] TxEstTables
 
 
@@ -247,12 +247,9 @@ class SfbcLink(nn.Module):
         self.profile = (make_profile(itu_profile, config.fs, velocity_kmh, frequency_ghz)
                         if channel_type == "rayleigh_mp" else None)
         t = sfbc_tables(config, device)
-        gemms = {"mod_b": (t.mod.b, t.mod.bsum), "demod_data": (t.data.g, t.data.gsum),
-                 "demod_pilot": (t.pilot.g, t.pilot.gsum)}
-        for name, (b, bsum) in gemms.items():
+        for name, b in (("mod_b", t.mod.b), ("demod_data", t.data), ("demod_pilot", t.pilot)):
             self.register_buffer(name + "_re", b.re)
             self.register_buffer(name + "_im", b.im)
-            self.register_buffer(name + "_sum", bsum)
         self.register_buffer("pilot_wave_re", t.mod.pilot_wave.re)
         self.register_buffer("pilot_wave_im", t.mod.pilot_wave.im)
         for tx, e in enumerate(t.per_tx):
@@ -261,15 +258,14 @@ class SfbcLink(nn.Module):
             for part, v in zip(("left", "right", "w"), e.interp):
                 self.register_buffer(f"interp{tx}_{part}", v)
 
-    def _gemm(self, name: str):
-        return (C(getattr(self, name + "_re"), getattr(self, name + "_im")),
-                getattr(self, name + "_sum"))
+    def _gemm(self, name: str) -> C:
+        return C(getattr(self, name + "_re"), getattr(self, name + "_im"))
 
     @property
     def tables(self) -> SfbcTables:
         return SfbcTables(
-            ModTables(*self._gemm("mod_b"), C(self.pilot_wave_re, self.pilot_wave_im)),
-            DemodTables(*self._gemm("demod_data")), DemodTables(*self._gemm("demod_pilot")),
+            ModTables(self._gemm("mod_b"), C(self.pilot_wave_re, self.pilot_wave_im)),
+            self._gemm("demod_data"), self._gemm("demod_pilot"),
             [TxEstTables(C(getattr(self, f"pilot_seq{tx}_re"),
                            getattr(self, f"pilot_seq{tx}_im")),
                          tuple(getattr(self, f"interp{tx}_{part}")

@@ -52,7 +52,7 @@ from ..config import LTEConfig
 from ..device import resolve_device
 from ..grid import grid_for, interp_table, pilot_sequence
 from ..ops import ofdm, qam, scfdm
-from ..ops.ofdm import DemodTables, ModTables
+from ..ops.ofdm import ModTables
 from ..rx import estimation as est
 from ..utils.profiling import span
 from .links import cached_link
@@ -73,11 +73,11 @@ class SisoResult(NamedTuple):
 
 class RxTables(NamedTuple):
     """Device tables of the receiver; a mode leaves what it does not use None."""
-    data: DemodTables                        # DFT to the data bins
-    pilot: Optional[DemodTables] = None      # DFT to the pilot bins
+    data: C                                  # DFT to the data bins
+    pilot: Optional[C] = None                # DFT to the pilot bins
     known: Optional[C] = None                # CRS pilot sequence
     interp: Optional[tuple] = None           # (left, right, w) at the data bins
-    scfdm: Optional[DemodTables] = None      # SC-FDM IDFT
+    scfdm: Optional[C] = None                # SC-FDM IDFT
 
 
 def check_branch(mode: str, channel_type: str) -> None:
@@ -108,7 +108,7 @@ def pad_bits(bits: np.ndarray, config: LTEConfig, mode: str = "lte") -> np.ndarr
 
 def transmit(bits: torch.Tensor, config: LTEConfig, mode: str = "lte",
              cell_id: int = 0, tables: Optional[ModTables] = None,
-             scfdm_tables: Optional[DemodTables] = None) -> C:
+             scfdm_tables: Optional[C] = None) -> C:
     """bits (..., S·n_data·bps) -> CP-prefixed sample stream (..., S·(N+cp)).
 
     'simple' maps the symbols onto the first Nc bins and carries no pilots:
@@ -282,11 +282,9 @@ def reference_tables(config: LTEConfig, cell_id: int = 0, mode: str = "lte"
     return tables
 
 
-# a GEMM's B operand is stored as three row-major planes: re, im and the
-# Gauss form's re + im; table prefix -> the name of its sum buffer
-_GEMM_SUMS = {"mod_b": "mod_bsum", "demod_data": "demod_data_sum",
-              "demod_pilot": "demod_pilot_sum", "scfdm_w": "scfdm_w_sum",
-              "scfdm_winv": "scfdm_winv_sum"}
+# the table prefixes of the GEMMs' B operands, each stored as two row-major
+# planes, re and im
+_GEMMS = ("mod_b", "demod_data", "demod_pilot", "scfdm_w", "scfdm_winv")
 
 
 class SisoLink(nn.Module):
@@ -318,11 +316,10 @@ class SisoLink(nn.Module):
     def _buffers_from(self, t: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         f32 = np.float32
         out = {}
-        for prefix, sum_name in _GEMM_SUMS.items():
+        for prefix in _GEMMS:
             if prefix + "_re" in t:
-                re, im = t[prefix + "_re"], t[prefix + "_im"]
-                out[prefix + "_re"], out[prefix + "_im"] = re.astype(f32), im.astype(f32)
-                out[sum_name] = (re + im).astype(f32)
+                out[prefix + "_re"] = t[prefix + "_re"].astype(f32)
+                out[prefix + "_im"] = t[prefix + "_im"].astype(f32)
         out["pilot_wave_re"] = t["pilot_wave_re"].astype(f32)
         out["pilot_wave_im"] = t["pilot_wave_im"].astype(f32)
         if "pilot_seq" in t:
@@ -352,16 +349,14 @@ class SisoLink(nn.Module):
                 buf = getattr(self, name)
                 buf.copy_(torch.as_tensor(arr, dtype=buf.dtype))
 
-    def _gemm(self, prefix: str) -> Optional[DemodTables]:
+    def _gemm(self, prefix: str) -> Optional[C]:
         if not hasattr(self, prefix + "_re"):
             return None
-        return DemodTables(C(getattr(self, prefix + "_re"), getattr(self, prefix + "_im")),
-                           getattr(self, _GEMM_SUMS[prefix]))
+        return C(getattr(self, prefix + "_re"), getattr(self, prefix + "_im"))
 
     @property
     def mod_tables(self) -> ModTables:
-        return ModTables(C(self.mod_b_re, self.mod_b_im), self.mod_bsum,
-                         C(self.pilot_wave_re, self.pilot_wave_im))
+        return ModTables(self._gemm("mod_b"), C(self.pilot_wave_re, self.pilot_wave_im))
 
     @property
     def rx_tables(self) -> RxTables:

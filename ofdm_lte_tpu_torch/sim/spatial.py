@@ -64,7 +64,7 @@ from ..mimo import codebook as cb
 from ..mimo import detector, layer_mapper
 from ..mimo.rank_adaptation import get_feedback
 from ..ops import ofdm, qam
-from ..ops.ofdm import DemodTables, ModTables
+from ..ops.ofdm import ModTables
 from ..rx.mimo_estimation import TxEstTables, estimate_per_tx_planes, per_tx_tables
 from ..utils.profiling import span
 from .links import cached_link
@@ -181,11 +181,10 @@ class SpatialLink(nn.Module):
         pil_idx = orthogonal_pilot_indices(config, num_tx, pilot_layout)
         mod = ofdm.mod_tables_multi(config, self.data_bins, pil_idx,
                                     tuple(tx % 4 for tx in range(num_tx)), device)
-        gemms = {"mod_b": (mod.b, mod.bsum)}
+        gemms = {"mod_b": mod.b}
         if self.channel_impl == "time":
             for name, bins in (("demod_data", self.data_bins), ("demod_pilot", g.pilot_idx)):
-                t = ofdm.demod_tables(config, bins, device)
-                gemms[name] = (t.g, t.gsum)
+                gemms[name] = ofdm.demod_tables(config, bins, device)
         else:
             self._register_c("pilot_vals", cplx.const(np.stack(_pilot_bin_union_values(
                 config.N, config.Nc, num_tx, pilot_layout)), device))   # (tx, n_pilot)
@@ -194,14 +193,13 @@ class SpatialLink(nn.Module):
                                              device)):
             self._register_c(f"pilot_seq{tx}", e.known)
             if e.basis is not None:
-                gemms[f"tap_basis{tx}"] = (e.basis.g, e.basis.gsum)
+                gemms[f"tap_basis{tx}"] = e.basis
             else:
                 for part, v in zip(("left", "right", "w"), e.interp):
                     self.register_buffer(f"interp{tx}_{part}", v)
             self._uses_basis.append(e.basis is not None)
-        for name, (b, bsum) in gemms.items():
+        for name, b in gemms.items():
             self._register_c(name, b)
-            self.register_buffer(name + "_sum", bsum)
         self._register_c("pilot_wave", mod.pilot_wave)
         self._register_c("precoder", cplx.const(
             cb.get_precoder(0, num_tx, "TM4", self.rank_used), device))
@@ -213,16 +211,13 @@ class SpatialLink(nn.Module):
     def _c(self, name: str) -> C:
         return C(getattr(self, name + "_re"), getattr(self, name + "_im"))
 
-    def _gemm(self, name: str) -> DemodTables:
-        return DemodTables(self._c(name), getattr(self, name + "_sum"))
-
     @property
     def mod_tables(self) -> ModTables:
-        return ModTables(*self._gemm("mod_b"), self._c("pilot_wave"))
+        return ModTables(self._c("mod_b"), self._c("pilot_wave"))
 
     @property
     def per_tx(self) -> List[TxEstTables]:
-        return [TxEstTables(self._c(f"pilot_seq{tx}"), None, self._gemm(f"tap_basis{tx}"))
+        return [TxEstTables(self._c(f"pilot_seq{tx}"), None, self._c(f"tap_basis{tx}"))
                 if basis else
                 TxEstTables(self._c(f"pilot_seq{tx}"),
                             tuple(getattr(self, f"interp{tx}_{part}")
@@ -325,8 +320,8 @@ class SpatialLink(nn.Module):
                 draws.get("phases"), draws.get("fading"))           # (rx, ..., T)
         with span("modem.rx_dft"):
             yf = ofdm.frame_stream(y, self.config)               # (rx, ..., S, sps)
-            y_data = ofdm.demodulate_bins(yf, self.config, None, self._gemm("demod_data"))
-            y_pil = ofdm.demodulate_bins(yf, self.config, None, self._gemm("demod_pilot"))
+            y_data = ofdm.demodulate_bins(yf, self.config, None, self._c("demod_data"))
+            y_pil = ofdm.demodulate_bins(yf, self.config, None, self._c("demod_pilot"))
         with span("channel.awgn"):
             # per-RX CN(0, P_rx/snr) at the demodulated bins: the DFT is unitary
             # and the detector sees only these bins

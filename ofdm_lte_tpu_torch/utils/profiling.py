@@ -30,8 +30,9 @@ tensor cores 495 TFLOP/s, bf16 989 TFLOP/s dense, fp32 67 TFLOP/s, HBM
 3.35 TB/s); chip_smoke.py's bounds read these. CEILINGS: the best the card
 was seen to reach, on an NVIDIA H100 80GB HBM3 at 700.00 W: `mma.sync`
 TF32 324–328 TFLOP/s and `mma.sync` m16n8k16 bf16 645.4 TFLOP/s (the
-probes of ofdm_lte_tpu_torch/tools/tune_cmatmul_tc.py), HBM 3.0488 TB/s read and
-written by one 2 GiB device-to-device copy (the highest of chip_smoke.py
+probes of a tuning tool since removed: `git show
+b2cc899:ofdm_lte_tpu_torch/tools/tune_cmatmul_tc.py`), HBM 3.0488 TB/s read
+and written by one 2 GiB device-to-device copy (the highest of chip_smoke.py
 phase 8's readings, 3.0273–3.0488); fp32 is not measured and stays the
 data sheet's. A fraction against CEILINGS is the primary one; against
 DATASHEET a lower bound of it.
@@ -55,9 +56,10 @@ from ..config import LTEConfig
 from ..grid import grid_for
 
 DATASHEET = {"tf32": 495e12, "bf16": 989e12, "fp32": 67e12, "hbm": 3.35e12}
-# the best seen on an NVIDIA H100 80GB HBM3 at 700.00 W: tf32 and bf16 by
-# tools/tune_cmatmul_tc.py's mma.sync probes, hbm by chip_smoke.py phase 8 (a
-# 2 GiB copy_, read and write counted: the highest reading); fp32 not measured
+# the best seen on an NVIDIA H100 80GB HBM3 at 700.00 W: tf32 and bf16 by the
+# mma.sync probes of `git show b2cc899:ofdm_lte_tpu_torch/tools/tune_cmatmul_tc.py`,
+# hbm by chip_smoke.py phase 8 (a 2 GiB copy_, read and write counted: the
+# highest reading); fp32 not measured
 CEILINGS = {"tf32": 328e12, "bf16": 645.4e12, "fp32": 67e12, "hbm": 3.0488e12}
 CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 # a complex GEMM's unit at each precision

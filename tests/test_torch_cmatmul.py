@@ -116,30 +116,11 @@ def test_plain_tf32x3_keeps_fp32_accuracy(M, K, N, rng):
     assert np.abs(split.im.numpy() - np.asarray(ref.im)).max() <= 1e-5 * scale
 
 
-def test_cpu_tensor_ignores_variant_and_rejects_unknown(rng):
-    (_, _), (ta, tb) = _operands(rng, 6, 10, 4)
-    ref = cm.cmatmul_plain(ta, tb)
-    for variant in cm.VARIANTS:
-        out = cm.cmatmul(ta, tb, variant=variant)
-        assert torch.equal(out.re, ref.re) and torch.equal(out.im, ref.im)
-    with cm.default_variant("ffma"):
-        out = cm.cmatmul(ta, tb)
-        assert torch.equal(out.re, ref.re)
-    with pytest.raises(ValueError):
-        cm.cmatmul(ta, tb, variant="wgmma")
-    with pytest.raises(ValueError):
-        with cm.default_variant("wgmma"):
-            pass
-
-
 def test_kernel_rule():
-    assert cm._kernel_for(False, "tc") == "tf32x3"
-    assert cm._kernel_for(False, "ffma") == "f32_fma4"
-    assert cm._kernel_for(True, "tc") == "tf32x3_gauss"
-    assert cm._kernel_for(True, "ffma") == "f32_gauss"
-    assert set(cm.cmatmul.launches_by_kernel) == {"tf32x3", "tf32x3_gauss", "f32_fma4",
-                                                  "f32_gauss", "tf32", "tf32_gauss", "bf16",
-                                                  "bf16_gauss"}
+    assert cm._kernel_for(False) == "tf32x3"
+    assert cm._kernel_for(True) == "tf32x3_gauss"
+    assert set(cm.cmatmul.launches_by_kernel) == {"tf32x3", "tf32x3_gauss", "tf32",
+                                                  "tf32_gauss", "bf16", "bf16_gauss"}
 
 
 def test_cpu_dispatch_flattens_batch_and_launches_nothing(rng):
@@ -188,9 +169,8 @@ def test_precision_policy(monkeypatch):
     from ofdm_lte_tpu_torch import precision
     monkeypatch.delenv("OFDM_LTE_TPU_TORCH_MATMUL_PRECISION", raising=False)
     assert precision.matmul_precision_name() == "highest"
-    assert precision.matmul_precision() == "highest"
     monkeypatch.setenv("OFDM_LTE_TPU_TORCH_MATMUL_PRECISION", "default")
-    assert precision.matmul_precision() == "medium"
+    assert precision.matmul_precision_name() == "default"
     monkeypatch.setenv("OFDM_LTE_TPU_TORCH_MATMUL_PRECISION", "bf17")
     with pytest.raises(ValueError):
         precision.matmul_precision_name()

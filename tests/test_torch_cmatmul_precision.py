@@ -176,35 +176,16 @@ def test_cpu_product_is_fp32_at_every_precision(gauss, monkeypatch, rng):
 
 
 def test_kernel_rule_by_precision():
-    table = {(gauss, variant, precision): cm._kernel_for(gauss, variant, precision)
-             for gauss in (False, True) for variant in ("tc",)
-             for precision in ("highest", "high", "default")}
-    assert table == {(False, "tc", "highest"): "tf32x3", (True, "tc", "highest"): "tf32x3_gauss",
-                     (False, "tc", "high"): "tf32", (True, "tc", "high"): "tf32_gauss",
-                     (False, "tc", "default"): "bf16", (True, "tc", "default"): "bf16_gauss"}
-    assert cm._kernel_for(False, "ffma", "highest") == "f32_fma4"
-    assert cm._kernel_for(True, "ffma", "highest") == "f32_gauss"
+    """One kernel for each of the JAX package's six modes, by (form, precision)."""
+    table = {(gauss, precision): cm._kernel_for(gauss, precision)
+             for gauss in (False, True) for precision in ("highest", "high", "default")}
+    assert table == {(False, "highest"): "tf32x3", (True, "highest"): "tf32x3_gauss",
+                     (False, "high"): "tf32", (True, "high"): "tf32_gauss",
+                     (False, "default"): "bf16", (True, "default"): "bf16_gauss"}
     assert set(cm.KERNELS) == set(cm.cmatmul.launches_by_kernel) == set(cm.PLAIN)
-    for kernel, (variant, precision, gauss) in cm.KERNELS.items():
-        assert cm._kernel_for(gauss, variant, precision) == kernel
-    for precision in ("high", "default"):
-        for gauss in (False, True):
-            with pytest.raises(ValueError, match="ffma"):
-                cm._kernel_for(gauss, "ffma", precision)
-
-
-@pytest.mark.parametrize("precision", ["high", "default"])
-def test_ffma_raises_under_high_and_default(precision, monkeypatch, rng):
-    ar, ai, br, bi = _planes(rng, 4, 6, 5)
-    monkeypatch.setenv("OFDM_LTE_TPU_TORCH_MATMUL_PRECISION", precision)
-    for gauss in (False, True):
-        with pytest.raises(ValueError, match="ffma"):
-            cm.cmatmul(C(ar, ai), C(br, bi), gauss=gauss, variant="ffma")
-        with cm.default_variant("ffma"), pytest.raises(ValueError, match="ffma"):
-            cm.cmatmul(C(ar, ai), C(br, bi), gauss=gauss)
-    out = cm.cmatmul(C(ar, ai), C(br, bi))                 # tc: the CPU's fp32 product
-    ref = cm.cmatmul_plain(C(ar, ai), C(br, bi))
-    assert torch.equal(out.re, ref.re)
+    assert len(cm.KERNELS) == 6
+    for kernel, (precision, gauss) in cm.KERNELS.items():
+        assert cm._kernel_for(gauss, precision) == kernel
 
 
 @pytest.mark.parametrize("precision,gauss", list(KERNELS), ids=IDS)
@@ -225,7 +206,7 @@ def test_small_flagship_frame_decides_as_highest(precision, gauss, monkeypatch):
     monkeypatch.setenv("OFDM_LTE_TPU_TORCH_MATMUL_PRECISION", precision)
     knob = siso.simulate_siso(torch.from_numpy(bits), 60.0, cfg, noise=noise, device="cpu")
     plain = cm.PLAIN[KERNELS[precision, gauss]]
-    monkeypatch.setattr(tofdm, "cmatmul", lambda a, b, gauss=False, bsum=None: plain(a, b))
+    monkeypatch.setattr(tofdm, "cmatmul", lambda a, b, gauss=False: plain(a, b))
     rounded = siso.simulate_siso(torch.from_numpy(bits), 60.0, cfg, noise=noise, device="cpu")
     assert torch.equal(knob.bits_rx, highest.bits_rx)
     assert torch.equal(rounded.bits_rx, highest.bits_rx)

@@ -25,10 +25,9 @@ def cuda_device():
 
 
 SHAPES = [(28, 999, 300), (5, 7, 3), (300, 512, 260), (130, 999, 70), (64, 7, 64)]
-# (gauss, variant) -> the kernel that must serve the call, and max|Δ|/max|C|
-KERNELS = {(False, "tc"): ("tf32x3", 1e-5), (False, "ffma"): ("f32_fma4", 1e-5),
-           (True, "tc"): ("tf32x3_gauss", 1e-4), (True, "ffma"): ("f32_gauss", 1e-4)}
-KERNEL_IDS = ["tc", "ffma", "gauss", "gauss_ffma"]
+# gauss -> the kernel of `highest` that must serve the call, and max|Δ|/max|C|
+KERNELS = {False: ("tf32x3", 1e-5), True: ("tf32x3_gauss", 1e-4)}
+KERNEL_IDS = ["tc", "gauss"]
 # the plain version that repeats a tensor-core kernel's own arithmetic
 PLAIN_TF32X3 = {"tf32x3": cm.cmatmul_plain_tf32x3, "tf32x3_gauss": cm.cmatmul_plain_gauss_tf32x3}
 
@@ -47,14 +46,14 @@ def _rel_diff(out, ref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("gauss,variant", list(KERNELS), ids=KERNEL_IDS)
+@pytest.mark.parametrize("gauss", list(KERNELS), ids=KERNEL_IDS)
 @pytest.mark.parametrize("M,K,N", SHAPES)
-def test_kernel_matches_plain(M, K, N, gauss, variant, cuda_device):
+def test_kernel_matches_plain(M, K, N, gauss, cuda_device):
     a, b = _operands(M, K, N, cuda_device)
-    kernel, tol = KERNELS[gauss, variant]
+    kernel, tol = KERNELS[gauss]
     before = cm.cmatmul.launches
     before_kernel = cm.cmatmul.launches_by_kernel[kernel]
-    out = cm.cmatmul(a, b, gauss=gauss, variant=variant)
+    out = cm.cmatmul(a, b, gauss=gauss)
     assert cm.cmatmul.launches == before + 1
     assert cm.cmatmul.launches_by_kernel[kernel] == before_kernel + 1
     ref = cm.cmatmul_plain(a, b, gauss)
@@ -66,13 +65,12 @@ def test_kernel_matches_plain(M, K, N, gauss, variant, cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("gauss", [False, True], ids=["fma4", "gauss"])
-@pytest.mark.parametrize("variant", cm.VARIANTS)
-def test_kernel_reads_strided_view(variant, gauss, cuda_device):
+def test_kernel_reads_strided_view(gauss, cuda_device):
     y = C(torch.randn(64, 2192, device=cuda_device), torch.randn(64, 2192, device=cuda_device))
     b = C(torch.randn(2048, 200, device=cuda_device), torch.randn(2048, 200, device=cuda_device))
     view = y[::14, 144:]
     before = cm.cmatmul.copies
-    out = cm.cmatmul(view, b, gauss=gauss, variant=variant)
+    out = cm.cmatmul(view, b, gauss=gauss)
     assert cm.cmatmul.copies == before
     ref = cm.cmatmul_plain(C(view.re.contiguous(), view.im.contiguous()), b, gauss)
     torch.cuda.synchronize()
@@ -86,7 +84,7 @@ def test_split_k_pilot_gemm_is_bit_identical_from_run_to_run(gauss, cuda_device)
     """(256, 2048) @ (2048, 200) is 4x4 tiles: each tensor-core kernel splits
     K across the card and adds the partial sums in a fixed order."""
     from ofdm_lte_tpu_torch._build import library
-    kernel, tol = KERNELS[gauss, "tc"]
+    kernel, tol = KERNELS[gauss]
     splits = getattr(library(), f"cmatmul_{kernel}_splits")
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     assert splits(256, 200, 2048, sms) > 1
@@ -99,21 +97,6 @@ def test_split_k_pilot_gemm_is_bit_identical_from_run_to_run(gauss, cuda_device)
     for out in runs[1:]:
         assert torch.equal(out.re, runs[0].re) and torch.equal(out.im, runs[0].im)
     assert _rel_diff(runs[0], cm.cmatmul_plain(a, b, gauss)) <= tol
-
-
-@pytest.mark.cuda
-def test_default_variant_context_reaches_ffma(cuda_device):
-    a, b = _operands(40, 50, 60, cuda_device)
-    before = dict(cm.cmatmul.launches_by_kernel)
-    with cm.default_variant("ffma"):
-        cm.cmatmul(a, b)
-        cm.cmatmul(a, b, gauss=True)
-    cm.cmatmul(a, b)
-    cm.cmatmul(a, b, gauss=True)
-    after = cm.cmatmul.launches_by_kernel
-    # the four kernels of `highest`, once each; those of `high` and `default` not at all
-    served = {"tf32x3", "tf32x3_gauss", "f32_fma4", "f32_gauss"}
-    assert all(after[kernel] == before[kernel] + (kernel in served) for kernel in after)
 
 
 # the wgmma kernels, at `highest` (3xTF32, 4-dot), `high` (TF32) and `default`
@@ -366,18 +349,6 @@ def test_high_raises_when_the_library_fails_to_build(cuda_device, monkeypatch, t
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("precision", ["high", "default"])
-def test_ffma_has_no_high_or_default(precision, cuda_device, monkeypatch):
-    monkeypatch.setenv("OFDM_LTE_TPU_TORCH_MATMUL_PRECISION", precision)
-    a, b = _operands(8, 16, 8, cuda_device)
-    before = cm.cmatmul.launches
-    for gauss in (False, True):
-        with pytest.raises(ValueError, match="ffma"):
-            cm.cmatmul(a, b, gauss=gauss, variant="ffma")
-    assert cm.cmatmul.launches == before
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("form,kernel", [("fma4", "tf32x3"), ("gauss", "tf32x3_gauss")])
 def test_link_on_card_matches_cpu_with_same_noise(form, kernel, cuda_device, monkeypatch):
     """The CUDA path (three launches of the form's tensor-core kernel) against
@@ -412,12 +383,12 @@ NEW_SHAPES = [(56, 998, 2192), (56, 2048, 998), (42, 999, 999), (28, 1200, 2192)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("gauss,variant", list(KERNELS), ids=KERNEL_IDS)
+@pytest.mark.parametrize("gauss", list(KERNELS), ids=KERNEL_IDS)
 @pytest.mark.parametrize("M,K,N", NEW_SHAPES)
-def test_kernel_matches_plain_at_new_call_sites(M, K, N, gauss, variant, cuda_device):
+def test_kernel_matches_plain_at_new_call_sites(M, K, N, gauss, cuda_device):
     a, b = _operands(M, K, N, cuda_device)
-    kernel, tol = KERNELS[gauss, variant]
-    out = cm.cmatmul(a, b, gauss=gauss, variant=variant)
+    kernel, tol = KERNELS[gauss]
+    out = cm.cmatmul(a, b, gauss=gauss)
     ref = cm.cmatmul_plain(a, b, gauss)
     torch.cuda.synchronize()
     assert _rel_diff(out, ref) <= tol
@@ -492,12 +463,12 @@ SPATIAL_SHAPES = [(56, 500, 2192), (56, 250, 2192), (56, 2048, 500), (56, 2048, 
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("gauss,variant", list(KERNELS), ids=KERNEL_IDS)
+@pytest.mark.parametrize("gauss", list(KERNELS), ids=KERNEL_IDS)
 @pytest.mark.parametrize("M,K,N", SPATIAL_SHAPES)
-def test_kernel_matches_plain_at_spatial_call_sites(M, K, N, gauss, variant, cuda_device):
+def test_kernel_matches_plain_at_spatial_call_sites(M, K, N, gauss, cuda_device):
     a, b = _operands(M, K, N, cuda_device)
-    kernel, tol = KERNELS[gauss, variant]
-    out = cm.cmatmul(a, b, gauss=gauss, variant=variant)
+    kernel, tol = KERNELS[gauss]
+    out = cm.cmatmul(a, b, gauss=gauss)
     ref = cm.cmatmul_plain(a, b, gauss)
     torch.cuda.synchronize()
     assert _rel_diff(out, ref) <= tol

@@ -1,9 +1,10 @@
-"""Four repairs of the port, each held by a test: the functional entry
-points keep the link of their arguments (one construction for two calls, the
-same results as a fresh link); the Jakes sinusoid table is made once and
-held, bit-identical to building it every step; the plain versions of the
-complex GEMM leave `allow_tf32` as they found it; and the time-varying flat
-MIMO channel's product goes through the modem's one GEMM entry."""
+"""Repairs of the port, each held by a test: the functional entry points
+keep the link of their arguments (one construction for two calls, the same
+results as a fresh link); the Jakes sinusoid table is made once and held,
+bit-identical to building it every step; the plain versions of the complex
+GEMM leave `allow_tf32` as they found it; the time-varying flat MIMO
+channel's product goes through the modem's one GEMM entry; and a link keeps
+each GEMM's constant operand as its re and im planes alone."""
 import numpy as np
 import pytest
 import torch
@@ -180,3 +181,30 @@ def test_flat_mimo_time_varying_goes_through_the_modem_gemm(monkeypatch, rng):
     want = tcplx.matmul(E, tcplx.expi(torch.from_numpy(phi))) * float(np.sqrt(1.0 / 16))
     want = want.reshape(28, 5, 2, 3).transpose(1, 0, 2, 3)
     assert torch.equal(h.re, want.re) and torch.equal(h.im, want.im)
+
+
+# links whose constant GEMM operands are tables: both SISO modes with a DFT
+# precoder or not, SFBC, and the spatial link's time path with the 8-TX
+# extended layout's tap basis
+TABLE_LINKS = {
+    "siso_lte": lambda: siso.SisoLink(CFG, device="cpu"),
+    "siso_scfdm": lambda: siso.SisoLink(CFG, device="cpu", mode="sc-fdm"),
+    "sfbc": lambda: diversity.SfbcLink(CFG, 2, device="cpu"),
+    "spatial_8tx_time": lambda: spatial.SpatialLink(
+        CFG, 8, 4, 2, "MMSE", device="cpu", pilot_layout="extended", channel_impl="time"),
+}
+
+
+@pytest.mark.parametrize("name", list(TABLE_LINKS))
+def test_gemm_operands_are_re_and_im_planes_alone(name):
+    """Each GEMM's B operand lives as two row-major planes, re and im, and
+    nothing beside them: every kernel forms Br + Bi in registers, so no link
+    keeps a Gauss-sum plane."""
+    bufs = dict(TABLE_LINKS[name]().named_buffers())
+    assert not [n for n in bufs if "sum" in n]
+    planes = [n[:-3] for n in bufs if n.endswith("_re")]
+    assert "mod_b" in planes
+    for n in planes:
+        re, im = bufs[n + "_re"], bufs[n + "_im"]
+        assert re.shape == im.shape and re.is_contiguous() and im.is_contiguous(), n
+    assert len(bufs) == 2 * len(planes) + sum(not n.endswith(("_re", "_im")) for n in bufs)

@@ -141,8 +141,6 @@ def test_chip_smoke_bounds_are_unchanged():
     assert chip_smoke.BCJR_OPS_PER_STEP == {"app": 107, "extrinsic": 109}
     expected = {("tf32x3", 3584, 999, 2192): (0.3805, "operations"),
                 ("tf32x3_gauss", 3584, 999, 2192): (0.2854, "operations"),
-                ("f32_fma4", 3584, 999, 2192): (0.9371, "operations"),
-                ("f32_gauss", 3584, 999, 2192): (0.7028, "operations"),
                 ("tf32x3", 1024, 999, 2192): (0.1087, "operations"),
                 ("tf32x3", 16384, 16, 30688): (1.2025, "bytes"),
                 # `high`: one TF32 product; `default`: one bf16 product

@@ -50,7 +50,7 @@ def test_scfdm_tables_argument_gives_the_same(rng):
     tab = tscfdm.dft_tables(72, False, "cpu")
     out, own = tscfdm.precode(t, 72, tab), tscfdm.precode(t, 72)
     assert torch.equal(out.re, own.re) and torch.equal(out.im, own.im)
-    assert tab.g.re.is_contiguous() and torch.equal(tab.gsum, tab.g.re + tab.g.im)
+    assert tab.re.is_contiguous() and tab.im.is_contiguous()
 
 
 @pytest.mark.parametrize("bw", [1.25, 5.0])

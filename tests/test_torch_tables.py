@@ -131,7 +131,9 @@ def test_load_reference_tables_round_trip(bw):
         buf.zero_()
     loaded.load_reference_tables(_jax_tables(cfg))
     a, b = own.state_dict(), loaded.state_dict()
-    assert set(a) == set(b) and len(a) == 16
+    # the three GEMMs' re and im planes, the pilot wave, the pilot sequence
+    # and the three interpolation tables
+    assert set(a) == set(b) and len(a) == 13
     for k in a:
         assert a[k].dtype == b[k].dtype
         assert a[k].is_contiguous() and b[k].is_contiguous(), k
