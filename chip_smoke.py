@@ -94,7 +94,11 @@ gather, the BCJR pass, the extrinsic) is one launch of `turbo_bcjr`
    multipath channel stage, and the fused multipath pass
    (csrc/multipath_fir.cu) at the SISO and the 4×4 link's shapes against
    its plain version (FIR_TOL), beside its bound, the plain version's time
-   and the unfused path's (the Jakes product and the addcmul_ taps);
+   and the unfused path's (the Jakes product and the addcmul_ taps); the
+   SIC detector's one pass (csrc/sic_detect.cu) at the 4×4 rank-4 link's
+   shape, its decisions equal to its plain version's bit for bit, beside
+   its bound (the bytes read), the plain version's time, its registers and
+   occupancy, and one launch a step of the 4×4 SIC path;
 7. drive the command-line interface (ofdm_lte_tpu_torch/cli.py) in-process
    with no --device, so on the card, at 20 MHz 64-QAM, each command timed
    on the host's clock with its kernel launches counted: `info` (the CPU's
@@ -250,7 +254,7 @@ PATHS = {
         snr=25.0, ber60=0.0, launches=3),
     "spatial_4x4_r4_sic_rayleigh_mp": dict(kind="spatial", kw=dict(
         num_tx=4, num_rx=4, rank_used=4, detector_type="SIC", channel_type="rayleigh_mp",
-        itu_profile="Pedestrian_A"), snr=20.0, ber60=8e-2, launches=3, fir=1),
+        itu_profile="Pedestrian_A"), snr=20.0, ber60=8e-2, launches=3, fir=1, sic=1),
     "spatial_8x4_r2_mmse_ext_rayleigh_mp": dict(kind="spatial", kw=dict(
         num_tx=8, num_rx=4, rank_used=2, detector_type="MMSE", channel_type="rayleigh_mp",
         itu_profile="Pedestrian_A", pilot_layout="extended"),
@@ -707,6 +711,12 @@ def fir_registers(log: str) -> str:
                             lambda m: f"D {m[1]} V {m[2]} RXC {m[3]}")
 
 
+def sic_registers(log: str) -> str:
+    """sic_detect's instantiations: L layers, Q levels an axis."""
+    return kernel_registers(log, r"sic_detect_kernelILi(\d+)ELi(\d+)E",
+                            lambda m: f"L {m[1]} Q {m[2]}")
+
+
 def bcjr_registers(log: str) -> str:
     """turbo_bcjr's instantiations: max-log or log-MAP, mode 0 APP, 1
     extrinsic, 2 hard."""
@@ -987,6 +997,57 @@ def cli_on_card(card: str, zero_counts) -> tuple:
 FIR_SHAPES = {"siso": (1, 1, None), "4x4": (4, 4, 3.0)}
 # kernel against plain, max|d| / max|y| (tests/test_torch_cuda.py)
 FIR_TOL = 4e-6
+
+
+def sic_timings(card: str, dev, gen, m: int, modulation: str, log: str) -> dict:
+    """csrc/sic_detect.cu at sic4x4_peda's shape (4 RX, 4 TX, rank 4, LANES
+    lanes x SYMBOLS symbols x m layer bins, one σ² a lane): its decisions
+    against its plain version's (equal bit for bit), its time beside its
+    bound (y and h_tx read once at 3.35 TB/s: the detector_roofline's
+    yardstick; and with the decisions written), the plain version's time,
+    and the rank-4 64-QAM instantiation's registers and the occupancy they
+    allow (128 threads a block)."""
+    import re
+    from ofdm_lte_tpu_torch import cplx
+    from ofdm_lte_tpu_torch.cplx import C
+    from ofdm_lte_tpu_torch.mimo import codebook
+    from ofdm_lte_tpu_torch.ops.sic_detect import sic_detect, sic_detect_plain
+    n_rx = n_tx = L = 4
+    gen.manual_seed(23)
+
+    def plane():
+        return C(*(torch.randn((n_rx, LANES, SYMBOLS, m), generator=gen, device=dev)
+                   for _ in range(2)))
+
+    y, h_tx = plane(), [plane() for _ in range(n_tx)]
+    W = cplx.const(codebook.get_precoder(0, n_tx, "TM4", L), dev)
+    s2 = torch.rand((LANES,), generator=gen, device=dev) * 0.3 + 1e-3
+    out = {}
+    t_k = cuda_ms(lambda: out.__setitem__("kernel", sic_detect(y, h_tx, W, s2, modulation)),
+                  PATH_STEPS)
+    t_p = cuda_ms(lambda: out.__setitem__("plain", sic_detect_plain(y, h_tx, W, s2, modulation)),
+                  3)
+    got, want = out["kernel"], out["plain"]
+    differ = int(((got.re != want.re) | (got.im != want.im)).sum())
+    if differ:
+        raise AssertionError(f"sic_detect: {differ} of {got.re.numel()} decisions differ from "
+                             f"its plain version's")
+    sites = LANES * SYMBOLS * m
+    read, written = 8 * sites * n_rx * (1 + n_tx), 8 * sites * L
+    bound = 1e3 * read / HBM_BYTES_PER_S
+    bound_rw = 1e3 * (read + written) / HBM_BYTES_PER_S
+    regs = sic_registers(log)
+    used = re.search(r"L 4 Q 8: [^;]*?Used (\d+) registers", regs)
+    blocks = min(16, 65536 // (128 * (-(-int(used[1]) // 8) * 8))) if used else None
+    occupancy = f"{4 * blocks} of 64 warps an SM" if blocks else "not read"
+    print(f"[{card}] sic_detect ({n_rx} rx x {n_tx} tx x rank {L}, {LANES} x {SYMBOLS} x {m} "
+          f"sites, {modulation}): kernel {t_k:.4f} ms, bound {bound:.4f} ms by bytes read "
+          f"({read / 1e6:.2f} MB; share reached {bound / t_k:.3f}), {bound_rw:.4f} ms with the "
+          f"decisions written ({bound_rw / t_k:.3f}), plain {t_p:.4f} ms, decisions equal on "
+          f"all {sites} sites; registers and spill (ptxas): {regs}; occupancy {occupancy}")
+    return {"shape": f"{n_rx}x{n_tx}_r{L}", "lanes": LANES, "symbols": SYMBOLS, "m": m,
+            "ms": t_k, "bound_ms": bound, "bound_by": "bytes", "bound_rw_ms": bound_rw,
+            "plain_ms": t_p, "occupancy": occupancy, "registers": regs}
 
 
 def fir_timings(card: str, dev, cfg, T: int, gen) -> list:
@@ -1285,6 +1346,7 @@ def main() -> None:
     from ofdm_lte_tpu_torch.cplx import C
     from ofdm_lte_tpu_torch.ops import bcjr, ofdm, qam
     from ofdm_lte_tpu_torch.ops.multipath_fir import multipath_fir, multipath_fir_plain
+    from ofdm_lte_tpu_torch.ops.sic_detect import sic_detect
     from ofdm_lte_tpu_torch.ops.cmatmul import (PLAIN, _kernel_for, _ld, cmatmul, cmatmul_plain,
                                                 cmatmul_plain_gauss_tf32x3,
                                                 cmatmul_plain_tf32x3,
@@ -1321,7 +1383,7 @@ def main() -> None:
         for k in cmatmul.launches_by_kernel:
             cmatmul.launches_by_kernel[k] = 0
         bcjr.bcjr_app.launches = bcjr.bcjr_half.launches = crc.crc_torch.launches = 0
-        multipath_fir.launches = 0
+        multipath_fir.launches = sic_detect.launches = 0
 
     def path_link(name: str):
         spec = PATHS[name]
@@ -1692,7 +1754,8 @@ def main() -> None:
           f"at 30 dB: ber {res['ber']:.6g} papr_db {res['papr_db']:.3f} launches "
           f"{cmatmul.launches} copies {cmatmul.copies} multipath_fir {multipath_fir.launches}")
     if not (0 <= res["ber"] < 0.1) or cmatmul.launches != 3 or cmatmul.copies \
-            or multipath_fir.launches != 1 or res["mode"] != "Spatial Multiplexing TM4":
+            or multipath_fir.launches != 1 or sic_detect.launches != 1 \
+            or res["mode"] != "Spatial Multiplexing TM4":
         raise AssertionError(f"facade simulate_spatial_multiplexing: {res['ber']}, launches "
                              f"{cmatmul.launches}")
     for model, per_call in (("static", 0), ("jakes", 1)):
@@ -1829,7 +1892,7 @@ def main() -> None:
     print(f"paths: {LANES} lanes x {SYMBOLS} symbols each")
     paprs = {}
     bcjr_launches_by_path = {}
-    fir_launches_by_path = {}
+    fir_launches_by_path, sic_launches_by_path = {}, {}
     for name, spec in PATHS.items():
         plink = path_link(name)
         is_coded = spec["kind"] == "coded"
@@ -1894,6 +1957,11 @@ def main() -> None:
         if multipath_fir.launches != 2 * spec.get("fir", 0):
             raise AssertionError(f"{name}: {multipath_fir.launches} launches of multipath_fir, "
                                  f"expected {2 * spec.get('fir', 0)}")
+        if spec.get("sic"):
+            sic_launches_by_path[name] = sic_detect.launches
+        if sic_detect.launches != 2 * spec.get("sic", 0):
+            raise AssertionError(f"{name}: {sic_detect.launches} launches of sic_detect, "
+                                 f"expected {2 * spec.get('sic', 0)}")
         if cmatmul.copies != 2 * spec.get("copies", 0):
             raise AssertionError(f"{name}: the wrapper copied {cmatmul.copies} operand planes, "
                                  f"expected {2 * spec.get('copies', 0)}")
@@ -2046,7 +2114,7 @@ def main() -> None:
         profile_steps(step)
     del pool
 
-    fir_rows = []
+    fir_rows, sic_rows = [], []
     for name, spec in PATHS.items():
         plink = path_link(name)
         ppool = [random_bits(LANES, 2000 + i, path_bits(name)) for i in range(PATH_STEPS)]
@@ -2095,8 +2163,7 @@ def main() -> None:
             fir_rows.extend(fir_timings(card, dev, cfg, T, gen))
             torch.cuda.empty_cache()
         if name in ("spatial_4x2_r2_mmse", "spatial_4x4_r4_sic_rayleigh_mp"):
-            # the detector chain alone, elementwise PyTorch on planes: what a
-            # fused pass would have to beat
+            # the MMSE chain alone, elementwise PyTorch on planes
             n_rx, L = spec["kw"]["num_rx"], spec["kw"]["rank_used"]
             gen.manual_seed(9)
 
@@ -2106,9 +2173,7 @@ def main() -> None:
 
             y_pl = [plane() for _ in range(n_rx)]
             h_pl = [[plane() for _ in range(L)] for _ in range(n_rx)]
-            chains = {f"mmse{L}_planes": lambda: detector.mmse_planes(y_pl, h_pl, 1e-2),
-                      "sic_planes": lambda: detector.sic_planes(y_pl, h_pl, 1e-2,
-                                                                cfg.modulation)}
+            chains = {f"mmse{L}_planes": lambda: detector.mmse_planes(y_pl, h_pl, 1e-2)}
             moved = 1e3 * 4 * 2 * LANES * SYMBOLS * plink.m * (n_rx + n_rx * L + L) \
                 / HBM_BYTES_PER_S
             for chain, fn in chains.items():
@@ -2117,6 +2182,9 @@ def main() -> None:
                       f"{count_kernels(fn)} kernels of the step's {t:.4f} ms; one fused pass "
                       f"reads y and H and writes the layers once, at least {moved:.4f} ms")
             del y_pl, h_pl
+        if spec.get("sic"):
+            sic_rows.append(sic_timings(card, dev, gen, plink.m, cfg.modulation,
+                                        _build.build_log))
         del plink, ppool
         torch.cuda.empty_cache()
 
@@ -2673,6 +2741,21 @@ def main() -> None:
         "unfused_ms": sum(row["unfused_ms"] for row in fir_rows),
         "launches_by_path": fir_launches_by_path,
         "by_shape": fir_rows,
+    })
+    kernels.append({
+        "name": "sic_detect",
+        "route": "cuda",
+        "source": "ofdm_lte_tpu_torch/csrc/sic_detect.cu",
+        "replaces": None,     # fuses the effective channel with the SIC chain
+        "launches": sum(sic_launches_by_path.values()),
+        "decisions_equal": True,
+        "ms": sum(row["ms"] for row in sic_rows),
+        "plain_ms": sum(row["plain_ms"] for row in sic_rows),
+        "bound_ms": sum(row["bound_ms"] for row in sic_rows),
+        "bound_by": "bytes",
+        "library_ms": None,
+        "launches_by_path": sic_launches_by_path,
+        "by_shape": sic_rows,
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

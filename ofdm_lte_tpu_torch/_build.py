@@ -136,5 +136,8 @@ def library() -> ctypes.CDLL:
         ip, fp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)
         lib.multipath_fir.argtypes = [p] * 8 + [i] * 8 + [ip, ip, ip, fp, p]
         lib.multipath_fir.restype = i
+        pp, f = ctypes.POINTER(ctypes.c_void_p), ctypes.c_float
+        lib.sic_detect.argtypes = [p, p, pp, pp, p, p, p, f, i, p, p, i, i, i, i, i, f, f, p]
+        lib.sic_detect.restype = i
         _lib = lib
     return _lib

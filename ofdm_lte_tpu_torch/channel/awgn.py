@@ -33,15 +33,21 @@ def standard_normals(shape, generator: Optional[torch.Generator], device,
     return C(re, im)
 
 
+# the base of snr_linear's power as a CPU scalar tensor, which a card's pow
+# kernel reads on the host: a Python float base is first made a tensor on the
+# card, one launch more a call for the same values
+_TEN = torch.tensor(10.0)
+
+
 def snr_linear(snr_db, device):
     """10^(snr/10) in float32: a Python float for a scalar (no host-to-device
     copy on the hot path), else a tensor on `device`."""
     if isinstance(snr_db, torch.Tensor):
-        return 10.0 ** (snr_db.to(device=device, dtype=torch.float32) / 10.0)
+        return torch.pow(_TEN, snr_db.to(device=device, dtype=torch.float32) / 10.0)
     snr = np.asarray(snr_db, np.float32)
     if snr.ndim == 0:
         return float(np.float32(10.0) ** (snr / np.float32(10.0)))
-    return 10.0 ** (torch.as_tensor(snr, device=device) / 10.0)
+    return torch.pow(_TEN, torch.as_tensor(snr, device=device) / 10.0)
 
 
 def awgn(signal: C, snr_db, measure_axes=None,

@@ -11,24 +11,24 @@ Port of ofdm_lte_tpu/mimo/detector.py:
 Two layouts. The *plane* solvers (`mmse_planes`, `sic_planes`) take the rx
 and layer axes unrolled as Python lists of (..., S, m) planes, so every
 operand keeps the large subcarrier axis minor: the spatial link's route
-for MMSE, ZF and SIC at ranks 1 to 4. `sic_stacked`, which the link calls
-and `sic_planes` wraps, takes the same planes stacked on leading axes,
-(rx, ...) and (rx, L, ...), and runs the plane arithmetic one launch per
-operation over every (layer, layer) entry, as does the plane solve of
-ranks 1 and 3 (`_solve_s`). The *stacked* detectors take y
-(..., rx) and H (..., rx, L) with the tiny axes trailing and solve through
-cplx.solve: the route of MRC and the unbiased MMSE. σ² is a scalar or one
-value per lane: right-padded against planes, left-aligned against stacked
-matrices. All of it is elementwise PyTorch, closed forms for L ≤ 4; a tie
-in the SIC order goes to the lowest layer index in both layouts.
+for MMSE, ZF and SIC at ranks 1 to 4. `sic_stacked`, which `sic_planes`
+wraps and the link's SIC (ops/sic_detect) calls off the card, takes the
+same planes stacked on leading axes, (rx, ...) and (rx, L, ...), and runs
+the plane arithmetic one launch per operation over every (layer, layer)
+entry, as does the plane solve of ranks 1 and 3 (`_solve_s`). The
+*stacked* detectors take y (..., rx) and H (..., rx, L) with the tiny axes
+trailing and solve through cplx.solve: the route of MRC and the unbiased
+MMSE. σ² is a scalar or one value per lane: right-padded against planes,
+left-aligned against stacked matrices. All of it is elementwise PyTorch,
+closed forms for L ≤ 4; a tie in the SIC order goes to the lowest layer
+index in both layouts.
 
-On a card, `sic_replay` runs `sic_stacked` as one CUDA-graph replay: the
-host enqueues its few hundred launches once a shape, not once a call.
+On a card the spatial link's SIC runs as one kernel, ops/sic_detect, whose
+plain version is `effective_planes` and `sic_stacked`.
 """
 from __future__ import annotations
 
-from collections import OrderedDict
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -74,6 +74,19 @@ def _add_diag(A: C, d) -> C:
 def effective_channel(H: C, W: C) -> C:
     """H_eff = H @ W. H (..., rx, tx), W (tx, L) or (..., tx, L)."""
     return cplx.matmul_small(H, W)
+
+
+def effective_planes(h_tx: Sequence[C], W: C) -> C:
+    """heff (rx, L, ...) of the per-TX planes h_tx[t] (rx, ...) and W (tx, L):
+    heff[rx, l] = Σ_t h_tx[t][rx]·W[t, l], summed in t order, every layer at
+    once."""
+    L = W.shape[1]
+    heff = None
+    for t, h in enumerate(h_tx):
+        w = W[t].reshape((1, L) + (1,) * (h.ndim - 1))
+        term = C(h.re[:, None], h.im[:, None]) * w
+        heff = term if heff is None else heff + term
+    return heff
 
 
 def _mmse2_fused(y: C, H_eff: C, s2) -> C:
@@ -379,58 +392,6 @@ def sic_stacked(y: C, H: C, sigma2, modulation: str) -> C:
         active = active * (1.0 - sel)
 
     return s_hat
-
-
-# captured sic_stacked graphs: (shapes, dtype, modulation, device) -> (graph,
-# its input buffers, its output), the least recently used dropped first
-_GRAPHS: "OrderedDict[tuple, tuple]" = OrderedDict()
-MAX_GRAPHS = 4
-
-
-def sic_replay(y: C, H: C, sigma2, modulation: str) -> C:
-    """`sic_stacked` on a CUDA tensor as one CUDA-graph replay: captured once
-    a (shapes, σ² shape, modulation, device), then y, H and σ² are copied
-    into the captured inputs, the graph replays the same kernels on them
-    (the same bits) and the decisions are copied out, so that no later
-    replay overwrites a result the caller holds. A CPU tensor or a scalar
-    σ² (a Python float the graph would keep as a constant) runs
-    `sic_stacked` itself."""
-    if y.re.device.type != "cuda" or not isinstance(sigma2, torch.Tensor):
-        return sic_stacked(y, H, sigma2, modulation)
-    inputs = (y.re, y.im, H.re, H.im, sigma2)
-    key = tuple((tuple(t.shape), t.dtype) for t in inputs) + (modulation, y.re.device)
-    entry = _GRAPHS.get(key)
-    if entry is None:
-        entry = _GRAPHS[key] = _capture_sic(inputs, modulation)
-        while len(_GRAPHS) > MAX_GRAPHS:
-            _GRAPHS.popitem(last=False)
-    else:
-        _GRAPHS.move_to_end(key)
-    graph, buffers, out = entry
-    for buf, t in zip(buffers, inputs):
-        buf.copy_(t)
-    graph.replay()
-    return C(out.re.clone(), out.im.clone())
-
-
-def _capture_sic(inputs, modulation: str):
-    buffers = tuple(t.clone() for t in inputs)
-
-    def run():
-        yr, yi, hr, hi, s2 = buffers
-        return sic_stacked(C(yr, yi), C(hr, hi), s2, modulation)
-
-    # one eager pass on a side stream first, as torch.cuda.graphs asks, so
-    # that lazy initialisation stays out of the capture
-    side = torch.cuda.Stream(device=buffers[0].device)
-    side.wait_stream(torch.cuda.current_stream(buffers[0].device))
-    with torch.cuda.stream(side):
-        run()
-    torch.cuda.current_stream(buffers[0].device).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = run()
-    return graph, buffers, out
 
 
 def _align_sigma(sigma2, H_eff: C):

@@ -36,9 +36,10 @@ GEMM), `modem.papr`, the channel (`channel.multipath`, the links' Jakes
 taps and FIR, one fused pass on a card; or `channel.fading`, the flat H
 and its mix), in the time path `modem.rx_dft`, then `channel.awgn` (the
 bins' noise: P_rx, the draws, the sum), `modem.estimate`, the detector
-(`detector.heff`, the effective channel and σ², then `detector.sic`, one
-CUDA-graph replay on a card, or `detector.mmse` (MMSE, IRC, ZF); MRC and
-the unbiased MMSE `detector.detect` alone), `modem.demap` (the layer demap
+(`detector.sic`: σ², the effective channel, the SIC stages and the
+decisions, one ops/sic_detect launch on a card; or `detector.heff`, the
+effective channel and σ², then `detector.mmse` (MMSE, IRC, ZF); MRC and the
+unbiased MMSE `detector.detect` alone), `modem.demap` (the layer demap
 and the hard demap) and `link.errors`. No channel, modem or detector span
 holds another.
 """
@@ -65,6 +66,7 @@ from ..mimo import detector, layer_mapper
 from ..mimo.rank_adaptation import get_feedback
 from ..ops import ofdm, qam
 from ..ops.ofdm import ModTables
+from ..ops.sic_detect import sic_detect
 from ..rx.mimo_estimation import TxEstTables, estimate_per_tx_planes, per_tx_tables
 from ..utils.profiling import span
 from .links import cached_link
@@ -336,22 +338,16 @@ class SpatialLink(nn.Module):
         bins (rx, ..., S, m) and the per-TX estimates."""
         L = self.rank_used
         dt = self.detector_type.upper()
+        if dt == "SIC" and L in (1, 2, 3, 4):
+            with span("detector.sic"):
+                # σ² = 10^(-snr/10) against unit-power symbols, a float or one per lane;
+                # the effective channel, the SIC stages and the decisions in one pass
+                noise_var = _noise_var(snr_db, y_data.re.device)
+                return sic_detect(y_data, h_tx, W, noise_var, self.config.modulation)
         if dt in PLANE_DETECTORS and L in (1, 2, 3, 4):
             with span("detector.heff"):
-                # σ² = 10^(-snr/10) against unit-power symbols, a float or one per lane
                 noise_var = _noise_var(snr_db, y_data.re.device)
-                # effective channel heff[rx, l] = Σ_t h[t][rx]·W[t, l], summed in
-                # t order, every layer at once: (rx, L, ..., S, m)
-                h = cplx.stack(h_tx, axis=0)                       # (tx, rx, ..., S, m)
-                w = W.reshape((self.num_tx, 1, L) + (1,) * (h.ndim - 2))
-                heff = None
-                for t in range(self.num_tx):
-                    term = C(h.re[t][:, None], h.im[t][:, None]) * w[t]
-                    heff = term if heff is None else heff + term
-            if dt == "SIC":
-                with span("detector.sic"):
-                    s = detector.sic_replay(y_data, heff, noise_var, self.config.modulation)
-                    return C(s.re.movedim(0, -1), s.im.movedim(0, -1))
+                heff = detector.effective_planes(h_tx, W)          # (rx, L, ..., S, m)
             with span("detector.mmse"):
                 # ZF is the same regularized Gram solve with σ² -> ε
                 s_planes = detector.mmse_planes(

@@ -14,6 +14,7 @@ from ofdm_lte_tpu_torch import LTEConfig
 from ofdm_lte_tpu_torch.cplx import C
 from ofdm_lte_tpu_torch.ops import cmatmul as cm
 from ofdm_lte_tpu_torch.ops.multipath_fir import multipath_fir
+from ofdm_lte_tpu_torch.ops.sic_detect import sic_detect
 from ofdm_lte_tpu_torch.sim import siso
 
 
@@ -602,40 +603,91 @@ def test_multipath_step_takes_the_fused_pass_under_every_setting(precision, form
     assert multipath_fir.launches == fir_before + 1
 
 
+# (num_rx, L) with L <= num_rx; num_tx 4 throughout but for one 8-TX case
+SIC_SHAPES = [(r, L) for r in (1, 2, 3, 4) for L in range(1, r + 1)]
+SIC_MODULATIONS = ["QPSK", "16-QAM", "64-QAM"]
+
+
+def _sic_system(num_rx, num_tx, L, sigma, g, device, lanes=8, S=14, m=250):
+    """The kernel's operands: y and the per-TX planes (num_rx, lanes, S, m),
+    a TM4 precoder W (num_tx, L) other than the identity, and σ² a scalar or
+    one value per lane."""
+    from ofdm_lte_tpu_torch import cplx
+    from ofdm_lte_tpu_torch.mimo import codebook
+
+    def plane():
+        return C(*(torch.randn((num_rx, lanes, S, m), generator=g, device=device)
+                   for _ in range(2)))
+
+    y, h_tx = plane(), [plane() for _ in range(num_tx)]
+    W = cplx.const(codebook.get_precoder(1, num_tx, "TM4", L), device)
+    s2 = (torch.rand((lanes,), generator=g, device=device) * 0.3 + 1e-3 if sigma == "per_lane"
+          else 0.05)
+    return y, h_tx, W, s2
+
+
+def _sic_equal(y, h_tx, W, s2, modulation):
+    from ofdm_lte_tpu_torch.ops import sic_detect as sd
+    before = sd.sic_detect.launches
+    got = sd.sic_detect(y, h_tx, W, s2, modulation)
+    assert sd.sic_detect.launches == before + 1
+    want = sd.sic_detect_plain(y, h_tx, W, s2, modulation)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == tuple(y.shape[1:]) + (W.shape[1],)
+    assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("num_rx,L", [(4, 4), (2, 2)])
-def test_sic_replay_matches_sic_stacked_on_the_card(num_rx, L, cuda_device):
-    """The SIC detector's CUDA-graph replay against sic_stacked run eagerly,
-    bit for bit, on two inputs of one shape (one graph, replayed with the
-    second's data); the first result is a copy the second replay leaves as
-    it was; a scalar σ² runs eagerly and captures nothing."""
-    from ofdm_lte_tpu_torch.mimo import detector
+@pytest.mark.parametrize("sigma", ["scalar", "per_lane"])
+@pytest.mark.parametrize("modulation", SIC_MODULATIONS)
+@pytest.mark.parametrize("num_rx,L", SIC_SHAPES)
+def test_sic_detect_kernel_matches_plain(num_rx, L, modulation, sigma, cuda_device):
+    """csrc/sic_detect.cu against its plain version (the effective channel,
+    then sic_stacked) on the card: the decisions equal bit for bit on every
+    site, one launch."""
     g = torch.Generator(device=cuda_device)
-    g.manual_seed(31 + L)
-    lanes, S, m = 8, 14, 250
+    g.manual_seed(101 * num_rx + 7 * L + SIC_MODULATIONS.index(modulation))
+    _sic_equal(*_sic_system(num_rx, 4, L, sigma, g, cuda_device), modulation)
 
-    def system():
-        y = C(*(torch.randn((num_rx, lanes, S, m), generator=g, device=cuda_device)
-                for _ in range(2)))
-        H = C(*(torch.randn((num_rx, L, lanes, S, m), generator=g, device=cuda_device)
-                for _ in range(2)))
-        s2 = torch.rand((lanes,), generator=g, device=cuda_device) * 0.3
-        return y, H, s2
 
-    detector._GRAPHS.clear()
-    first, second = system(), system()
-    got1 = detector.sic_replay(*first, "64-QAM")
-    kept = (got1.re.clone(), got1.im.clone())
-    got2 = detector.sic_replay(*second, "64-QAM")
-    assert len(detector._GRAPHS) == 1
-    for got, args in ((got1, first), (got2, second)):
-        want = detector.sic_stacked(*args, "64-QAM")
-        assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
-    assert torch.equal(got1.re, kept[0]) and torch.equal(got1.im, kept[1])
-    y, H, _ = first
-    eager = detector.sic_replay(y, H, 0.05, "64-QAM")
-    want = detector.sic_stacked(y, H, 0.05, "64-QAM")
-    assert torch.equal(eager.re, want.re) and len(detector._GRAPHS) == 1
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_rx,num_tx,L", [(4, 8, 2), (2, 8, 1), (3, 2, 2)])
+def test_sic_detect_kernel_matches_plain_at_other_tx_counts(num_rx, num_tx, L, cuda_device):
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(num_rx * num_tx * L)
+    _sic_equal(*_sic_system(num_rx, num_tx, L, "per_lane", g, cuda_device), "64-QAM")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("modulation", SIC_MODULATIONS)
+def test_sic_detect_kernel_breaks_ties_as_plain(modulation, cuda_device):
+    """Unit columns of the effective channel (exact SINR ties) and two
+    collinear columns, as in test_sic_order_breaks_ties_as_jax: W the identity
+    here, so that h_tx is the effective channel; the kernel multiplies it out
+    all the same."""
+    from ofdm_lte_tpu_torch import cplx
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(5)
+    y, h_tx, _, _ = _sic_system(4, 4, 4, "scalar", g, cuda_device)
+    norms = [torch.sqrt(h.abs2().sum(dim=0, keepdim=True)) for h in h_tx]   # over rx
+    h_tx = [C(h.re / n, h.im / n) for h, n in zip(h_tx, norms)]
+    h_tx[2] = C(-h_tx[0].im, h_tx[0].re)                         # column 0 times j
+    _sic_equal(y, h_tx, cplx.const(np.eye(4), cuda_device), 0.1, modulation)
+
+
+@pytest.mark.cuda
+def test_sic_detect_wrapper_checks_its_inputs(cuda_device):
+    from ofdm_lte_tpu_torch.ops import sic_detect as sd
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(3)
+    y, h_tx, W, s2 = _sic_system(2, 4, 2, "scalar", g, cuda_device)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        sd.sic_detect(C(y.re[:, :, :, ::2], y.im[:, :, :, ::2]),
+                      [C(h.re[:, :, :, ::2], h.im[:, :, :, ::2]) for h in h_tx], W, s2, "QPSK")
+    with pytest.raises(ValueError, match="contiguous float32"):
+        sd.sic_detect(y, h_tx, C(W.re.cpu(), W.im.cpu()), s2, "QPSK")
+    empty = C(y.re[:, :0], y.im[:, :0])
+    assert sd.sic_detect(empty, [empty] * 4, W, s2, "QPSK").shape == (0, 14, 250, 2)
 
 
 SPATIAL_CASES = {
@@ -682,11 +734,13 @@ def test_spatial_link_on_card_matches_cpu_with_same_draws(name, cuda_device, mon
     bits = rng.integers(0, 2, (lanes, spatial.bits_per_frame(cfg, S))).astype(np.int32)
     snr = np.array([12.0, 20.0, 30.0], np.float32)
     before, copies = cm.cmatmul.launches, cm.cmatmul.copies
-    fir_before = multipath_fir.launches
+    fir_before, sic_before = multipath_fir.launches, sic_detect.launches
     on_card = spatial.simulate_spatial_multiplexing(torch.from_numpy(bits), snr, cfg,
                                                     draws=draws, **kw)
     assert cm.cmatmul.launches == before + SPATIAL_LAUNCHES[name]
     assert multipath_fir.launches == fir_before + FIR_LAUNCHES.get(name, 0)
+    # the SIC route is one pass of the detector kernel a forward
+    assert sic_detect.launches == sic_before + (kw["detector_type"] == "SIC")
     assert cm.cmatmul.copies == copies and on_card.bits_rx.is_cuda
     on_cpu = spatial.simulate_spatial_multiplexing(torch.from_numpy(bits), snr, cfg,
                                                    device="cpu", draws=draws, **kw)

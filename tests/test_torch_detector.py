@@ -175,17 +175,51 @@ def test_detect_rejects_what_jax_rejects(rng):
         tdet._solve_planes([[None] * 5] * 5, [None] * 5)
 
 
-@pytest.mark.parametrize("sigma", list(SIGMAS))
-def test_sic_replay_off_the_card_is_sic_stacked(sigma, rng):
-    """On a CPU tensor sic_replay is sic_stacked itself: the same decisions
-    bit for bit, and no graph captured."""
-    y, H, s = _system(rng, 4, 4)
-    yt = tcplx.from_numpy(np.moveaxis(y, -1, 0))                      # (rx, ..., S, m)
-    Ht = tcplx.from_numpy(np.moveaxis(H, (-2, -1), (0, 1)))          # (rx, L, ..., S, m)
+def _sic_inputs(rng, num_rx, num_tx, L, sigma):
+    """The link's SIC operands on the CPU: y (rx, ...), the per-TX planes
+    h_tx[t] (rx, ...), a TM4 precoder W (tx, L) and σ²."""
+    from ofdm_lte_tpu_torch.mimo import codebook
+    y = tcplx.from_numpy(_cn(rng, (num_rx, LANES, S, M)))
+    h_tx = [tcplx.from_numpy(_cn(rng, (num_rx, LANES, S, M))) for _ in range(num_tx)]
+    W = tcplx.from_numpy(codebook.get_precoder(1, num_tx, "TM4", L))
     s2 = SIGMAS[sigma]
-    s2 = torch.from_numpy(s2) if isinstance(s2, np.ndarray) else s2
-    graphs = len(tdet._GRAPHS)
-    got = tdet.sic_replay(yt, Ht, s2, "16-QAM")
-    want = tdet.sic_stacked(yt, Ht, s2, "16-QAM")
-    assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
-    assert len(tdet._GRAPHS) == graphs
+    return y, h_tx, W, torch.from_numpy(s2) if isinstance(s2, np.ndarray) else s2
+
+
+@pytest.mark.parametrize("sigma", list(SIGMAS))
+@pytest.mark.parametrize("num_rx,num_tx,L", [(4, 4, 4), (2, 4, 2), (4, 4, 3), (2, 2, 1)])
+def test_sic_detect_off_the_card_is_heff_and_sic_stacked(num_rx, num_tx, L, sigma, rng):
+    """On a CPU tensor ops/sic_detect is its plain version: the effective
+    channel Σ_t h_tx[t]·W[t, l] summed in t order, then sic_stacked, bit for
+    bit, in the (..., S, m, L) layout; no launch is counted."""
+    from ofdm_lte_tpu_torch.ops import sic_detect as sd
+    y, h_tx, W, s2 = _sic_inputs(rng, num_rx, num_tx, L, sigma)
+    h = tcplx.stack(h_tx, axis=0)                                     # (tx, rx, ...)
+    w = W.reshape((num_tx, 1, L, 1, 1, 1))
+    heff = None
+    for t in range(num_tx):
+        term = tcplx.C(h.re[t][:, None], h.im[t][:, None]) * w[t]
+        heff = term if heff is None else heff + term
+    want = tdet.sic_stacked(y, heff, s2, "16-QAM")
+    launches = sd.sic_detect.launches
+    got = sd.sic_detect(y, h_tx, W, s2, "16-QAM")
+    assert tuple(got.shape) == (LANES, S, M, L)
+    assert torch.equal(got.re, want.re.movedim(0, -1))
+    assert torch.equal(got.im, want.im.movedim(0, -1))
+    assert sd.sic_detect.launches == launches
+    # each decision is a constellation point: the quantizer leaves it as it is
+    again = tqam.detect(got, "16-QAM")
+    assert torch.equal(again.re, got.re) and torch.equal(again.im, got.im)
+
+
+def test_sic_detect_rejects_what_the_kernel_cannot_take(rng):
+    from ofdm_lte_tpu_torch.ops import sic_detect as sd
+    y, h_tx, W, s2 = _sic_inputs(rng, 2, 4, 2, "scalar")
+    with pytest.raises(ValueError, match="share one"):
+        sd.sic_detect(y, h_tx[:3] + [h_tx[3][:, :1]], W, s2, "QPSK")
+    with pytest.raises(ValueError, match="expected"):
+        sd.sic_detect(y, h_tx[:3], W, s2, "QPSK")
+    with pytest.raises(ValueError, match="L in 1..4"):
+        sd.sic_detect(y, h_tx, tcplx.czeros((4, 5)), s2, "QPSK")
+    with pytest.raises(ValueError, match="1..8"):
+        sd.sic_detect(y, h_tx * 3, tcplx.czeros((12, 2)), s2, "QPSK")

@@ -30,8 +30,7 @@ LINK_STAGES = {
     "rayleigh_mp": ["modem.tx", "modem.papr", "channel.multipath", "modem.rx_dft",
                     "modem.estimate", "modem.demap", "link.errors"],
     "spatial": ["modem.tx", "modem.papr", "channel.multipath", "modem.rx_dft", "channel.awgn",
-                "modem.estimate", "detector.heff", "detector.sic", "modem.demap",
-                "link.errors"]}
+                "modem.estimate", "detector.sic", "modem.demap", "link.errors"]}
 # the sweep's arguments of each link: the SISO link's channels, and the
 # spatial link of the benchmark's sic4x4_peda
 LINKS = {"awgn": dict(channel_type="awgn"), "rayleigh_mp": dict(channel_type="rayleigh_mp"),
